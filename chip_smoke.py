@@ -1,0 +1,521 @@
+"""Chip smoke test of the PyTorch/CUDA port (mxnet_tpu_torch) on one NVIDIA
+H100.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failed check exits nonzero; nothing runs on the CPU):
+
+1. environment: the card's name and power limit, torch, CUDA and nvcc;
+2. build: every kernel under mxnet_tpu_torch/csrc/ with nvcc for sm_90a;
+3. kernels: each kernel held against its plain PyTorch version on the card
+   at the serving path's shapes and a coverage grid, then timed with CUDA
+   events beside the plain version and one PyTorch library call;
+4. serving: Llama-3-8B widths in bf16 (random weights from a seed) served
+   by ServingEngine through submit()/result(); the kernels' launch counts
+   over the run, and every logits row the engine sampled from held against
+   the port's full-context forward with the plain attention (bf16, to a
+   bound measured in the run); then the same weights upcast to fp32 and
+   served again, every logits row held to FP32_LOGIT_TOL;
+5. the kernels line, then the device line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+BF16_TOL = {"atol": 2e-2, "rtol": 1e-2}   # o, bf16 kernel vs fp32 plain
+LSE_TOL = 1e-3
+F32_TOL = 1e-4
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
+PEAK_BYTES = 3.35e12
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def check(cond, what):
+    if not cond:
+        raise SystemExit(f"CHECK FAILED: {what}")
+
+
+def cuda_time_ms(fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def gpu_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+# ---------------------------------------------------------------------------
+# phase 3: flash_attn_fwd against its plain version
+# ---------------------------------------------------------------------------
+# (B, Hq, Hkv, Lq, Lk, D, causal); the first row is the serving path's
+# prefill at Llama-3-8B widths (bucket 2048), the one that is timed
+MAIN_SHAPE = (1, 32, 8, 2048, 2048, 128, True)
+KERNEL_CASES = [
+    MAIN_SHAPE,
+    (1, 32, 8, 512, 512, 128, True),       # prefill bucket 512
+    (1, 32, 8, 128, 128, 128, True),       # prefill bucket 128
+    (1, 32, 8, 512, 512, 128, False),
+    (1, 32, 8, 1000, 1000, 128, True),     # ragged length
+    (1, 32, 8, 1000, 1000, 128, False),
+    (1, 32, 8, 100, 1100, 128, True),      # Lq < Lk: the decode offset
+    (2, 12, 12, 384, 384, 64, False),      # BERT-base heads
+    (1, 4, 2, 256, 256, 32, True),         # llama_tiny heads
+    (1, 8, 8, 300, 300, 256, True),
+]
+
+
+def attention_work(shape, dtype):
+    """(FLOPs, bytes) the function needs: 4·D per visible (q, k) pair per
+    head; each input read once, o and lse written once."""
+    b, hq, hkv, lq, lk, d, causal = shape
+    if causal:
+        off = lk - lq
+        pairs = sum(min(lk, i + off + 1) for i in range(lq))
+    else:
+        pairs = lq * lk
+    flops = 4.0 * b * hq * d * pairs
+    es = torch.finfo(dtype).bits // 8
+    nbytes = es * (2 * b * hq * lq * d + 2 * b * hkv * lk * d) \
+        + 4 * b * hq * lq
+    return flops, nbytes
+
+
+def kernel_phase(gen):
+    from mxnet_tpu_torch.ops.flash_attention import (_flash_fwd_cuda,
+                                                     _mha_with_lse)
+
+    worst = 0.0
+    for shape in KERNEL_CASES:
+        b, hq, hkv, lq, lk, d, causal = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(b, hq, lq, d, device="cuda", generator=gen)
+            k = torch.randn(b, hkv, lk, d, device="cuda", generator=gen)
+            v = torch.randn(b, hkv, lk, d, device="cuda", generator=gen)
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            scale = 1.0 / math.sqrt(d)
+            o, lse = _flash_fwd_cuda(q, k, v, causal, scale)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = _mha_with_lse(q.float(), k.float(), v.float(),
+                                           causal, scale)
+            err_o = (o.float() - o_ref).abs().max().item()
+            err_l = (lse - lse_ref).abs().max().item()
+            if dtype == torch.bfloat16:
+                ok = torch.allclose(o.float(), o_ref, **BF16_TOL) and \
+                    err_l <= LSE_TOL
+                worst = max(worst, err_o)
+            else:
+                ok = err_o <= F32_TOL and err_l <= F32_TOL
+            log(f"  flash_attn_fwd {str(dtype)[6:]:8s} B={b} Hq={hq} "
+                f"Hkv={hkv} Lq={lq} Lk={lk} D={d} causal={causal}: "
+                f"max|o err|={err_o:.3e} max|lse err|={err_l:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"flash_attn_fwd {dtype} {shape} disagrees with "
+                      f"_mha_with_lse")
+            check(bool(torch.isfinite(o).all()), f"non-finite o at {shape}")
+
+    # timing at the serving path's prefill shape, bf16
+    b, hq, hkv, lq, lk, d, causal = MAIN_SHAPE
+    q = torch.randn(b, hq, lq, d, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(b, hkv, lk, d, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(b, hkv, lk, d, device="cuda", generator=gen).bfloat16()
+    scale = 1.0 / math.sqrt(d)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = cuda_time_ms(lambda: _flash_fwd_cuda(q, k, v, causal, scale))
+    plain_ms = cuda_time_ms(lambda: _mha_with_lse(q, k, v, causal, scale),
+                            iters=5)
+    lib_ms = cuda_time_ms(lambda: sdpa(q, k, v, is_causal=causal,
+                                       scale=scale, enable_gqa=True))
+    flops, nbytes = attention_work(MAIN_SHAPE, torch.bfloat16)
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    row = {"name": "flash_attn_fwd", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
+           "replaces": "mxnet_tpu/ops/flash_attention.py::_fa_fwd_kernel",
+           "launches": None, "max_abs_err": worst, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": lib_ms}
+    log(f"  timing at {MAIN_SHAPE} bf16: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {flops / 1e9:.2f} "
+        f"GFLOP, {nbytes / 1e6:.2f} MB) -> {flops / ms / 1e9:.1f} TFLOP/s")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serving at Llama-3-8B widths
+# ---------------------------------------------------------------------------
+N_REQUESTS = 8
+MAX_NEW = 32
+
+
+def make_prompts(seed, vocab):
+    """Lengths over ~60-2000 tokens, drawn so that every prefill bucket
+    (128, 512, 2048) is hit; ids uniform over the vocabulary."""
+    r = np.random.RandomState(seed)
+    lengths = list(r.randint(60, 129, 2)) + list(r.randint(129, 513, 3)) \
+        + list(r.randint(513, 2001, 3))
+    r.shuffle(lengths)
+    return [r.randint(0, vocab, (int(n),)).astype(np.int32)
+            for n in lengths]
+
+
+KERNEL_GROUPS = (("flash_attn_fwd", ("fa_fwd",)),
+                 ("matmul", ("gemm", "xmma", "nvjet", "cutlass", "gemv")),
+                 ("copy/index", ("index", "copy", "gather", "scatter",
+                                 "Memcpy", "Memset")))
+
+
+def profile_pass(engine, prompts, temps, seed):
+    """Serve the same requests again under torch.profiler, device activity
+    only, and print the device time by kernel group against the wall time
+    of the pass (its busy share).  The measured pass ran without the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve(engine, prompts, temps, seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            by_kernel[ev.key] = us / 1e3
+    busy = sum(by_kernel.values())
+    if busy == 0:
+        log("  profile: no device time recorded (not measured)")
+        return
+    groups = {}
+    for key, ms in by_kernel.items():
+        group = next((g for g, pats in KERNEL_GROUPS
+                      if any(pt in key for pt in pats)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    log(f"  profiled pass: wall {wall:.3f} s, device busy "
+        f"{busy / 1e3:.3f} s ({100 * busy / 1e3 / wall:.1f}% busy)")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"    {group:15s} {ms:10.2f} ms  {100 * ms / busy:5.1f}%")
+    for key, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {ms:10.2f} ms  {key[:110]}")
+
+
+def serve(engine, prompts, temps, seed):
+    """Submit every prompt at once and wait for all.  Returns the results
+    and the logits row the engine sampled each token from, keyed by
+    (request id, token index): the engine's ``_sample`` is wrapped for the
+    run, and each row is cloned on the device (the last capture of a key
+    wins, so a re-prefilled continuation keeps its own rows)."""
+    rows = {}
+    sample = engine._sample
+
+    def recording_sample(logits, reqs):
+        for i, req in enumerate(reqs):
+            rows[(req.id, len(req.tokens))] = logits[i].detach().clone()
+        return sample(logits, reqs)
+
+    engine._sample = recording_sample
+    try:
+        reqs = [engine.submit(p, max_new_tokens=MAX_NEW, temperature=t,
+                              seed=seed * 1000 + i)
+                for i, (p, t) in enumerate(zip(prompts, temps))]
+        results = [r.result(timeout=900) for r in reqs]
+    finally:
+        del engine._sample
+    return results, rows
+
+
+def engine_rows(rows, result):
+    """(tokens, V) fp32: the logits behind each of a request's tokens."""
+    rid = result["request_id"]
+    return torch.stack([rows[(rid, j)] for j in
+                        range(len(result["token_ids"]))]).float()
+
+
+def forward_rows(llama_mod, params, cfg, device, prompt, toks):
+    """The port's full-context forward over prompt + toks[:-1] with the
+    PLAIN attention: the logits (tokens, V) fp32 at the positions that
+    produced each token.  The caller swaps the model's attention function;
+    nothing in the package falls back."""
+    ids = np.concatenate([prompt, np.asarray(toks[:-1], np.int32)])
+    x = llama_mod._prefill_trunk(
+        params, cfg, torch.as_tensor(ids[None], device=device),
+        lambda *a: None)
+    return llama_mod._dense_nb(x[0, prompt.size - 1:],
+                               params["lm_head.weight"]).float()
+
+
+class plain_attention_in:
+    """Context manager: the model module's flash_attention is the plain
+    version while it is open (the reference forwards of the checks)."""
+
+    def __init__(self, llama_mod, fa_mod):
+        self.llama_mod, self.fa_mod = llama_mod, fa_mod
+
+    def __enter__(self):
+        fa = self.fa_mod
+        self.saved = self.llama_mod.flash_attention
+        self.llama_mod.flash_attention = \
+            lambda q, k, v, causal=False, sm_scale=None: \
+            fa._mha_with_lse(q, k, v, causal, sm_scale)[0]
+
+    def __exit__(self, *exc):
+        self.llama_mod.flash_attention = self.saved
+
+
+def check_bf16_run(llama_mod, fa_mod, net, prompts, temps, results, rows):
+    """The timed bf16 run against the full-context forward.  Two correct
+    bf16 evaluations of this 32-layer model differ by tenths on logits of
+    ~5 through rounding order alone, far above the single-kernel
+    tolerance, so the bound is measured in this run: NOISE = max|forward
+    in bf16 - forward in fp32| per position.  Every logits row the engine
+    sampled from (prefill and decode, all requests) must lie within
+    2 x NOISE of the fp32 forward, and each greedy token must trail the
+    fp32 forward's best logit by at most 2 x NOISE.  This catches gross
+    faults only; the fp32 pass (check_fp32_run) holds the engine tight."""
+    cfg = net.config
+    params = llama_mod.serving_params(net)
+    params32 = {k: v.float() for k, v in params.items()}
+    worst_err, worst_deficit = 0.0, 0.0
+    with torch.no_grad(), plain_attention_in(llama_mod, fa_mod):
+        for p, t, r in zip(prompts, temps, results):
+            toks = r["token_ids"]
+            f16 = forward_rows(llama_mod, params, cfg, net.device, p, toks)
+            f32 = forward_rows(llama_mod, params32, cfg, net.device, p, toks)
+            eng = engine_rows(rows, r)
+            check(bool(torch.isfinite(eng).all()),
+                  f"non-finite engine logits for request {r['request_id']}")
+            noise = (f16 - f32).abs().amax(dim=-1)
+            err = (eng - f32).abs().amax(dim=-1)
+            worst_err = max(worst_err, (err / noise).amax().item())
+            msg = (f"  request {r['request_id']}: bf16-vs-fp32 forward noise "
+                   f"max {noise.amax().item():.4f}; engine logits vs fp32 "
+                   f"forward max|err| {err.amax().item():.4f} "
+                   f"({(err / noise).amax().item():.2f} x noise)")
+            check(bool((err <= 2 * noise).all()),
+                  f"request {r['request_id']}: engine logits stray more "
+                  f"than 2 x noise from the full-context forward")
+            if t == 0.0:
+                idx = torch.as_tensor(toks, device=f32.device)
+                deficit = f32.amax(dim=-1) - f32.gather(1, idx[:, None])[:, 0]
+                ratio = (deficit / noise).amax().item()
+                worst_deficit = max(worst_deficit, ratio)
+                msg += (f"; greedy tokens trail the fp32 best by at most "
+                        f"{deficit.amax().item():.4f} ({ratio:.2f} x noise), "
+                        f"{int((deficit == 0).sum())}/{len(toks)} are its "
+                        f"argmax")
+                check(bool((deficit <= 2 * noise).all()),
+                      f"request {r['request_id']}: a greedy token trails "
+                      f"the full-context forward by more than 2 x noise")
+            log(msg)
+    log(f"  bf16 run agrees with the full-context forward: logits within "
+        f"{worst_err:.2f} x noise, greedy deficits within "
+        f"{worst_deficit:.2f} x noise (bound 2)")
+
+
+FP32_LOGIT_TOL = 1e-3
+
+
+def check_fp32_run(llama_mod, fa_mod, net, prompts, temps, results, rows):
+    """The engine in fp32 (the same weights, upcast) against the fp32
+    full-context forward with the plain attention: every logits row the
+    engine sampled from, prefill and each decode step of every request,
+    within FP32_LOGIT_TOL; every greedy token the forward's argmax unless
+    the forward's top two lie within FP32_LOGIT_TOL (then it must be one
+    of them).  fp32 rounding through 32 layers stays far below the
+    tolerance; a wrong page, slot, position or mask moves logits far
+    above it."""
+    cfg = net.config
+    params = llama_mod.serving_params(net)
+    worst = 0.0
+    with torch.no_grad(), plain_attention_in(llama_mod, fa_mod):
+        for p, t, r in zip(prompts, temps, results):
+            toks = r["token_ids"]
+            ref = forward_rows(llama_mod, params, cfg, net.device, p, toks)
+            err = (engine_rows(rows, r) - ref).abs().amax(dim=-1)
+            worst = max(worst, err.amax().item())
+            log(f"  request {r['request_id']}: fp32 engine logits vs fp32 "
+                f"forward max|err| {err.amax().item():.3e} (first token "
+                f"{err[0].item():.3e}), logits span "
+                f"{ref.amin().item():.3f}..{ref.amax().item():.3f}")
+            check(bool((err <= FP32_LOGIT_TOL).all()),
+                  f"request {r['request_id']}: fp32 engine logits differ "
+                  f"from the full-context forward by more than "
+                  f"{FP32_LOGIT_TOL}")
+            if t != 0.0:
+                continue
+            top2 = ref.topk(2, dim=-1)
+            for j, tok in enumerate(toks):
+                best, second = top2.indices[j].tolist()
+                tie = (top2.values[j, 0] - top2.values[j, 1]).item() \
+                    < FP32_LOGIT_TOL
+                check(tok == best or (tie and tok == second),
+                      f"request {r['request_id']}: fp32 greedy token {j} is "
+                      f"{tok}, the forward's argmax is {best}")
+                if tok != best:
+                    break        # a near tie took the other branch
+    log(f"  fp32 run agrees with the full-context forward: worst logit "
+        f"error {worst:.3e} (tolerance {FP32_LOGIT_TOL})")
+
+
+def serving_phase(seed):
+    from mxnet_tpu_torch.gluon.model_zoo.language import llama as llama_mod
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+    from mxnet_tpu_torch.serving import ServingEngine
+
+    cfg = llama_mod.LlamaConfig(dtype="bfloat16")
+    t0 = time.perf_counter()
+    net = llama_mod.init_random_(llama_mod.LlamaForCausalLM(cfg), seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"  model: vocab {cfg.vocab_size}, hidden {cfg.hidden_size}, "
+        f"{cfg.num_layers} layers, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads}, head_dim {cfg.head_dim}, ffn "
+        f"{cfg.intermediate_size}, bf16, {n_params / 1e9:.3f} B params "
+        f"({time.perf_counter() - t0:.1f} s to build)")
+    engine_kw = dict(batch_buckets=[1, 2, 4, 8],
+                     prefill_buckets=[128, 512, 2048], kv_pages=2048,
+                     page_size=16, max_batch=8)
+    engine = ServingEngine(net, **engine_kw).start()
+    log(f"  KV pool: {engine._kv.nbytes() / 2**30:.3f} GiB")
+    prompts = make_prompts(seed, cfg.vocab_size)
+    temps = [0.8 if i in (1, 5) else 0.0 for i in range(N_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_mod._flash_fwd_cuda.launches = 0          # counts of this run only
+    t0 = time.perf_counter()
+    results, rows = serve(engine, prompts, temps, seed)
+    wall = time.perf_counter() - t0
+    launches = fa_mod._flash_fwd_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    phase = dict(engine.phase_seconds)
+
+    prefills = sum(r["prefills"] for r in results)
+    for p, t, r in zip(prompts, temps, results):
+        log(f"  request {r['request_id']}: prompt {p.size}, temperature "
+            f"{t}, {len(r['token_ids'])} tokens, {r['prefills']} "
+            f"prefill(s), ttft {r['ttft_s']:.4f} s, latency "
+            f"{r['latency_s']:.4f} s, finish {r['finish_reason']}")
+        check(len(r["token_ids"]) == MAX_NEW and
+              r["finish_reason"] == "length",
+              f"request {r['request_id']} did not generate {MAX_NEW} tokens")
+    check(launches == cfg.num_layers * prefills,
+          f"flash_attn_fwd launched {launches} times in the serving run, "
+          f"expected num_layers x prefills = {cfg.num_layers * prefills}")
+    ttft = sorted(r["ttft_s"] for r in results)
+    decode_tokens = sum(len(r["token_ids"]) - r["prefills"]
+                        for r in results)
+    log(f"  served {N_REQUESTS} requests in {wall:.3f} s: TTFT p50 "
+        f"{ttft[len(ttft) // 2]:.4f} s (max {ttft[-1]:.4f} s); prefill "
+        f"{phase['prefill']:.4f} s, decode {phase['decode']:.4f} s; decode "
+        f"{decode_tokens / phase['decode']:.1f} tokens/s; flash_attn_fwd "
+        f"launches {launches} = {cfg.num_layers} layers x {prefills} "
+        f"prefills; peak memory {peak / 2**30:.3f} GiB")
+    profile_pass(engine, prompts, temps, seed)
+    engine.close()
+    del engine
+    check_bf16_run(llama_mod, fa_mod, net, prompts, temps, results, rows)
+
+    log("== serving in fp32: the same weights and requests, held tight")
+    del rows
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    net.float()
+    engine = ServingEngine(net, **engine_kw).start()
+    fa_mod._flash_fwd_cuda.launches = 0
+    results32, rows32 = serve(engine, prompts, temps, seed)
+    engine.close()
+    prefills32 = sum(r["prefills"] for r in results32)
+    check(fa_mod._flash_fwd_cuda.launches == cfg.num_layers * prefills32,
+          "flash_attn_fwd launches in the fp32 run != layers x prefills")
+    check(all(len(r["token_ids"]) == MAX_NEW for r in results32),
+          "an fp32 request did not generate its tokens")
+    del engine
+    check_fp32_run(llama_mod, fa_mod, net, prompts, temps, results32, rows32)
+    log(f"  fp32 pass took {time.perf_counter() - t0:.1f} s")
+    return {"flash_attn_fwd": launches}
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the weights, prompts and inputs")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs only on the "
+              "card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mxnet_tpu_torch import _kernels
+
+    t_all = time.perf_counter()
+    log("== environment")
+    log(f"  {gpu_line()}")
+    log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    nvcc = _kernels._nvcc()
+    log(f"  {nvcc}: " + subprocess.run([nvcc, "--version"],
+                                       capture_output=True, text=True,
+                                       check=True).stdout.strip()
+        .splitlines()[-1])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    log("== build")
+    shutil.rmtree(_kernels._BUILD, ignore_errors=True)   # build from source
+    secs = _kernels.build_all()
+    log(f"  built {_kernels.sources()} in {secs:.2f} s")
+    for name in _kernels.sources():
+        for line in (_kernels.build_log(name) or "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    log("== kernels vs plain versions")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    row = kernel_phase(gen)
+
+    log("== serving: Llama-3-8B widths and depth (32 layers)")
+    counts = serving_phase(args.seed)
+    row["launches"] = counts[row["name"]]
+    check(row["launches"] > 0, "flash_attn_fwd never ran on the main path")
+    log(f"== done in {time.perf_counter() - t_all:.1f} s")
+    print(gpu_line())
+    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
