@@ -9,12 +9,18 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
 2. build: every kernel under mxnet_tpu_torch/csrc/ with nvcc for sm_90a;
+   ptxas's registers, spills and wgmma-serialisation warnings for every
+   instance (a bf16 instance that spills or serialises fails), and the
+   SASS of the bf16 D = 128 instance (HGMMA and UTMALDG, no HMMA);
 3. kernels: each kernel held against its plain PyTorch version on the card
-   at the serving path's shapes and a coverage grid, then timed with CUDA
-   events beside the plain version and one PyTorch library call;
+   at the serving path's shapes and a coverage grid (contiguous inputs and
+   transposed (B, L, H, D) views), then timed at every prefill bucket
+   beside one PyTorch library call and the bound, and at the largest
+   beside the plain version;
 4. serving: Llama-3-8B widths in bf16 (random weights from a seed) served
    by ServingEngine through submit()/result(); the kernels' launch counts
-   over the run, and every logits row the engine sampled from held against
+   over the run, in all and by prefill bucket, and every logits row the
+   engine sampled from held against
    the port's full-context forward with the plain attention (bf16, to a
    bound measured in the run); then the same weights upcast to fp32 and
    served again, every logits row held to FP32_LOGIT_TOL;
@@ -51,6 +57,8 @@ def check(cond, what):
 
 
 def cuda_time_ms(fn, iters=20, warmup=3):
+    """Eager time per call with CUDA events: the host's launch cost shows
+    where it exceeds the device's."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -60,6 +68,30 @@ def cuda_time_ms(fn, iters=20, warmup=3):
         fn()
     stop.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def graph_time_ms(fn, iters=20, warmup=3):
+    """Device time per call: ``iters`` calls captured in one CUDA graph and
+    replayed, timed with CUDA events, so no host launch cost is counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(stop) / iters
 
 
@@ -73,27 +105,38 @@ def gpu_line():
 # ---------------------------------------------------------------------------
 # phase 3: flash_attn_fwd against its plain version
 # ---------------------------------------------------------------------------
-# (B, Hq, Hkv, Lq, Lk, D, causal); the first row is the serving path's
-# prefill at Llama-3-8B widths (bucket 2048), the one that is timed
-MAIN_SHAPE = (1, 32, 8, 2048, 2048, 128, True)
-KERNEL_CASES = [
-    MAIN_SHAPE,
-    (1, 32, 8, 512, 512, 128, True),       # prefill bucket 512
-    (1, 32, 8, 128, 128, 128, True),       # prefill bucket 128
-    (1, 32, 8, 512, 512, 128, False),
-    (1, 32, 8, 1000, 1000, 128, True),     # ragged length
-    (1, 32, 8, 1000, 1000, 128, False),
-    (1, 32, 8, 100, 1100, 128, True),      # Lq < Lk: the decode offset
-    (2, 12, 12, 384, 384, 64, False),      # BERT-base heads
-    (1, 4, 2, 256, 256, 32, True),         # llama_tiny heads
-    (1, 8, 8, 300, 300, 256, True),
+# (B, Hq, Hkv, Lq, Lk, D, causal, views): views = q/k/v are transposed views
+# of (B, L, H, D) tensors, as the model's projections hand them over.  The
+# first three rows are the serving path's prefills at Llama-3-8B widths
+# (buckets 2048, 512, 128), timed; the first is the kernels line's shape.
+MAIN_SHAPE = (1, 32, 8, 2048, 2048, 128, True, False)
+BUCKET_SHAPES = [MAIN_SHAPE,
+                 (1, 32, 8, 512, 512, 128, True, False),
+                 (1, 32, 8, 128, 128, 128, True, False)]
+KERNEL_CASES = BUCKET_SHAPES + [
+    (1, 32, 8, 512, 512, 128, False, False),
+    (1, 32, 8, 1000, 1000, 128, True, False),     # ragged length
+    (1, 32, 8, 1000, 1000, 128, False, False),
+    (1, 32, 8, 100, 1100, 128, True, False),      # Lq < Lk: the decode offset
+    (2, 32, 8, 2048, 2048, 128, False, False),    # batch 2, no diagonal
+    (1, 32, 8, 1, 2048, 128, True, False),        # one query row
+    (1, 32, 8, 200, 2048, 128, True, False),      # offset not a tile multiple
+    (1, 32, 32, 512, 512, 128, True, False),      # no GQA
+    (1, 32, 8, 2048, 2048, 128, True, True),      # the serving layout
+    (2, 32, 8, 300, 700, 128, True, True),
+    (2, 12, 12, 384, 384, 64, False, False),      # BERT-base heads
+    (2, 12, 12, 384, 384, 64, True, True),
+    (1, 4, 2, 256, 256, 32, True, False),         # llama_tiny heads
+    (1, 4, 2, 200, 300, 32, True, True),
+    (1, 8, 8, 300, 300, 256, True, False),
+    (1, 8, 2, 130, 333, 256, True, True),
 ]
 
 
 def attention_work(shape, dtype):
     """(FLOPs, bytes) the function needs: 4·D per visible (q, k) pair per
     head; each input read once, o and lse written once."""
-    b, hq, hkv, lq, lk, d, causal = shape
+    b, hq, hkv, lq, lk, d, causal = shape[:7]
     if causal:
         off = lk - lq
         pairs = sum(min(lk, i + off + 1) for i in range(lq))
@@ -106,18 +149,36 @@ def attention_work(shape, dtype):
     return flops, nbytes
 
 
+def bound_ms(shape, dtype):
+    """The least time the card could take: (ms, "operations" or "bytes")."""
+    flops, nbytes = attention_work(shape, dtype)
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def make_qkv(shape, dtype, gen):
+    b, hq, hkv, lq, lk, d, _, views = shape
+
+    def one(h, length):
+        if views:
+            t = torch.randn(b, length, h, d, device="cuda", generator=gen)
+            return t.to(dtype).transpose(1, 2)
+        return torch.randn(b, h, length, d, device="cuda",
+                           generator=gen).to(dtype)
+
+    return one(hq, lq), one(hkv, lk), one(hkv, lk)
+
+
 def kernel_phase(gen):
     from mxnet_tpu_torch.ops.flash_attention import (_flash_fwd_cuda,
                                                      _mha_with_lse)
 
     worst = 0.0
     for shape in KERNEL_CASES:
-        b, hq, hkv, lq, lk, d, causal = shape
+        b, hq, hkv, lq, lk, d, causal, views = shape
         for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn(b, hq, lq, d, device="cuda", generator=gen)
-            k = torch.randn(b, hkv, lk, d, device="cuda", generator=gen)
-            v = torch.randn(b, hkv, lk, d, device="cuda", generator=gen)
-            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            q, k, v = make_qkv(shape, dtype, gen)
             scale = 1.0 / math.sqrt(d)
             o, lse = _flash_fwd_cuda(q, k, v, causal, scale)
             torch.cuda.synchronize()
@@ -132,40 +193,96 @@ def kernel_phase(gen):
             else:
                 ok = err_o <= F32_TOL and err_l <= F32_TOL
             log(f"  flash_attn_fwd {str(dtype)[6:]:8s} B={b} Hq={hq} "
-                f"Hkv={hkv} Lq={lq} Lk={lk} D={d} causal={causal}: "
+                f"Hkv={hkv} Lq={lq} Lk={lk} D={d} causal={causal} "
+                f"{'(B,L,H,D) views' if views else 'contiguous'}: "
                 f"max|o err|={err_o:.3e} max|lse err|={err_l:.3e} "
                 f"{'ok' if ok else 'FAIL'}")
             check(ok, f"flash_attn_fwd {dtype} {shape} disagrees with "
                       f"_mha_with_lse")
             check(bool(torch.isfinite(o).all()), f"non-finite o at {shape}")
+            check(o.shape == q.shape and o.transpose(1, 2).is_contiguous(),
+                  f"o at {shape} is not the (B, Hq, Lq, D) view of a "
+                  f"(B, Lq, Hq, D) tensor")
+            del q, k, v, o, lse, o_ref, lse_ref
 
-    # timing at the serving path's prefill shape, bf16
-    b, hq, hkv, lq, lk, d, causal = MAIN_SHAPE
-    q = torch.randn(b, hq, lq, d, device="cuda", generator=gen).bfloat16()
-    k = torch.randn(b, hkv, lk, d, device="cuda", generator=gen).bfloat16()
-    v = torch.randn(b, hkv, lk, d, device="cuda", generator=gen).bfloat16()
-    scale = 1.0 / math.sqrt(d)
+    # timing at the serving path's prefill shapes, bf16: device time from
+    # a replayed CUDA graph for the kernel and SDPA alike, and the eager
+    # time per call (host launch cost included)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = cuda_time_ms(lambda: _flash_fwd_cuda(q, k, v, causal, scale))
-    plain_ms = cuda_time_ms(lambda: _mha_with_lse(q, k, v, causal, scale),
-                            iters=5)
-    lib_ms = cuda_time_ms(lambda: sdpa(q, k, v, is_causal=causal,
-                                       scale=scale, enable_gqa=True))
-    flops, nbytes = attention_work(MAIN_SHAPE, torch.bfloat16)
-    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    row = {"name": "flash_attn_fwd", "route": "cuda",
-           "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
-           "replaces": "mxnet_tpu/ops/flash_attention.py::_fa_fwd_kernel",
-           "launches": None, "max_abs_err": worst, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": lib_ms}
-    log(f"  timing at {MAIN_SHAPE} bf16: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {flops / 1e9:.2f} "
-        f"GFLOP, {nbytes / 1e6:.2f} MB) -> {flops / ms / 1e9:.1f} TFLOP/s")
+    row = None
+    for shape in BUCKET_SHAPES:
+        b, hq, hkv, lq, lk, d, causal, _ = shape
+        q, k, v = make_qkv(shape, torch.bfloat16, gen)
+        scale = 1.0 / math.sqrt(d)
+        run = lambda: _flash_fwd_cuda(q, k, v, causal, scale)   # noqa: E731
+        lib = lambda: sdpa(q, k, v, is_causal=causal, scale=scale,  # noqa
+                           enable_gqa=True)
+        ms, lib_ms = graph_time_ms(run), graph_time_ms(lib)
+        eager_ms, lib_eager_ms = cuda_time_ms(run), cuda_time_ms(lib)
+        bound, bound_by = bound_ms(shape, torch.bfloat16)
+        flops, nbytes = attention_work(shape, torch.bfloat16)
+        log(f"  timing Lq=Lk={lq} bf16 causal: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound / ms:.1f}% of "
+            f"bound), sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
+            f"eager per call: kernel {eager_ms:.4f} ms, sdpa "
+            f"{lib_eager_ms:.4f} ms")
+        if shape == MAIN_SHAPE:
+            plain_ms = cuda_time_ms(
+                lambda: _mha_with_lse(q, k, v, causal, scale), iters=5)
+            log(f"  plain version at Lq=Lk={lq}: {plain_ms:.4f} ms")
+            row = {"name": "flash_attn_fwd", "route": "cuda",
+                   "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
+                   "replaces":
+                       "mxnet_tpu/ops/flash_attention.py::_fa_fwd_kernel",
+                   "launches": None, "max_abs_err": worst, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": bound_by, "library_ms": lib_ms}
+        del q, k, v
     return row
+
+
+def build_checks(kernels):
+    """ptxas's report for every instance, and the SASS of the bf16 D = 128
+    instance.  A bf16 instance that spills or whose wgmma ptxas serialises
+    fails; so does a D = 128 instance without HGMMA and UTMALDG or with
+    HMMA (mma.sync)."""
+    import re
+
+    for name in kernels.sources():
+        fn = None
+        for line in (kernels.build_log(name) or "").splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+                continue
+            tag = re.search(r"fa_fwd_(\w+?)ILi(\d+)E", fn or "")
+            inst = f"{tag.group(1)}<{tag.group(2)}>" if tag else (fn or name)
+            if "serializ" in line:
+                log(f"  {name} {inst}: {line.strip()}")
+                check(False, f"ptxas serialises wgmma: {line.strip()}")
+            elif "(C75" in line:      # ptxas's other performance notes
+                log(f"  {name}: {line.strip()}")
+            elif "registers" in line or "spill" in line:
+                log(f"  {name} {inst}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores", line)
+                if m and int(m.group(1)) and "wgmma" in inst:
+                    check(False, f"{inst} spills registers")
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    check(os.path.isfile(cuobjdump),
+          f"cuobjdump is missing ({cuobjdump}); the SASS check needs it")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(kernels._target("flash_attn_fwd"))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)[1:]
+    main = [f for f in funcs if "fa_fwd_wgmmaILi128E" in f.split("\n", 1)[0]]
+    check(len(main) == 1, "no bf16 D = 128 instance in the SASS")
+    counts = {op: len(re.findall(rf"\b{op}\b", main[0]))
+              for op in ("HGMMA", "UTMALDG", "HMMA")}
+    log(f"  SASS of fa_fwd_wgmma<128>: {counts}")
+    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
+          and counts["HMMA"] == 0,
+          "the bf16 D = 128 instance is not wgmma + TMA without mma.sync")
 
 
 # ---------------------------------------------------------------------------
@@ -412,10 +529,12 @@ def serving_phase(seed):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa_mod._flash_fwd_cuda.launches = 0          # counts of this run only
+    fa_mod._flash_fwd_cuda.launches_by_len = {}
     t0 = time.perf_counter()
     results, rows = serve(engine, prompts, temps, seed)
     wall = time.perf_counter() - t0
     launches = fa_mod._flash_fwd_cuda.launches
+    by_bucket = dict(sorted(fa_mod._flash_fwd_cuda.launches_by_len.items()))
     peak = torch.cuda.max_memory_allocated()
     phase = dict(engine.phase_seconds)
 
@@ -440,6 +559,8 @@ def serving_phase(seed):
         f"{decode_tokens / phase['decode']:.1f} tokens/s; flash_attn_fwd "
         f"launches {launches} = {cfg.num_layers} layers x {prefills} "
         f"prefills; peak memory {peak / 2**30:.3f} GiB")
+    log(f"  flash_attn_fwd launches by prefill bucket: "
+        + ", ".join(f"{n} at {lb}" for lb, n in by_bucket.items()))
     profile_pass(engine, prompts, temps, seed)
     engine.close()
     del engine
@@ -494,10 +615,7 @@ def main():
     shutil.rmtree(_kernels._BUILD, ignore_errors=True)   # build from source
     secs = _kernels.build_all()
     log(f"  built {_kernels.sources()} in {secs:.2f} s")
-    for name in _kernels.sources():
-        for line in (_kernels.build_log(name) or "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    build_checks(_kernels)
 
     log("== kernels vs plain versions")
     gen = torch.Generator(device="cuda")

@@ -36,7 +36,8 @@ _SIGNATURES = {
         "mxt_flash_attn_fwd": (
             ctypes.c_int,
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+            + [ctypes.c_float, ctypes.c_int,
+               ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]),
         "mxt_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
 }

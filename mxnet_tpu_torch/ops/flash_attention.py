@@ -10,6 +10,7 @@ supported head dim goes through the kernel on the card: the reference's
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -69,10 +70,41 @@ def _mha_with_lse(q, k, v, causal, sm_scale):
     return o, lse
 
 
+def _kernel_strides(name, t):
+    """Element strides (batch, head, seq) of a (B, H, L, D) tensor as the
+    kernel takes them: its tensor maps (TMA) need a dense head dim, a
+    16-byte aligned base and the other strides positive multiples of 16
+    bytes.  Raises :class:`MXNetError` otherwise; the caller copies
+    nothing.  A size-1 dim's stride is never used to address, so one that
+    TMA would refuse is replaced by the tensor's span."""
+    shape, strides = t.shape, t.stride()
+    align = 16 // t.element_size()          # elements in 16 bytes
+    if t.data_ptr() % 16:
+        raise MXNetError(f"the flash-attention kernel takes 16-byte aligned "
+                         f"tensors ({name} is at {t.data_ptr():#x})")
+    if shape[3] > 1 and strides[3] != 1:
+        raise MXNetError(f"the flash-attention kernel takes a dense head "
+                         f"dim ({name} has stride {strides[3]})")
+    out = list(strides[:3])
+    for i in range(3):
+        if out[i] > 0 and out[i] % align == 0:
+            continue
+        if shape[i] > 1:
+            raise MXNetError(f"the flash-attention kernel takes strides "
+                             f"that are positive multiples of 16 bytes "
+                             f"({name} has strides {tuple(strides)})")
+        span = max(n * st for n, st in zip(shape, strides))
+        out[i] = -(-span // align) * align
+    return out
+
+
 def _flash_fwd_cuda(q, k, v, causal, sm_scale):
     """Launch ``csrc/flash_attn_fwd.cu`` on CUDA tensors: returns
-    ``(o (B, Hq, Lq, D) in q.dtype, lse (B, Hq, Lq) fp32)``.  Raises on
-    anything the kernel does not take; never falls back."""
+    ``(o (B, Hq, Lq, D) in q.dtype, lse (B, Hq, Lq) fp32)``.  q/k/v may be
+    any views the tensor maps take (see :func:`_kernel_strides`); ``o`` is
+    the (B, Hq, Lq, D) view of a (B, Lq, Hq, D) tensor, so merging its
+    heads back into the hidden dim is free.  Raises on anything the kernel
+    does not take; never falls back."""
     _check_shapes(q, k, v, causal)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise MXNetError("the flash-attention kernel takes CUDA tensors on "
@@ -86,12 +118,12 @@ def _flash_fwd_cuda(q, k, v, causal, sm_scale):
     if d not in KERNEL_HEAD_DIMS:
         raise MXNetError(f"the flash-attention kernel takes head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise MXNetError(f"the flash-attention kernel takes contiguous, "
-                             f"16-byte aligned tensors ({name} is not)")
+    strides = [*_kernel_strides("q", q), *_kernel_strides("k", k),
+               *_kernel_strides("v", v)]
     lib = _kernels.load("flash_attn_fwd")
-    o = torch.empty_like(q)
+    o = torch.empty((b, lq, hq, d), dtype=q.dtype,
+                    device=q.device).transpose(1, 2)
+    strides += _kernel_strides("o", o)
     lse = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -99,15 +131,21 @@ def _flash_fwd_cuda(q, k, v, causal, sm_scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, hq, k.shape[1], lq, k.shape[2], d,
             int(bool(causal)), float(sm_scale),
-            int(q.dtype == torch.bfloat16), stream)
+            int(q.dtype == torch.bfloat16),
+            (ctypes.c_longlong * 12)(*strides), stream)
     if err:
         raise MXNetError(f"flash_attn_fwd launch failed: CUDA error {err} "
                          f"({lib.mxt_cuda_error_string(err).decode()})")
     _flash_fwd_cuda.launches += 1
+    _flash_fwd_cuda.launches_by_len[lq] = \
+        _flash_fwd_cuda.launches_by_len.get(lq, 0) + 1
     return o, lse
 
 
+# launches in all, and by query length (the prefill bucket on the serving
+# path); a run sets both to zero before the part it counts
 _flash_fwd_cuda.launches = 0
+_flash_fwd_cuda.launches_by_len = {}
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None):
@@ -117,10 +155,8 @@ def flash_attention(q, k, v, causal=False, sm_scale=None):
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.is_cuda:
-        # the kernel takes contiguous (B, H, L, D); the model's projections
-        # hand over transposed views
-        return _flash_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal, sm_scale)[0]
+        # the projections' (B, L, H, D) outputs go in as transposed views
+        return _flash_fwd_cuda(q, k, v, causal, sm_scale)[0]
     if q.device.type != "cpu":
         raise MXNetError(f"flash_attention runs on CUDA (kernel) or CPU "
                          f"(plain version), not {q.device}")

@@ -127,3 +127,60 @@ def test_kernel_sources_and_build_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_kernels, "_BUILD", tmp_path / "build")
     with pytest.raises(MXNetError, match="nvcc"):
         _kernels.load("k")
+
+
+# ---------------------------------------------------------------------------
+# the stride rule of the kernel's tensor maps (pure Python, CPU tensors)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_strides_contiguous(dtype):
+    t = torch.zeros(2, 4, 16, 64, dtype=dtype)
+    assert port_fa._kernel_strides("q", t) == [4 * 16 * 64, 16 * 64, 64]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_strides_take_transposed_views(dtype):
+    # the projections' (B, L, H, D) output, viewed as (B, H, L, D): no copy
+    t = torch.zeros(2, 16, 4, 64, dtype=dtype).transpose(1, 2)
+    assert not t.is_contiguous()
+    assert port_fa._kernel_strides("q", t) == [16 * 4 * 64, 64, 4 * 64]
+
+
+def test_kernel_strides_replace_unused_size_one_strides():
+    # a size-1 dim never addresses memory: a stride TMA would refuse there
+    # becomes the tensor's span (a multiple of 16 bytes)
+    t = torch.zeros(3 * 64, dtype=torch.bfloat16).as_strided(
+        (1, 3, 1, 64), (5, 64, 3, 1))   # 10 and 6 bytes: TMA refuses both
+    st = port_fa._kernel_strides("q", t)
+    assert st[1] == 64 and st[0] % 8 == 0 and st[2] % 8 == 0 and st[2] > 0
+
+
+def test_kernel_strides_refuse_a_strided_head_dim():
+    t = torch.zeros(1, 2, 8, 128, dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(MXNetError, match="dense head dim"):
+        port_fa._kernel_strides("k", t)
+
+
+@pytest.mark.parametrize("view", ["row_stride", "base_pointer"])
+def test_kernel_strides_refuse_misaligned_tensors(view):
+    if view == "row_stride":
+        # rows 68 bf16 apart: 136 bytes, not a multiple of 16
+        t = torch.zeros(1, 2, 8, 68, dtype=torch.bfloat16)[..., :64]
+        match = "multiples of 16 bytes"
+    else:
+        # the base one element past a 16-byte boundary
+        t = torch.zeros(1 + 2 * 8 * 64, dtype=torch.bfloat16)[1:] \
+            .view(1, 2, 8, 64)
+        match = "16-byte aligned"
+    with pytest.raises(MXNetError, match=match):
+        port_fa._kernel_strides("v", t)
+
+
+def test_cpu_flash_attention_takes_views_unchanged():
+    # on the CPU the plain version runs as before, whatever the layout
+    q, k, v = _qkv(5, 1, 4, 2, 24, 24, 32)
+    o = port_fa.flash_attention(*_t(q, k, v), causal=True)
+    views = [torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3)))
+             .transpose(1, 2) for a in (q, k, v)]
+    o_views = port_fa.flash_attention(*views, causal=True)
+    np.testing.assert_array_equal(o.numpy(), o_views.numpy())
