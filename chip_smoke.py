@@ -24,7 +24,19 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    the port's full-context forward with the plain attention (bf16, to a
    bound measured in the run); then the same weights upcast to fp32 and
    served again, every logits row held to FP32_LOGIT_TOL;
-5. the kernels line, then the device line.
+5. training: ResNet-50 v1 at full width (1000 classes, 224x224, NHWC,
+   random weights from --seed, a synthetic batch from --seed as bench.py
+   makes it).  One TrainStep step at batch 8 on the card against the same
+   step on the CPU (loss, every parameter, the BatchNorm running stats;
+   TF32 off), in fp32 and in fp64, each also with planted faults, which
+   must fail the check; one fp32 record / backward / Trainer.step step on
+   the card against the TrainStep step; then bench.py's configuration
+   (batch 256, SGD 0.1 / 0.9, dtype bfloat16): 2 warm-up and 20 timed
+   steps on one batch (finite, falling loss), img/s, ms/step, MFU, peak
+   memory, and a profiled pass (device-busy share, device time by kernel
+   group).  The training path launches none of the port's hand-written
+   kernels;
+6. the kernels line, then the device line.
 """
 from __future__ import annotations
 
@@ -314,12 +326,20 @@ def profile_pass(engine, prompts, temps, seed):
     only, and print the device time by kernel group against the wall time
     of the pass (its busy share).  The measured pass ran without the
     profiler."""
+    log_device_profile(lambda: serve(engine, prompts, temps, seed),
+                       KERNEL_GROUPS)
+
+
+def log_device_profile(run, kernel_groups, n_top=8):
+    """Run ``run()`` under torch.profiler (device activity only) and print
+    its wall time, the device-busy share and the device time by kernel
+    group (the first group whose pattern a kernel's name holds)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(engine, prompts, temps, seed)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_kernel = {}
@@ -335,14 +355,14 @@ def profile_pass(engine, prompts, temps, seed):
         return
     groups = {}
     for key, ms in by_kernel.items():
-        group = next((g for g, pats in KERNEL_GROUPS
+        group = next((g for g, pats in kernel_groups
                       if any(pt in key for pt in pats)), "other")
         groups[group] = groups.get(group, 0.0) + ms
     log(f"  profiled pass: wall {wall:.3f} s, device busy "
         f"{busy / 1e3:.3f} s ({100 * busy / 1e3 / wall:.1f}% busy)")
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {group:15s} {ms:10.2f} ms  {100 * ms / busy:5.1f}%")
-    for key, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+    for key, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:n_top]:
         log(f"    {ms:10.2f} ms  {key[:110]}")
 
 
@@ -586,6 +606,394 @@ def serving_phase(seed):
     return {"flash_attn_fwd": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training at ResNet-50 v1 widths
+# ---------------------------------------------------------------------------
+TRAIN_SIZE = 224
+CHECK_BATCH = 8
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 256, 2, 20
+TRAIN_OPT = {"learning_rate": 0.1, "momentum": 0.9}        # bench.py
+# the checked steps add weight decay, so that a dropped wd shows
+CHECK_OPT = dict(TRAIN_OPT, wd=1e-4)
+# compare_steps's ratio.  Updates below UPDATE_FLOOR of the largest of
+# their kind (trainable tensors, running stats) are rounding noise; on this
+# net the stem convolution's update (~2.3) sets the trainable floor, so
+# most deeper convolution weights are measured against the floor, not
+# against their own update.  Measured on the card (PERF.md, training): fp32 rounding alone
+# moves the fp32 step of this net by ~0.17 (card and CPU alike, against
+# the fp64 step), so the fp32 card-vs-CPU check catches gross faults only;
+# in fp64 the card's step and the CPU's agree to ~3e-12, and that check
+# holds the step tight (the planted faults read 3.8e-3 and up); the Gluon
+# loop and TrainStep on the card, both fp32, agree to ~8e-4.
+UPDATE_FLOOR = 1e-3
+FP32_STEP_BOUND = 0.5
+FP64_STEP_BOUND = 1e-5
+LOOP_BOUND = 1e-2
+# the card's bf16 step must land as close to the fp64 step as the CPU's
+# bf16 step of the same port does (oneDNN's kernels, not cuDNN's), within
+# this factor, tensor by tensor (as tests/test_torch_resnet_train.py holds
+# the port's bf16 step to the reference's)
+BF16_NOISE_FACTOR = 3.0
+
+# model FLOPs of one ResNet-50 training image, bench.py's
+# RESNET50_TRAIN_FLOPS_PER_IMG (its MFU numerator)
+RESNET50_TRAIN_FLOPS_PER_IMG = 11.7e9
+
+TRAIN_KERNEL_GROUPS = (
+    ("batchnorm", ("batch_norm", "bn_fw", "bn_bw", "batchnorm")),
+    ("optimizer", ("multi_tensor", "foreach")),
+    ("copies", ("copy", "Memcpy", "Memset", "cast")),
+    ("convolution", ("conv", "xmma", "cudnn", "implicit", "gemm", "wgrad",
+                     "dgrad", "sm90", "nhwc", "nchw")),
+    ("elementwise", ("elementwise", "vectorized", "reduce", "pool",
+                     "softmax", "threshold", "unrolled")))
+
+
+def train_batch(seed, batch, size=TRAIN_SIZE, classes=1000):
+    """A synthetic NHWC batch, as bench.py makes it: images uniform on
+    [-1, 1], labels uniform over the classes (numpy, from ``seed``)."""
+    r = np.random.RandomState(seed)
+    x = r.uniform(-1, 1, (batch, size, size, 3)).astype("float32")
+    y = r.randint(0, classes, (batch,)).astype("int32")
+    return x, y
+
+
+def init_net(make_net, seed, ctx, size=TRAIN_SIZE):
+    """``make_net()`` initialized on ``ctx`` from the device generator
+    seeded with ``seed``, its deferred shapes settled by one forward."""
+    import mxnet_tpu_torch as mx
+
+    mx.random.seed(seed)
+    net = make_net()
+    net.initialize(ctx=ctx)
+    net(mx.nd.zeros((1, size, size, 3), ctx=ctx))
+    return net
+
+
+def copy_net(net, make_net, ctx, size=TRAIN_SIZE):
+    """A second ``make_net()`` on ``ctx`` holding ``net``'s weights."""
+    from mxnet_tpu_torch.gluon import load_reference_params
+
+    other = init_net(make_net, 0, ctx, size)
+    load_reference_params(other, {k: p.data().asnumpy() for k, p in
+                                  net.collect_params().items()})
+    return other
+
+
+def _host(t):
+    return t.detach().to("cpu", copy=True)
+
+
+def trainstep_result(net, x, y, device, opt=CHECK_OPT, dtype=None):
+    """One TrainStep step of ``net`` on ``device``, in the net's dtype or
+    under TrainStep's ``dtype``: (loss, the parameters before, after), in
+    collect_params() order, on the host."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    params = net.collect_params()
+    before = [_host(p.data()._data) for p in params.values()]
+    step = TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                     optimizer="sgd", optimizer_params=opt, device=device,
+                     dtype=dtype)
+    loss = step(x, y).item()
+    return loss, before, [_host(step.params[n]) for n in params]
+
+
+def gluon_loop_result(net, x, y, opt=CHECK_OPT):
+    """One record / backward / Trainer.step step on ``net`` itself (it is
+    trained in place): (loss, before, after) as trainstep_result."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    params = net.collect_params()
+    before = [_host(p.data()._data) for p in params.values()]
+    ctx = next(iter(params.values())).data().context
+    trainer = gluon.Trainer(params, "sgd", dict(opt))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    X = mx.nd.array(x, ctx=ctx, dtype=x.dtype)
+    Y = mx.nd.array(y, ctx=ctx)
+    with autograd.record():
+        loss = loss_fn(net(X), Y)
+    loss.backward()
+    trainer.step(len(x))
+    return (float(loss.mean().asscalar()), before,
+            [_host(p.data()._data) for p in params.values()])
+
+
+def _kind(name):
+    """"stats" for a BatchNorm running mean or variance, else "trainable"."""
+    return "stats" if name.endswith(("running_mean", "running_var")) \
+        else "trainable"
+
+
+def step_deviations(cand, ref, names):
+    """How far step ``cand`` strays from step ``ref`` (both (loss, before,
+    after) from the same weights; ``cand``'s tensors are cast to ``ref``'s
+    dtype, so an fp32 or bf16 step can be held to an fp64 one): a list of
+    (where, deviation), first |loss difference| / max(1, |loss|), then per
+    tensor max |after difference|.  None if the steps start from
+    different weights."""
+    (loss_c, before_c, after_c), (loss_r, before_r, after_r) = cand, ref
+    for b_c, b_r in zip(before_c, before_r):
+        if not torch.equal(b_c.to(b_r.dtype), b_r):
+            return None
+    devs = [("loss", abs(loss_c - loss_r) / max(1.0, abs(loss_r)))]
+    for name, a_c, a_r in zip(names, after_c, after_r):
+        devs.append((name, (a_c.to(a_r.dtype) - a_r).abs().max().item()))
+    return devs
+
+
+def update_floors(ref, names):
+    """Per kind (_kind), UPDATE_FLOOR of the largest update in step
+    ``ref`` among the tensors of that kind: {kind: (floor, tensor)}."""
+    _, before, after = ref
+    floors = {}
+    for name, a, b in zip(names, after, before):
+        upd = UPDATE_FLOOR * (a - b).abs().max().item()
+        if upd >= floors.get(_kind(name), (-1.0, None))[0]:
+            floors[_kind(name)] = (upd, name)
+    return floors
+
+
+def update_scales(ref, names):
+    """The scale of each entry of step_deviations: 1 for the loss; per
+    tensor the largest entry of ``ref``'s update of it, or its kind's
+    floor (update_floors) if that is more.  Measured against the update, a
+    fault in the step itself (the optimizer's arithmetic, the running-stat
+    update) shows even where it is small beside the weights; the floor is
+    for tensors whose gradient is rounding noise, such as a convolution's
+    bias before BatchNorm (which cancels it).  The trainable tensors and
+    the running stats have floors of their own, so the running variances'
+    large updates do not lift the floor of the weights."""
+    _, before, after = ref
+    floors = update_floors(ref, names)
+    return [1.0] + [max((a - b).abs().max().item(), floors[_kind(name)][0])
+                    for name, a, b in zip(names, after, before)]
+
+
+def compare_steps(cand, ref, names, scales=None):
+    """The worst deviation of ``cand`` from ``ref`` over ``scales`` (by
+    default update_scales(ref)): (ratio, where)."""
+    devs = step_deviations(cand, ref, names)
+    if devs is None:
+        return float("inf"), "the steps start from different weights"
+    if scales is None:
+        scales = update_scales(ref, names)
+    return max((d / s, where) for (where, d), s in zip(devs, scales))
+
+
+def noise_scales(noise, ref, names):
+    """Scales that hold a step to ``ref`` within a multiple of another
+    step's deviation from it (``noise``, e.g. an independent bf16 step):
+    per entry that deviation, or UPDATE_FLOOR of update_scales(ref) if
+    that is more."""
+    devs = step_deviations(noise, ref, names)
+    check(devs is not None, "the noise step starts from other weights")
+    return [max(d, UPDATE_FLOOR * s)
+            for (_, d), s in zip(devs, update_scales(ref, names))]
+
+
+def check_steps(cand, ref, names, what, bound, scales=None,
+                unit="of the update"):
+    ratio, where = compare_steps(cand, ref, names, scales)
+    log(f"  {what}: worst deviation {ratio:.3e} {unit} ({where}), "
+        f"bound {bound:g}; loss {cand[0]:.9f} vs {ref[0]:.9f}")
+    check(ratio <= bound, f"{what}: deviation {ratio:.3e} at {where} "
+                          f"exceeds {bound:g}")
+    return ratio
+
+
+def planted_fault(fault):
+    """Context manager planting ``fault`` in the training step, for showing
+    that the step checks catch it: "unbiased" (BatchNorm's running
+    variance takes the unbiased batch variance), "momentum" (the running
+    stats weigh the batch by ``momentum``) or "no_wd" (TrainStep's SGD
+    drops weight decay)."""
+    import contextlib
+
+    from mxnet_tpu_torch.parallel import data_parallel
+
+    @contextlib.contextmanager
+    def no_wd():
+        orig = data_parallel.make_sgd_update
+        data_parallel.make_sgd_update = \
+            lambda lr, momentum, wd: orig(lr, momentum, 0.0)
+        try:
+            yield
+        finally:
+            data_parallel.make_sgd_update = orig
+
+    return no_wd() if fault == "no_wd" else planted_bn_fault(fault)
+
+
+def planted_bn_fault(fault):
+    """Context manager: the BatchNorm op with ``fault`` planted, for
+    showing that the step checks catch it: "unbiased" (the running
+    variance takes the unbiased batch variance) or "momentum" (the running
+    stats weigh the batch by ``momentum``)."""
+    import contextlib
+
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    od = get_op("BatchNorm")
+    orig = od.fn
+
+    def faulty(x, gamma, beta, mean, var, momentum=0.9, axis=1,
+               training=False, **kw):
+        if fault == "momentum":
+            return orig(x, gamma, beta, mean, var, momentum=1 - momentum,
+                        axis=axis, training=training, **kw)
+        out, new_mean, new_var = orig(x, gamma, beta, mean, var,
+                                      momentum=momentum, axis=axis,
+                                      training=training, **kw)
+        if training:
+            n = x.numel() // x.shape[axis]
+            batch_var = (new_var - var * momentum) / (1 - momentum)
+            new_var = var * momentum + batch_var * n / (n - 1) * \
+                (1 - momentum)
+        return out, new_mean, new_var
+
+    @contextlib.contextmanager
+    def scope():
+        od.fn = faulty
+        try:
+            yield
+        finally:
+            od.fn = orig
+
+    return scope()
+
+
+def resnet50():
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    return vision.resnet50_v1(layout="NHWC")
+
+
+def training_phase(seed):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    t0 = time.perf_counter()
+    net = init_net(resnet50, seed, mx.gpu(0))
+    params = net.collect_params()
+    names = list(params)
+    log(f"  resnet50_v1 NHWC: {len(names)} parameters, "
+        f"{sum(p.data().size for p in params.values()) / 1e6:.3f} M values, "
+        f"1000 classes, {TRAIN_SIZE}x{TRAIN_SIZE} "
+        f"({time.perf_counter() - t0:.1f} s to build)")
+    fa_mod._flash_fwd_cuda.launches = 0
+
+    log(f"== training 1: one TrainStep step at batch {CHECK_BATCH}, card "
+        f"against CPU (TF32 off), in fp32 and in fp64")
+    x, y = train_batch(seed, CHECK_BATCH)
+    cpu_net = copy_net(net, resnet50, mx.cpu())
+    t0 = time.perf_counter()
+    cpu_ref = trainstep_result(cpu_net, x, y, "cpu")
+    t1 = time.perf_counter()
+    cpu16 = trainstep_result(cpu_net, x, y, "cpu", dtype="bfloat16")
+    log(f"  CPU steps: fp32 {t1 - t0:.1f} s, bf16 "
+        f"{time.perf_counter() - t1:.1f} s")
+    card = trainstep_result(net, x, y, "cuda")
+    check(all(bool(torch.isfinite(t).all()) for t in card[2]),
+          "non-finite parameters after the card's step")
+    check_steps(card, cpu_ref, names, "fp32, card vs CPU", FP32_STEP_BOUND)
+    with planted_fault("momentum"):
+        ratio, where = compare_steps(trainstep_result(net, x, y, "cuda"),
+                                     cpu_ref, names)
+    log(f"  fp32 with a planted fault (momentum): {ratio:.3e} at {where}")
+    check(ratio > FP32_STEP_BOUND, "the fp32 check misses a planted fault")
+
+    net64 = copy_net(cpu_net, resnet50, mx.gpu(0)).double()
+    cpu_net.double()
+    x64 = x.astype(np.float64)
+    cpu64 = trainstep_result(cpu_net, x64, y, "cpu")
+    check_steps(trainstep_result(net64, x64, y, "cuda"), cpu64, names,
+                "fp64, card vs CPU", FP64_STEP_BOUND)
+    for fault in ("unbiased", "momentum", "no_wd"):
+        with planted_fault(fault):
+            ratio, where = compare_steps(
+                trainstep_result(net64, x64, y, "cuda"), cpu64, names)
+        log(f"  fp64 with a planted fault ({fault}): {ratio:.3e} at {where}")
+        check(ratio > FP64_STEP_BOUND,
+              f"the fp64 check misses the planted fault {fault}")
+    log("  update floors of the fp64 step: " + ", ".join(
+        f"{kind} {floor:.3e} ({UPDATE_FLOOR:g} x {name}'s)"
+        for kind, (floor, name) in update_floors(cpu64, names).items()))
+    check_steps(card, cpu64, names, "fp32 rounding: the card's fp32 step "
+                "vs the fp64 step", FP32_STEP_BOUND)
+    check_steps(cpu_ref, cpu64, names, "fp32 rounding: the CPU's fp32 step "
+                "vs the fp64 step", FP32_STEP_BOUND)
+    del net64, cpu_net
+
+    log(f"== training 2: one TrainStep(dtype='bfloat16') step at batch "
+        f"{CHECK_BATCH} on the card, held to the fp64 step within "
+        f"{BF16_NOISE_FACTOR:g} x the CPU's bf16 step's deviation from it")
+    card16 = trainstep_result(net, x, y, "cuda", dtype="bfloat16")
+    check(all(t.dtype == torch.float32 for t in card16[2]),
+          "the bf16 step's master weights are not fp32")
+    for what, cand in (("card", card16), ("CPU", cpu16)):
+        ratio, where = compare_steps(cand, cpu64, names)
+        log(f"  {what}'s bf16 step vs the fp64 step: {ratio:.3e} of the "
+            f"update ({where})")
+    scales = noise_scales(cpu16, cpu64, names)
+    check_steps(card16, cpu64, names, "bf16, card vs the fp64 step",
+                BF16_NOISE_FACTOR, scales, "of the CPU's bf16 deviation")
+    with planted_fault("momentum"):
+        ratio, where = compare_steps(
+            trainstep_result(net, x, y, "cuda", dtype="bfloat16"), cpu64,
+            names, scales)
+    log(f"  bf16 with a planted fault (momentum): {ratio:.3e} at {where}")
+    check(ratio > BF16_NOISE_FACTOR, "the bf16 check misses a planted fault")
+
+    log("== training 3: one record / backward / Trainer.step step on the "
+        "card against the TrainStep step (fp32)")
+    loop = gluon_loop_result(net, x, y)
+    check_steps(loop, card, names, "Gluon loop vs TrainStep", LOOP_BOUND)
+
+    log(f"== training 4: bench.py's configuration, batch {TRAIN_BATCH}, "
+        f"SGD 0.1 / 0.9, bf16")
+    net = init_net(resnet50, seed, mx.gpu(0))
+    x, y = train_batch(seed, TRAIN_BATCH)
+    xt, yt = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    step = TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                     optimizer="sgd", optimizer_params=TRAIN_OPT,
+                     dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        losses.append(step(xt, yt))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(step(xt, yt))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    losses = [v.item() for v in losses]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  losses: {' '.join(f'{v:.4f}' for v in losses)}")
+    check(all(math.isfinite(v) for v in losses), "non-finite bf16 loss")
+    check(losses[-1] < losses[0], "the bf16 loss did not fall")
+    img_s = TRAIN_BATCH * TRAIN_STEPS / dt
+    mfu = img_s * RESNET50_TRAIN_FLOPS_PER_IMG / PEAK_FLOPS[torch.bfloat16]
+    log(f"  [{gpu_line()}] {img_s:.1f} img/s, "
+        f"{1e3 * dt / TRAIN_STEPS:.2f} ms/step over {TRAIN_STEPS} steps "
+        f"(warm-up {TRAIN_WARMUP} steps {t1 - t0:.2f} s), MFU "
+        f"{100 * mfu:.2f}% (bench.py's FLOPs per image over the bf16 "
+        f"peak), peak memory {peak / 2**30:.3f} GiB")
+    log_device_profile(lambda: [step(xt, yt) for _ in range(3)],
+                       TRAIN_KERNEL_GROUPS, n_top=12)
+    launches = fa_mod._flash_fwd_cuda.launches
+    log(f"  hand-written kernel launches on the training path: "
+        f"flash_attn_fwd {launches} (the path has no TPU kernel)")
+    check(launches == 0, "the training path launched flash_attn_fwd")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -626,6 +1034,10 @@ def main():
     counts = serving_phase(args.seed)
     row["launches"] = counts[row["name"]]
     check(row["launches"] > 0, "flash_attn_fwd never ran on the main path")
+    torch.cuda.empty_cache()
+
+    log("== training: ResNet-50 v1 widths")
+    training_phase(args.seed)
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(gpu_line())
     print(json.dumps({"kernels": [row]}))

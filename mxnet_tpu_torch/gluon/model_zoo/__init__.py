@@ -1,1 +1,2 @@
-"""Model zoo of the port."""
+"""Model zoo of the port: ``vision`` (ResNets) and ``language`` (Llama)."""
+from . import vision  # noqa: F401

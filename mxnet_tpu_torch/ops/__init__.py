@@ -1,2 +1,7 @@
-"""Operators of the port: plain PyTorch ops and the kernel-backed flash
-attention."""
+"""Operators of the port: the op table behind ``mx.nd`` (tensor, nn and
+optimizer families, plain PyTorch and library calls), and the
+kernel-backed flash attention of the serving path."""
+from . import tensor  # noqa: F401  (populates the table)
+from . import nn  # noqa: F401
+from . import optimizer_ops  # noqa: F401
+from .registry import OP_TABLE, get_op, list_ops, register  # noqa: F401

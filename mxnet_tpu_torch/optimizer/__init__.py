@@ -1,0 +1,6 @@
+"""Optimizers of the port (counterpart of ``mxnet_tpu/optimizer``)."""
+from .optimizer import (SGD, Adam, Optimizer, Updater, create, get_updater,
+                        register)
+
+__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
+           "register"]

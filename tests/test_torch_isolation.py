@@ -69,6 +69,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import mxnet_tpu_torch, mxnet_tpu_torch._kernels\n"
         "import mxnet_tpu_torch.serving\n"
         "import mxnet_tpu_torch.gluon.model_zoo.language.llama\n"
+        "import mxnet_tpu_torch.gluon.model_zoo.vision\n"
+        "import mxnet_tpu_torch.parallel, mxnet_tpu_torch.contrib.amp\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'\n"
         "             or m.split('.')[0] == 'mxnet_tpu')\n"
         "print(bad)\n")
