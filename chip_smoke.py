@@ -5,6 +5,9 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+(``--bert-step-seeds 1 2 3`` runs only the build and the BERT-base step
+check of phase 6 (b), once for each seed.)
+
 Phases (any failed check exits nonzero; nothing runs on the CPU):
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
@@ -36,11 +39,33 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    memory, and a profiled pass (device-busy share, device time by kernel
    group).  The training path launches none of the port's hand-written
    kernels;
-6. the kernels line, then the device line.
+6. transformer training at BERT-base widths: (a) the gradients of
+   flash_attention (kernel forward, the ported blockwise backward) against
+   the plain version under torch autograd at the BERT shape, a causal GQA
+   Llama-3-8B shape and an Lq < Lk causal shape, fp32 and bf16, each with
+   planted backward faults that must fail, and llama_tiny's gradients on
+   the card against the CPU's; (b) one TrainStep step of
+   BertForPretraining (dropout 0, batch 8, sequence 128) on the card in
+   fp32 and bf16 against the CPU's fp64 step (the bf16 one within a
+   multiple of the CPU's bf16 step's deviation), every tensor but the
+   token-type embedding with a non-zero gradient, and a planted fault;
+   per layer of the bf16 step, the attention's o and gradients through
+   the kernel held to the plain bf16 forward's deviation from fp64; (c)
+   flash_attn_fwd launched once per layer and step; (d) bench.py's
+   bench_bert configuration (batch 64, bf16, Adam 1e-4, dropout 0.1): 2
+   warm-up and 20 timed steps, samples/s, ms/step, MFU, peak memory, a
+   profiled pass by kernel group (the attention backward apart), and
+   TrainStep's ``_foreach`` Adam update timed beside the loop form; (e)
+   the kernel's forward and the ported backward at the BERT and the Llama
+   shape, timed beside SDPA's forward and backward;
+7. the kernels line (its times at the main path's shape, BERT training;
+   each path's shape, times and launches under ``by_path``), then the
+   device line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -120,11 +145,15 @@ def gpu_line():
 # (B, Hq, Hkv, Lq, Lk, D, causal, views): views = q/k/v are transposed views
 # of (B, L, H, D) tensors, as the model's projections hand them over.  The
 # first three rows are the serving path's prefills at Llama-3-8B widths
-# (buckets 2048, 512, 128), timed; the first is the kernels line's shape.
-MAIN_SHAPE = (1, 32, 8, 2048, 2048, 128, True, False)
-BUCKET_SHAPES = [MAIN_SHAPE,
+# (buckets 2048, 512, 128), timed; the kernels line gives the largest
+# bucket's times for the serving path and BertSelfAttention's at bench.py's
+# batch (timed too) for the BERT training path, this slice's main path.
+SERVING_SHAPE = (1, 32, 8, 2048, 2048, 128, True, False)
+BUCKET_SHAPES = [SERVING_SHAPE,
                  (1, 32, 8, 512, 512, 128, True, False),
                  (1, 32, 8, 128, 128, 128, True, False)]
+BERT_SHAPE = (64, 12, 12, 128, 128, 64, False, True)
+PATH_SHAPES = {"serving": SERVING_SHAPE, "bert_train": BERT_SHAPE}
 KERNEL_CASES = BUCKET_SHAPES + [
     (1, 32, 8, 512, 512, 128, False, False),
     (1, 32, 8, 1000, 1000, 128, True, False),     # ragged length
@@ -136,6 +165,7 @@ KERNEL_CASES = BUCKET_SHAPES + [
     (1, 32, 32, 512, 512, 128, True, False),      # no GQA
     (1, 32, 8, 2048, 2048, 128, True, True),      # the serving layout
     (2, 32, 8, 300, 700, 128, True, True),
+    BERT_SHAPE,                                   # BertSelfAttention,
     (2, 12, 12, 384, 384, 64, False, False),      # BERT-base heads
     (2, 12, 12, 384, 384, 64, True, True),
     (1, 4, 2, 256, 256, 32, True, False),         # llama_tiny heads
@@ -184,7 +214,8 @@ def make_qkv(shape, dtype, gen):
 
 def kernel_phase(gen):
     from mxnet_tpu_torch.ops.flash_attention import (_flash_fwd_cuda,
-                                                     _mha_with_lse)
+                                                     _mha_with_lse,
+                                                     flash_attention)
 
     worst = 0.0
     for shape in KERNEL_CASES:
@@ -217,12 +248,14 @@ def kernel_phase(gen):
                   f"(B, Lq, Hq, D) tensor")
             del q, k, v, o, lse, o_ref, lse_ref
 
-    # timing at the serving path's prefill shapes, bf16: device time from
-    # a replayed CUDA graph for the kernel and SDPA alike, and the eager
-    # time per call (host launch cost included)
+    # timing at the serving path's prefill shapes and the BERT shape,
+    # bf16: device time from a replayed CUDA graph for the kernel and SDPA
+    # alike, and the eager time per call (host launch cost included), also
+    # of the public op under no_grad as serving calls it (its
+    # autograd.Function around the kernel)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    row = None
-    for shape in BUCKET_SHAPES:
+    by_path = {}
+    for shape in BUCKET_SHAPES + [BERT_SHAPE]:
         b, hq, hkv, lq, lk, d, causal, _ = shape
         q, k, v = make_qkv(shape, torch.bfloat16, gen)
         scale = 1.0 / math.sqrt(d)
@@ -231,27 +264,37 @@ def kernel_phase(gen):
                            enable_gqa=True)
         ms, lib_ms = graph_time_ms(run), graph_time_ms(lib)
         eager_ms, lib_eager_ms = cuda_time_ms(run), cuda_time_ms(lib)
+        with torch.no_grad():
+            op_eager_ms = cuda_time_ms(lambda: flash_attention(
+                q, k, v, causal=causal, sm_scale=scale))
         bound, bound_by = bound_ms(shape, torch.bfloat16)
         flops, nbytes = attention_work(shape, torch.bfloat16)
-        log(f"  timing Lq=Lk={lq} bf16 causal: kernel {ms:.4f} ms "
+        log(f"  timing B={b} Hq={hq} Hkv={hkv} Lq=Lk={lq} D={d} bf16 "
+            f"causal={causal}: kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound / ms:.1f}% of "
             f"bound), sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms "
             f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
-            f"eager per call: kernel {eager_ms:.4f} ms, sdpa "
-            f"{lib_eager_ms:.4f} ms")
-        if shape == MAIN_SHAPE:
+            f"eager per call: kernel {eager_ms:.4f} ms, flash_attention "
+            f"under no_grad {op_eager_ms:.4f} ms, sdpa {lib_eager_ms:.4f} "
+            f"ms")
+        for path, path_shape in PATH_SHAPES.items():
+            if shape != path_shape:
+                continue
             plain_ms = cuda_time_ms(
                 lambda: _mha_with_lse(q, k, v, causal, scale), iters=5)
-            log(f"  plain version at Lq=Lk={lq}: {plain_ms:.4f} ms")
-            row = {"name": "flash_attn_fwd", "route": "cuda",
-                   "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
-                   "replaces":
-                       "mxnet_tpu/ops/flash_attention.py::_fa_fwd_kernel",
-                   "launches": None, "max_abs_err": worst, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": bound,
-                   "bound_by": bound_by, "library_ms": lib_ms}
+            log(f"  plain version at the {path} shape: {plain_ms:.4f} ms")
+            by_path[path] = {"shape": list(shape[:7]), "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound,
+                             "bound_by": bound_by, "library_ms": lib_ms}
         del q, k, v
-    return row
+    main = by_path["bert_train"]
+    return {"name": "flash_attn_fwd", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
+            "replaces": "mxnet_tpu/ops/flash_attention.py:68",
+            "launches": None, "max_abs_err": worst,
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+            "by_path": by_path}
 
 
 def build_checks(kernels):
@@ -330,40 +373,74 @@ def profile_pass(engine, prompts, temps, seed):
                        KERNEL_GROUPS)
 
 
-def log_device_profile(run, kernel_groups, n_top=8):
-    """Run ``run()`` under torch.profiler (device activity only) and print
-    its wall time, the device-busy share and the device time by kernel
-    group (the first group whose pattern a kernel's name holds)."""
+def log_device_profile(run, kernel_groups, n_top=8, label=None, steps=1,
+                       step_ms=None):
+    """Run ``run()`` (``steps`` steps) under torch.profiler and print its
+    wall time, the device-busy share and the device time by kernel group
+    (the first group whose pattern a kernel's name holds), per step.  With
+    ``label``, host activity is traced too, and the kernels that ran inside
+    a ``label`` range (its annotation on the device timeline) form the
+    group ``label``.  With ``step_ms`` (the unprofiled step time) the busy
+    share is the device time per step over it, as the host profiler slows
+    the host; else it is the device time over the profiled wall time."""
+    import bisect
+
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA]
+    if label:
+        activities.append(ProfilerActivity.CPU)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_kernel = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0:
-            by_kernel[ev.key] = us / 1e3
-    busy = sum(by_kernel.values())
+    device = [ev for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA
+              and ev.time_range.end > ev.time_range.start]
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in device if ev.name == label)
+    starts = [a for a, _ in spans]
+
+    def group_of(ev):
+        i = bisect.bisect_right(starts, ev.time_range.start) - 1
+        if i >= 0 and ev.time_range.start < spans[i][1]:
+            return label
+        return next((gr for gr, pats in kernel_groups
+                     if any(pt in ev.name for pt in pats)), "other")
+
+    groups, by_kernel = {}, {}
+    for ev in device:
+        if ev.name == label or getattr(ev, "is_user_annotation", False):
+            continue                 # ranges, not kernels
+        ms = (ev.time_range.end - ev.time_range.start) / 1e3
+        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ms
+        group = group_of(ev)
+        groups[group] = groups.get(group, 0.0) + ms
+    busy = sum(groups.values())
     if busy == 0:
         log("  profile: no device time recorded (not measured)")
         return
-    groups = {}
-    for key, ms in by_kernel.items():
-        group = next((g for g, pats in kernel_groups
-                      if any(pt in key for pt in pats)), "other")
-        groups[group] = groups.get(group, 0.0) + ms
-    log(f"  profiled pass: wall {wall:.3f} s, device busy "
-        f"{busy / 1e3:.3f} s ({100 * busy / 1e3 / wall:.1f}% busy)")
+    if step_ms is None:
+        share = f"{100 * busy / 1e3 / wall:.1f}% busy"
+    else:
+        share = (f"{100 * busy / steps / step_ms:.1f}% of the unprofiled "
+                 f"{step_ms:.2f} ms step")
+    head = (f"  profiled pass: wall {wall:.3f} s, device busy "
+            f"{busy / 1e3:.3f} s")
+    unit = " a step" if steps > 1 else ""
+    if steps > 1:
+        head += f" = {busy / steps:.2f} ms{unit} over {steps} steps"
+    if label:
+        share += f"; host profiler on, {len(spans)} {label} ranges"
+    log(f"{head} ({share})")
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"    {group:15s} {ms:10.2f} ms  {100 * ms / busy:5.1f}%")
+        log(f"    {group:18s} {ms / steps:10.2f} ms{unit}  "
+            f"{100 * ms / busy:5.1f}%")
     for key, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:n_top]:
-        log(f"    {ms:10.2f} ms  {key[:110]}")
+        log(f"    {ms / steps:10.2f} ms{unit}  {key[:110]}")
 
 
 def serve(engine, prompts, temps, seed):
@@ -684,16 +761,18 @@ def _host(t):
     return t.detach().to("cpu", copy=True)
 
 
-def trainstep_result(net, x, y, device, opt=CHECK_OPT, dtype=None):
-    """One TrainStep step of ``net`` on ``device``, in the net's dtype or
-    under TrainStep's ``dtype``: (loss, the parameters before, after), in
+def trainstep_result(net, x, y, device, opt=CHECK_OPT, dtype=None,
+                     loss_fn=None):
+    """One SGD TrainStep step of ``net`` on ``device``, in the net's dtype
+    or under TrainStep's ``dtype``, with ``loss_fn`` (default softmax
+    cross-entropy): (loss, the parameters before, after), in
     collect_params() order, on the host."""
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.parallel import TrainStep
 
     params = net.collect_params()
     before = [_host(p.data()._data) for p in params.values()]
-    step = TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+    step = TrainStep(net, loss_fn or gluon.loss.SoftmaxCrossEntropyLoss(),
                      optimizer="sgd", optimizer_params=opt, device=device,
                      dtype=dtype)
     loss = step(x, y).item()
@@ -994,10 +1073,634 @@ def training_phase(seed):
     check(launches == 0, "the training path launched flash_attn_fwd")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: transformer training at BERT-base widths
+# ---------------------------------------------------------------------------
+# (B, Hq, Hkv, Lq, Lk, D, causal): attention shapes whose gradients are held
+# on the card.  BertSelfAttention at bench.py's batch (one key block); the
+# Llama-3-8B prefill width with GQA 32/8 (four key blocks of 512); Lq < Lk
+# causal, whose diagonal offset (1024) spans three key blocks.
+BERT_ATTN = BERT_SHAPE[:7]
+LLAMA_ATTN = (1, 32, 8, 2048, 2048, 128, True)
+OFFSET_ATTN = (1, 32, 8, 512, 1536, 128, True)
+ATTN_GRAD_CASES = (BERT_ATTN, LLAMA_ATTN, OFFSET_ATTN)
+# planted backward faults, each with the shape where it shows
+ATTN_FAULTS = (("no_gqa_fold", LLAMA_ATTN), ("no_delta", BERT_ATTN),
+               ("offset_0", OFFSET_ATTN))
+# fp32 (TF32 off): the kernel's forward and the ported backward against the
+# plain version under torch autograd, max |difference| / max |plain| per
+# gradient.  Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+# 2.9e-7 to 1.0e-6 at the three shapes; the planted faults 0.79 to 1.0
+ATTN_FP32_BOUND = 1e-5
+# the port's Llama on the card against the same net on the CPU, fp32:
+# measured 8.3e-7 (the same card)
+LLAMA_GRAD_BOUND = 1e-5
+
+BERT_SEQ, BERT_CHECK_BATCH = 128, 8
+BERT_BATCH, BERT_WARMUP, BERT_STEPS = 64, 2, 20            # bench.py
+BERT_OPT = {"learning_rate": 1e-4}                         # bench.py, Adam
+# the checked step: SGD, whose update is the gradient itself (Adam's first
+# step is ~lr x sign(g), blind to the gradient's size)
+BERT_CHECK_OPT = {"learning_rate": 0.1, "momentum": 0.9}
+# compare_steps's ratio, the card's fp32 step against the CPU's fp64 step:
+# measured 1.5e-4 of the update on the same card (a planted no_delta: 9.6e3)
+BERT_FP32_BOUND = 1e-3
+
+BERT_KERNEL_GROUPS = (
+    ("flash_attn_fwd", ("fa_fwd",)),
+    ("optimizer", ("multi_tensor", "foreach")),
+    ("layernorm", ("layer_norm", "LayerNorm", "GammaBeta")),
+    ("gelu", ("gelu", "Gelu")),
+    ("dropout", ("bernoulli", "fused_dropout")),
+    ("matmul", ("gemm", "xmma", "nvjet", "cutlass", "gemv", "sm90")),
+    ("copies/casts", ("copy", "Memcpy", "Memset", "cast")),
+    ("softmax/loss", ("softmax", "nll", "gather", "scatter")),
+    ("embedding", ("embedding", "index")))
+
+
+def attention_inputs(shape, dtype, gen, device="cuda"):
+    """q, k, v and the cotangent g of o, normal from ``gen``."""
+    b, hq, hkv, lq, lk, d = shape[:6]
+
+    def one(*dims):
+        return torch.randn(*dims, generator=gen, device=device).to(dtype)
+
+    return one(b, hq, lq, d), one(b, hkv, lk, d), one(b, hkv, lk, d), \
+        one(b, hq, lq, d)
+
+
+def attention_grads(fa_mod, q, k, v, g, causal, plain=False):
+    """(dq, dk, dv) of sum(o * g): through ``flash_attention`` (on the card
+    the kernel's forward and the ported backward), or with ``plain``
+    through ``_mha_with_lse`` under torch autograd."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if plain:
+        o = fa_mod._mha_with_lse(*leaves, causal, scale)[0]
+    else:
+        o = fa_mod.flash_attention(*leaves, causal=causal, sm_scale=scale)
+    return torch.autograd.grad(o, leaves, g)
+
+
+def grad_deviations(cand, ref):
+    """Per gradient (dq, dk, dv): max |cand - ref| / max |ref|, in fp32."""
+    return [((c.float() - r.float()).abs().max() /
+             r.float().abs().max()).item() for c, r in zip(cand, ref)]
+
+
+@contextlib.contextmanager
+def patched(obj, attr, value):
+    """``obj.attr`` is ``value`` while the scope is open."""
+    orig = getattr(obj, attr)
+    setattr(obj, attr, value)
+    try:
+        yield
+    finally:
+        setattr(obj, attr, orig)
+
+
+def planted_attention_fault(fa_mod, fault):
+    """Context manager planting ``fault`` in the attention backward:
+    "no_gqa_fold" (each kv head takes one q head's gradient instead of the
+    group's sum), "no_delta" (ds = p * dp, delta dropped) or "offset_0"
+    (the causal mask without the Lk - Lq diagonal offset)."""
+    name = {"no_gqa_fold": "_fold_gqa", "no_delta": "_fa_backward_blockwise",
+            "offset_0": "_causal_mask"}[fault]
+    orig = getattr(fa_mod, name)
+    if fault == "no_gqa_fold":
+        def fake(d, hkv):
+            return d[:, ::d.shape[1] // hkv]
+    elif fault == "no_delta":
+        def fake(q, k, v, o, *args, **kw):
+            return orig(q, k, v, torch.zeros_like(o), *args, **kw)
+    else:
+        def fake(lq, lk, k0, bk, device):
+            return orig(lq, lq, k0, bk, device)
+
+    return patched(fa_mod, name, fake)
+
+
+def check_attention_grads(fa_mod, shape, gen, device="cuda"):
+    """fp32: ``flash_attention``'s gradients against the plain version's,
+    each within ATTN_FP32_BOUND.  Returns the worst ratio."""
+    bound = ATTN_FP32_BOUND
+    causal = shape[6]
+    q, k, v, g = attention_inputs(shape, torch.float32, gen, device)
+    devs = grad_deviations(attention_grads(fa_mod, q, k, v, g, causal),
+                           attention_grads(fa_mod, q, k, v, g, causal, True))
+    log(f"  attention grads fp32 {shape}: dq/dk/dv deviations "
+        + " ".join(f"{x:.3e}" for x in devs) + f" (bound {bound:g})")
+    check(max(devs) <= bound, f"fp32 attention gradients at {shape} "
+                              f"deviate {max(devs):.3e} > {bound:g}")
+    return max(devs)
+
+
+def check_attention_grads_bf16(fa_mod, shape, gen, device="cuda"):
+    """bf16: ``flash_attention``'s gradients against the fp32 plain
+    gradients of the same (bf16-rounded) inputs, each within
+    BF16_NOISE_FACTOR x the plain version's own bf16 deviation."""
+    causal = shape[6]
+    q, k, v, g = attention_inputs(shape, torch.bfloat16, gen, device)
+    ref = attention_grads(fa_mod, *(t.float() for t in (q, k, v, g)),
+                          causal, True)
+    port = grad_deviations(attention_grads(fa_mod, q, k, v, g, causal), ref)
+    plain = grad_deviations(
+        attention_grads(fa_mod, q, k, v, g, causal, True), ref)
+    log(f"  attention grads bf16 {shape}: dq/dk/dv deviations from fp32 "
+        + " ".join(f"{x:.3e}" for x in port) + "; the plain bf16 path's "
+        + " ".join(f"{x:.3e}" for x in plain))
+    check(all(a <= BF16_NOISE_FACTOR * b for a, b in zip(port, plain)),
+          f"bf16 attention gradients at {shape} stray more than "
+          f"{BF16_NOISE_FACTOR:g} x the plain bf16 path")
+
+
+def attention_fault_ratio(fa_mod, fault, shape, gen, device="cuda"):
+    """The fp32 deviation of the gradients with ``fault`` planted."""
+    causal = shape[6]
+    q, k, v, g = attention_inputs(shape, torch.float32, gen, device)
+    ref = attention_grads(fa_mod, q, k, v, g, causal, True)
+    with planted_attention_fault(fa_mod, fault):
+        cand = attention_grads(fa_mod, q, k, v, g, causal)
+    return max(grad_deviations(cand, ref))
+
+
+def llama_grads(net, ids, cot):
+    """{name: gradient} of sum(logits * cot) for the port's Llama."""
+    net.zero_grad()
+    (net(ids) * cot).sum().backward()
+    return {n: p.grad.detach().float().cpu()
+            for n, p in net.named_parameters()}
+
+
+def check_llama_grads(llama_mod, seed, device="cuda"):
+    """The port's LlamaForCausalLM at llama_tiny widths (fp32, causal GQA
+    4/2, 256 tokens): its gradients on ``device`` against the same net's on
+    the CPU; the q/k/v projections must have non-zero ones."""
+    cpu = llama_mod.init_random_(llama_mod.llama_tiny(device="cpu"), seed)
+    card = llama_mod.llama_tiny(device=device)
+    card.load_state_dict(cpu.state_dict())
+    r = np.random.RandomState(seed)
+    ids = torch.from_numpy(r.randint(0, 512, (2, 256)).astype(np.int64))
+    cot = torch.from_numpy(r.randn(2, 256, 512).astype(np.float32))
+    want = llama_grads(cpu, ids, cot)
+    got = llama_grads(card, ids.to(device), cot.to(device))
+    worst, where = 0.0, None
+    for name, g in got.items():
+        dev = ((g - want[name]).abs().max() /
+               want[name].abs().max().clamp_min(1e-30)).item()
+        if dev >= worst:
+            worst, where = dev, name
+        if "_proj" in name:
+            check(g.abs().max().item() > 0,
+                  f"the port's Llama gets a zero gradient for {name}")
+    qkv = [n for n in got if n.endswith(("q_proj.weight", "k_proj.weight",
+                                         "v_proj.weight"))]
+    log(f"  llama_tiny on {device}: {len(qkv)} q/k/v projections with "
+        f"non-zero gradients; gradients vs the CPU's worst {worst:.3e} "
+        f"({where}), bound {LLAMA_GRAD_BOUND:g}")
+    check(worst <= LLAMA_GRAD_BOUND,
+          f"llama_tiny gradients on {device} deviate {worst:.3e} at {where}")
+    return worst
+
+
+def bert_batch(seed, batch, seq, vocab):
+    """Token ids and labels as bench.py makes them (ids uniform over the
+    vocabulary; labels: the MLM targets, then the NSP label in the last
+    column), from ``seed``."""
+    r = np.random.RandomState(seed)
+    ids = r.randint(0, vocab, (batch, seq)).astype("int32")
+    labels = np.concatenate(
+        [r.randint(0, vocab, (batch, seq)), r.randint(0, 2, (batch, 1))],
+        axis=1).astype("int32")
+    return ids, labels
+
+
+def bert_loss(outs, labels):
+    """bench.py's pretraining loss: mean MLM cross-entropy + mean NSP
+    cross-entropy."""
+    mlm, nsp = outs
+    labels = labels.long()
+    mlm_l = -torch.log_softmax(mlm, dim=-1).gather(-1, labels[:, :-1, None])
+    nsp_l = -torch.log_softmax(nsp, dim=-1).gather(-1, labels[:, -1:])
+    return mlm_l.mean() + nsp_l.mean()
+
+
+def init_bert(cfg, seed, ctx, seq=BERT_SEQ):
+    """BertForPretraining(cfg) initialized on ``ctx`` from the device
+    generator seeded with ``seed`` (Gluon's default init), its deferred
+    shapes settled by one forward."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+
+    mx.random.seed(seed)
+    net = bert.BertForPretraining(cfg)
+    net.initialize(ctx=ctx)
+    net(mx.nd.zeros((1, seq), ctx=ctx, dtype="int32"))
+    return net
+
+
+def copy_bert(net, cfg, ctx):
+    from mxnet_tpu_torch.gluon import load_reference_params
+
+    other = init_bert(cfg, 0, ctx)
+    load_reference_params(other, {k: p.data().asnumpy() for k, p in
+                                  net.collect_params().items()})
+    return other
+
+
+def unchanged(result, names):
+    """The tensors a step left exactly as they were: under BERT_CHECK_OPT
+    (SGD, no weight decay) those whose gradient is zero."""
+    _, before, after = result
+    return [n for n, b, a in zip(names, before, after) if torch.equal(a, b)]
+
+
+def matmul_params(step):
+    """bench.py's _matmul_params: the parameters of the matrix products
+    (embedding tables excluded: they are gathers)."""
+    return sum(v.numel() for k, v in step.params.items()
+               if "embedding" not in k and v.dim() >= 2)
+
+
+def backward_work(shape, dtype):
+    """(FLOPs, bytes) of the attention backward: five products of
+    2·D per visible (q, k) pair per head (s recomputed, dv, dp, dk, dq);
+    q, k, v, o, g read once, lse read once, dq, dk, dv written once."""
+    b, hq, hkv, lq, lk, d, causal = shape[:7]
+    flops_fwd, _ = attention_work(shape, dtype)
+    es = torch.finfo(dtype).bits // 8
+    nbytes = es * (3 * b * hq * lq * d + 4 * b * hkv * lk * d) \
+        + 4 * b * hq * lq
+    return 2.5 * flops_fwd, nbytes
+
+
+def time_attention(fa_mod, shape, gen):
+    """Device ms at ``shape`` (bf16), each by CUDA graph replay: the
+    kernel's forward beside SDPA's forward, and the ported backward beside
+    SDPA's backward and the plain version's under autograd (each forward +
+    backward less its forward), with the bound of each.  Returns the
+    ported backward's ms."""
+    b, hq, hkv, lq, lk, d, causal = shape
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, g = attention_inputs(shape, torch.bfloat16, gen)
+    o, lse = fa_mod._flash_fwd_cuda(q, k, v, causal, scale)
+    fwd_ms = graph_time_ms(
+        lambda: fa_mod._flash_fwd_cuda(q, k, v, causal, scale), iters=10)
+    bwd_ms = graph_time_ms(lambda: fa_mod._fa_backward_blockwise(
+        q, k, v, o, lse, g, causal, scale), iters=10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd():
+        return sdpa(*leaves, is_causal=causal, scale=scale,
+                    enable_gqa=hq != hkv)
+
+    def plain_fwd():
+        return fa_mod._mha_with_lse(*leaves, causal, scale)[0]
+
+    sdpa_fwd_ms = graph_time_ms(sdpa_fwd, iters=10)
+    sdpa_both_ms = graph_time_ms(
+        lambda: torch.autograd.grad(sdpa_fwd(), leaves, g), iters=10)
+    plain_bwd_ms = graph_time_ms(
+        lambda: torch.autograd.grad(plain_fwd(), leaves, g), iters=5) - \
+        graph_time_ms(plain_fwd, iters=5)
+    fwd_bound, fwd_by = bound_ms(shape, torch.bfloat16)
+    flops, nbytes = backward_work(shape, torch.bfloat16)
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bwd_bound = max(t_ops, t_bytes)
+    log(f"  attention bf16 {shape}: forward kernel {fwd_ms:.4f} ms "
+        f"({100 * fwd_bound / fwd_ms:.1f}% of its {fwd_bound:.4f} ms bound, "
+        f"{fwd_by}), SDPA forward {sdpa_fwd_ms:.4f} ms; backward ported "
+        f"{bwd_ms:.4f} ms ({flops / bwd_ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * bwd_bound / bwd_ms:.1f}% of its {bwd_bound:.4f} ms bound, "
+        f"{'operations' if t_ops >= t_bytes else 'bytes'}: "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), SDPA backward "
+        f"{sdpa_both_ms - sdpa_fwd_ms:.4f} ms (forward + backward "
+        f"{sdpa_both_ms:.4f}), plain backward {plain_bwd_ms:.4f} ms")
+    return bwd_ms
+
+
+def labelled(module, attr, label):
+    """Context manager: ``module.attr`` runs inside a profiler range named
+    ``label`` (for attributing its kernels in a profile)."""
+    orig = getattr(module, attr)
+
+    def wrapped(*args, **kw):
+        with torch.profiler.record_function(label):
+            return orig(*args, **kw)
+
+    return patched(module, attr, wrapped)
+
+
+@contextlib.contextmanager
+def record_backward(fa_mod):
+    """Every call of the attention backward in the scope appends its
+    arguments (q, k, v, o, lse, g, causal, sm_scale) to the list it
+    yields, in call order (the last layer first)."""
+    orig = fa_mod._fa_backward_blockwise
+    calls = []
+
+    def recording(*args, **kw):
+        calls.append(args)
+        return orig(*args, **kw)
+
+    with patched(fa_mod, "_fa_backward_blockwise", recording):
+        yield calls
+
+
+def attention_layer_errors(fa_mod, calls):
+    """Per layer of a bf16 step (``calls`` from record_backward): how far o
+    and (dq, dk, dv) stray from the fp64 ones at the same inputs, each as
+    max |x - x64| / max |x64|, and last the same for dq summed over batch
+    and tokens (the attention's share of the query bias's gradient).  Three
+    ways, all through the ported backward: with the forward that ran (on
+    the card the kernel), with the plain bf16 forward (the CPU's path),
+    and with the forward that ran but o unrounded (fp64 o in fp32, so
+    ``delta = sum(o * g)`` is free of o's bf16 rounding).  Returns
+    [(layer, ran, plain, unrounded)], layers numbered from the first."""
+    rows = []
+    for i, (q, k, v, o, lse, g, causal, scale) in enumerate(calls):
+        wide = [t.double() for t in (q, k, v, g)]
+        o64, lse64 = fa_mod._mha_with_lse(*wide[:3], causal, scale)
+        ref = (o64, *fa_mod._fa_backward_blockwise(
+            *wide[:3], o64, lse64, wide[3], causal, scale))
+
+        def devs(o_, lse_):
+            got = (o_, *fa_mod._fa_backward_blockwise(q, k, v, o_, lse_, g,
+                                                      causal, scale))
+            pairs = list(zip(got, ref)) + [(got[1].double().sum((0, 2)),
+                                            ref[1].sum((0, 2)))]
+            return [((x.double() - r).abs().max() / r.abs().max()).item()
+                    for x, r in pairs]
+
+        rows.append((len(calls) - 1 - i, devs(o, lse),
+                     devs(*fa_mod._mha_with_lse(q, k, v, causal, scale)),
+                     devs(o64.float(), lse)))
+    return sorted(rows)
+
+
+def check_attention_layers(fa_mod, calls):
+    """attention_layer_errors of a bf16 step, printed; at every layer the
+    forward that ran must keep o, dq, dk and dv within BF16_NOISE_FACTOR x
+    the plain bf16 forward's deviation (the token sum is printed only: it
+    is a small difference of large terms)."""
+    log("  attention per layer in the bf16 step, deviation from fp64 at its "
+        "inputs (o, dq, dk, dv, dq summed over tokens), each with the "
+        "forward that ran / the plain bf16 forward / the forward that ran "
+        "with o unrounded, all with the ported backward")
+    layers = attention_layer_errors(fa_mod, calls)
+    for layer, *ways in layers:
+        log(f"    layer {layer:2d}: " + "  ".join(
+            "/".join(f"{x:.2e}" for x in cell) for cell in zip(*ways)))
+    for layer, ran, plain, _ in layers:
+        check(all(a <= BF16_NOISE_FACTOR * b
+                  for a, b in zip(ran[:4], plain[:4])),
+              f"layer {layer}: the bf16 attention (o, dq, dk, dv) strays "
+              f"more than {BF16_NOISE_FACTOR:g} x the plain bf16 forward's")
+
+
+def bert_step_check(seed):
+    """One TrainStep step of BertForPretraining (BERT-base width, dropout 0,
+    batch BERT_CHECK_BATCH, weights and batch from ``seed``) on the card in
+    fp32 and in bf16, each held to the CPU's fp64 step, with the zero
+    gradients, the launch count, planted faults, and the attention's error
+    per layer in the bf16 step.  Returns the bf16 step's worst ratio to
+    the CPU's bf16 deviation."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+
+    cfg0 = bert.BertConfig(dropout=0.0)
+    t0 = time.perf_counter()
+    net = init_bert(cfg0, seed, mx.gpu(0))
+    params = net.collect_params()
+    names = list(params)
+    token_type = net.bert.token_type_embed.weight.name
+    log(f"  BertForPretraining: {len(names)} parameters, "
+        f"{sum(p.data().size for p in params.values()) / 1e6:.3f} M values "
+        f"({time.perf_counter() - t0:.1f} s to build)")
+    ids, labels = bert_batch(seed, BERT_CHECK_BATCH, BERT_SEQ,
+                             cfg0.vocab_size)
+    cpu_net = copy_bert(net, cfg0, mx.cpu())
+    t0 = time.perf_counter()
+    cpu16 = trainstep_result(cpu_net, ids, labels, "cpu", BERT_CHECK_OPT,
+                             "bfloat16", bert_loss)
+    t1 = time.perf_counter()
+    cpu64 = trainstep_result(cpu_net.double(), ids, labels, "cpu",
+                             BERT_CHECK_OPT, None, bert_loss)
+    log(f"  CPU steps: bf16 {t1 - t0:.1f} s, fp64 "
+        f"{time.perf_counter() - t1:.1f} s")
+    del cpu_net
+    fa_mod._flash_fwd_cuda.launches = 0
+    card = trainstep_result(net, ids, labels, "cuda", BERT_CHECK_OPT, None,
+                            bert_loss)
+    launches = fa_mod._flash_fwd_cuda.launches
+    log(f"  flash_attn_fwd launches in one training step: {launches}")
+    check(launches == cfg0.num_layers,
+          f"flash_attn_fwd launched {launches} times in a step, expected "
+          f"num_layers = {cfg0.num_layers}")
+    check(all(bool(torch.isfinite(t).all()) for t in card[2]),
+          "non-finite parameters after the card's BERT step")
+    check_steps(card, cpu64, names, "fp32 card vs the fp64 CPU step",
+                BERT_FP32_BOUND)
+    for what, result in (("card fp32", card), ("CPU fp64", cpu64)):
+        zero = unchanged(result, names)
+        log(f"  tensors with a zero gradient ({what}): {zero}")
+        check(zero == [token_type], f"{what}: tensors other than "
+              f"{token_type} (token types are not passed) have a zero "
+              f"gradient: {zero}")
+    with planted_attention_fault(fa_mod, "no_delta"):
+        ratio, where = compare_steps(
+            trainstep_result(net, ids, labels, "cuda", BERT_CHECK_OPT, None,
+                             bert_loss), cpu64, names)
+    log(f"  fp32 with a planted fault (no_delta): {ratio:.3e} at {where}")
+    check(ratio > BERT_FP32_BOUND, "the fp32 BERT check misses no_delta")
+
+    with record_backward(fa_mod) as calls:
+        card16 = trainstep_result(net, ids, labels, "cuda", BERT_CHECK_OPT,
+                                  "bfloat16", bert_loss)
+    check(all(t.dtype == torch.float32 for t in card16[2]),
+          "the bf16 step's master weights are not fp32")
+    for what, cand in (("card", card16), ("CPU", cpu16)):
+        ratio, where = compare_steps(cand, cpu64, names)
+        log(f"  {what}'s bf16 step vs the fp64 step: {ratio:.3e} of the "
+            f"update ({where})")
+    check_attention_layers(fa_mod, calls)
+    del calls
+    scales = noise_scales(cpu16, cpu64, names)
+    ratio16 = check_steps(card16, cpu64, names, "bf16, card vs the fp64 step",
+                          BF16_NOISE_FACTOR, scales,
+                          "of the CPU's bf16 deviation")
+    with planted_attention_fault(fa_mod, "no_delta"):
+        ratio, where = compare_steps(
+            trainstep_result(net, ids, labels, "cuda", BERT_CHECK_OPT,
+                             "bfloat16", bert_loss), cpu64, names, scales)
+    log(f"  bf16 with a planted fault (no_delta): {ratio:.3e} at {where}")
+    check(ratio > BF16_NOISE_FACTOR, "the bf16 BERT check misses no_delta")
+    del net, cpu16, cpu64, card, card16
+    torch.cuda.empty_cache()
+    return ratio16
+
+
+
+def loop_adam_update(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, wd=0.0):
+    """TrainStep's Adam (make_adam_update's formula) as a Python loop of
+    ~8 ops per tensor: the form that make_adam_update's ``_foreach`` calls
+    replace, kept here to time them against."""
+
+    def init(params):
+        return {"m": [torch.zeros_like(p) for p in params],
+                "v": [torch.zeros_like(p) for p in params], "t": 0}
+
+    @torch.no_grad()
+    def update(params, grads, state):
+        state["t"] += 1
+        c1 = 1.0 - beta1 ** state["t"]
+        c2 = 1.0 - beta2 ** state["t"]
+        for p, g, m, v in zip(params, grads, state["m"], state["v"]):
+            g = g + wd * p
+            m.mul_(beta1).add_((1 - beta1) * g)
+            v.mul_(beta2).add_((1 - beta2) * g * g)
+            p.sub_(lr * (m / c1) / (torch.sqrt(v / c2) + eps))
+
+    return init, update
+
+
+def time_adam_forms(params, gen):
+    """One Adam update (BERT_OPT) over fresh copies of ``params`` with
+    random gradients, by TrainStep's ``_foreach`` form and by the loop
+    form: each timed eager (CUDA events, so the host's launch cost shows
+    where it exceeds the device's) and by graph replay (device time), and
+    the two forms' results after one update from the same start compared
+    (max |difference| / max |update|)."""
+    from mxnet_tpu_torch.parallel.data_parallel import make_adam_update
+
+    start = [p.detach().clone() for p in params]
+    grads = [torch.randn(p.shape, generator=gen, device=p.device)
+             for p in params]
+    after, times = {}, {}
+    for form, make in (("_foreach", make_adam_update),
+                       ("loop", loop_adam_update)):
+        init, update = make(lr=BERT_OPT["learning_rate"])
+        ps = [p.clone() for p in start]
+        state = init(ps)
+        update(ps, grads, state)
+        after[form] = [p.clone() for p in ps]
+        times[form] = (cuda_time_ms(lambda: update(ps, grads, state),
+                                    iters=10),
+                       graph_time_ms(lambda: update(ps, grads, state),
+                                     iters=3, warmup=1))
+        del ps, state
+    upd = max((a - b).abs().max().item()
+              for a, b in zip(after["loop"], start))
+    diff = max((a - b).abs().max().item()
+               for a, b in zip(after["_foreach"], after["loop"]))
+    log(f"  Adam update over {len(params)} tensors "
+        f"({sum(p.numel() for p in params) / 1e6:.3f} M values): "
+        + ", ".join(f"{form} {eager:.3f} ms eager / {dev:.3f} ms device"
+                    for form, (eager, dev) in times.items())
+        + f"; the forms differ by {diff / upd:.2e} of the update")
+    check(diff <= 1e-3 * upd, "the _foreach Adam update disagrees with "
+                              "the loop form")
+    return times
+
+
+def bert_phase(seed):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+    from mxnet_tpu_torch.gluon.model_zoo.language import llama as llama_mod
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    log("== bert 1: attention gradients on the card (kernel forward, "
+        "ported backward) against the plain version under autograd")
+    for shape in ATTN_GRAD_CASES:
+        check_attention_grads(fa_mod, shape, gen)
+        check_attention_grads_bf16(fa_mod, shape, gen)
+    for fault, shape in ATTN_FAULTS:
+        ratio = attention_fault_ratio(fa_mod, fault, shape, gen)
+        log(f"  planted fault {fault} at {shape}: {ratio:.3e}")
+        check(ratio > ATTN_FP32_BOUND,
+              f"the attention gradient check misses the fault {fault}")
+    check_llama_grads(llama_mod, seed)
+
+    log(f"== bert 2: one TrainStep step of BertForPretraining at BERT-base "
+        f"width, batch {BERT_CHECK_BATCH}, sequence {BERT_SEQ}, dropout 0, "
+        f"SGD {BERT_CHECK_OPT}: card against the CPU's fp64 step")
+    bert_step_check(seed)
+
+    log(f"== bert 3: bench.py's configuration: BertForPretraining at "
+        f"BERT-base width, batch {BERT_BATCH}, sequence {BERT_SEQ}, dropout "
+        f"0.1, Adam {BERT_OPT}, bf16")
+    cfg = bert.BertConfig()
+    net = init_bert(cfg, seed, mx.gpu(0))
+    ids, labels = bert_batch(seed, BERT_BATCH, BERT_SEQ, cfg.vocab_size)
+    ids_t = torch.from_numpy(ids).cuda()
+    labels_t = torch.from_numpy(labels).cuda()
+    step = TrainStep(net, bert_loss, optimizer="adam",
+                     optimizer_params=BERT_OPT, dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_mod._flash_fwd_cuda.launches = 0        # the main path's count
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(BERT_WARMUP):
+        losses.append(step(ids_t, labels_t))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(BERT_STEPS):
+        losses.append(step(ids_t, labels_t))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = fa_mod._flash_fwd_cuda.launches
+    losses = [v.item() for v in losses]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  losses: {' '.join(f'{v:.4f}' for v in losses)}")
+    check(all(math.isfinite(v) for v in losses), "non-finite BERT loss")
+    check(losses[-1] < losses[0], "the BERT loss did not fall")
+    n_steps = BERT_WARMUP + BERT_STEPS
+    check(launches == cfg.num_layers * n_steps,
+          f"flash_attn_fwd launched {launches} times in {n_steps} steps, "
+          f"expected {cfg.num_layers * n_steps}")
+    samples_s = BERT_BATCH * BERT_STEPS / dt
+    n_mm = matmul_params(step)
+    mfu = samples_s * 6.0 * n_mm * BERT_SEQ / PEAK_FLOPS[torch.bfloat16]
+    log(f"  [{gpu_line()}] {samples_s:.1f} samples/s, "
+        f"{1e3 * dt / BERT_STEPS:.2f} ms/step over {BERT_STEPS} steps "
+        f"(warm-up {BERT_WARMUP} steps {t1 - t0:.2f} s), MFU "
+        f"{100 * mfu:.2f}% (bench.py: 6 x {n_mm / 1e6:.3f} M matmul "
+        f"parameters x {BERT_SEQ} tokens per sample over the bf16 peak), "
+        f"peak memory {peak / 2**30:.3f} GiB; flash_attn_fwd launches "
+        f"{launches} = {cfg.num_layers} layers x {n_steps} steps")
+    with labelled(fa_mod, "_fa_backward_blockwise", "attention_backward"):
+        log_device_profile(lambda: [step(ids_t, labels_t)
+                                    for _ in range(3)],
+                           BERT_KERNEL_GROUPS, n_top=12,
+                           label="attention_backward", steps=3,
+                           step_ms=1e3 * dt / BERT_STEPS)
+    time_adam_forms(list(step.train_params.values()), gen)
+    del step, net
+    torch.cuda.empty_cache()
+
+    log("== bert 4: attention device times beside SDPA's")
+    for shape in (BERT_ATTN, LLAMA_ATTN):
+        time_attention(fa_mod, shape, gen)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the weights, prompts and inputs")
+    parser.add_argument("--bert-step-seeds", type=int, nargs="+",
+                        metavar="SEED",
+                        help="run only the build and the BERT-base step "
+                             "check (bert 2) once for each seed, and print "
+                             "the bf16 step's readings (its spread over "
+                             "seeds)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the "
@@ -1025,19 +1728,44 @@ def main():
     log(f"  built {_kernels.sources()} in {secs:.2f} s")
     build_checks(_kernels)
 
+    if args.bert_step_seeds:
+        ratios = {}
+        for seed in args.bert_step_seeds:
+            log(f"== bert 2 at seed {seed}")
+            ratios[seed] = bert_step_check(seed)
+        log(f"  [{gpu_line()}] the bf16 step's worst ratio to the CPU's "
+            f"bf16 deviation by seed: " + ", ".join(
+                f"{seed}: {r:.3f}" for seed, r in ratios.items()))
+        return 0
+
     log("== kernels vs plain versions")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     row = kernel_phase(gen)
 
+    # the kernel's launches on each path, each counted from zero over the
+    # path's run; this slice's main path is BERT training
+    t0 = time.perf_counter()
     log("== serving: Llama-3-8B widths and depth (32 layers)")
-    counts = serving_phase(args.seed)
-    row["launches"] = counts[row["name"]]
-    check(row["launches"] > 0, "flash_attn_fwd never ran on the main path")
+    launches = {"serving": serving_phase(args.seed)["flash_attn_fwd"]}
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    log(f"  serving phase took {t1 - t0:.1f} s")
 
     log("== training: ResNet-50 v1 widths")
     training_phase(args.seed)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    log(f"  resnet phase took {t2 - t1:.1f} s")
+
+    log("== transformer training: BERT-base widths")
+    launches["bert_train"] = bert_phase(args.seed)
+    log(f"  bert phase took {time.perf_counter() - t2:.1f} s")
+    for path, n in launches.items():
+        check(n > 0, f"flash_attn_fwd never ran on the {path} path")
+        row["by_path"][path]["launches"] = n
+    row["launches"] = launches["bert_train"]
+
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(gpu_line())
     print(json.dumps({"kernels": [row]}))

@@ -1,2 +1,3 @@
-"""Model zoo of the port: ``vision`` (ResNets) and ``language`` (Llama)."""
+"""Model zoo of the port: ``vision`` (ResNets) and ``language`` (BERT,
+Llama)."""
 from . import vision  # noqa: F401

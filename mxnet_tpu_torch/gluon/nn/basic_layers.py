@@ -1,6 +1,6 @@
 """Gluon basic layers (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): Sequential, HybridSequential,
-Dense, BatchNorm and Flatten."""
+Dense, Dropout, BatchNorm, LayerNorm, Embedding and Flatten."""
 from __future__ import annotations
 
 import numpy as _np
@@ -9,7 +9,8 @@ from ... import autograd
 from ..block import Block, HybridBlock
 from .activations import Activation
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "BatchNorm", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "LayerNorm", "Embedding", "Flatten"]
 
 
 class _SequentialMixin:
@@ -85,6 +86,23 @@ class Dense(HybridBlock):
         return out
 
 
+class Dropout(HybridBlock):
+    """Dropout at ``rate`` in train mode (``autograd.is_training()``), the
+    mask shared over ``axes``; the identity at rate 0 and in predict
+    mode."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate == 0:
+            return x
+        return F.Dropout(x, p=self._rate, axes=self._axes or None,
+                         training=autograd.is_training())
+
+
 class BatchNorm(HybridBlock):
     """Batch normalization with running stats.  The moving mean/var come
     back from the BatchNorm op and are written into their Parameters (or
@@ -138,6 +156,55 @@ class BatchNorm(HybridBlock):
             self._update_running_state(self.running_mean, new_mean)
             self._update_running_state(self.running_var, new_var)
         return out
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalization over ``axis``: ``gamma`` (ones) and ``beta``
+    (zeros) of the axis's size, deferred until the first input."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        self.gamma = self.params.get("gamma",
+                                     grad_req="write" if scale else "null",
+                                     shape=(in_channels,),
+                                     init=gamma_initializer,
+                                     allow_deferred_init=True)
+        self.beta = self.params.get("beta",
+                                    grad_req="write" if center else "null",
+                                    shape=(in_channels,),
+                                    init=beta_initializer,
+                                    allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)
+
+
+class Embedding(HybridBlock):
+    """Lookup table ``weight`` (input_dim, output_dim); ids are clipped into
+    range.  Its default prefix is ``embedding<N>_``: ``bench.py`` tells the
+    embeddings from the matmul weights by that name."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super().__init__(**kwargs)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self.weight = self.params.get("weight", shape=(input_dim, output_dim),
+                                      init=weight_initializer, dtype=dtype,
+                                      allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
 
 
 class Flatten(HybridBlock):

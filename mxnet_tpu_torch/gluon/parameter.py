@@ -41,12 +41,14 @@ _TRACE = _TraceState()
 
 class _TraceContext:
     """Active while ``parallel.functionalize`` runs a net on given tensors:
-    ``data()`` answers from ``param_map`` and running-state writes collect
-    in ``state_updates`` instead of touching the Parameters."""
+    ``data()`` answers from ``param_map`` (and notes the Parameter in
+    ``read``) and running-state writes collect in ``state_updates`` instead
+    of touching the Parameters."""
 
     def __init__(self, param_map):
         self.param_map = param_map          # Parameter -> NDArray
         self.state_updates = []             # [(Parameter, tensor)]
+        self.read = set()                   # Parameters data() answered
 
 
 class Parameter:
@@ -182,6 +184,7 @@ class Parameter:
     def data(self, ctx=None):
         tc = _TRACE.ctx
         if tc is not None and self in tc.param_map:
+            tc.read.add(self)
             return tc.param_map[self]
         self._check_initialized()
         return self._nd

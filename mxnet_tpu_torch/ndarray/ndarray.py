@@ -309,6 +309,10 @@ class NDArray:
     def flatten(self):
         return invoke("flatten", [self], {})
 
+    def slice_axis(self, axis=0, begin=0, end=None):
+        return invoke("slice_axis", [self],
+                      {"axis": axis, "begin": begin, "end": end})
+
     def sum(self, axis=None, keepdims=False):
         return invoke("sum", [self], {"axis": axis, "keepdims": keepdims})
 

@@ -1,10 +1,10 @@
 """Neural-net operators of the training path (counterpart of
 ``mxnet_tpu/ops/nn.py``): FullyConnected, Convolution, Pooling, Activation,
-softmax, log_softmax and BatchNorm.
+softmax, log_softmax, BatchNorm, LayerNorm and Dropout.
 
 None of these is a Pallas kernel in the reference (XLA lowers them), so
 their counterparts are library calls: ``F.linear`` / ``F.conv2d`` through
-cuBLAS and cuDNN, torch pooling and ``F.batch_norm``.
+cuBLAS and cuDNN, torch pooling, ``F.batch_norm`` and ``F.layer_norm``.
 
 Channel-last layouts (``NHWC`` ...) keep the reference's tensors: the input
 is (N, *spatial, C) and a convolution weight is MXNet's (O, *k, C/group).
@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import random as _random
 from ..base import MXNetError
 from .registry import register
 
@@ -156,3 +157,33 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
                            training=False, eps=eps)
         new_mean, new_var = moving_mean, moving_var
     return out.movedim(1, axis), new_mean.detach(), new_var.detach()
+
+
+@register("LayerNorm", aliases=("layer_norm",))
+def layer_norm(x, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    """Normalise over ``axis`` by the mean and the BIASED variance, in fp32
+    (fp64 for fp64 inputs) whatever the input dtype, then scale, shift and
+    round once to the input dtype, as the reference does."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xm = x.movedim(axis, -1).to(acc)
+    y = F.layer_norm(xm, (xm.shape[-1],), gamma.to(acc), beta.to(acc), eps)
+    return y.to(x.dtype).movedim(-1, axis)
+
+
+@register("Dropout", aliases=("dropout",))
+def dropout(x, p=0.5, mode="training", axes=None, training=False,
+            cudnn_off=None):
+    """Inverted dropout: ``x * bernoulli(1 - p) / (1 - p)``, the mask
+    broadcast over ``axes``; the identity in predict mode (unless
+    ``mode="always"``) and at ``p = 0``.  The mask is drawn from the
+    device's generator (``mxnet_tpu_torch.random``), so a seed fixes it."""
+    if (not training and mode != "always") or p <= 0.0:
+        return x
+    shape = x.shape
+    if axes:
+        axes = [a % x.ndim for a in axes]
+        shape = tuple(1 if i in axes else n for i, n in enumerate(x.shape))
+    keep = 1.0 - p
+    mask = torch.empty(shape, dtype=torch.float32, device=x.device)
+    mask.bernoulli_(keep, generator=_random.generator(x.device))
+    return x * (mask / keep).to(x.dtype)

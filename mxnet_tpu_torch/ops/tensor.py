@@ -1,14 +1,16 @@
 """Tensor operators of the training path (counterpart of
 ``mxnet_tpu/ops/tensor.py``): elementwise arithmetic and comparisons with
 broadcasting and scalar forms, the unary math of the NDArray dunders and
-the losses, sum / mean, reshape / flatten / transpose, ``pick``, creation
-and ``cast``.  Each is plain PyTorch; autograd supplies the gradients.
+the losses, sum / mean, reshape / flatten / transpose / ``slice_axis``,
+``pick`` and ``Embedding``, ``gelu``, creation (``arange`` too) and
+``cast``.  Each is plain PyTorch; autograd supplies the gradients.
 """
 from __future__ import annotations
 
 import operator
 
 import torch
+import torch.nn.functional as F
 
 from ..base import torch_dtype
 from .registry import register
@@ -26,6 +28,8 @@ _unary("negative", lambda x: -x)
 _unary("abs", torch.abs)
 _unary("square", torch.square)
 _unary("zeros_like", torch.zeros_like, differentiable=False)
+# the exact erf form, as the reference's nn.gelu(approximate=False)
+_unary("gelu", F.gelu)
 
 
 @register("cast", aliases=("Cast", "amp_cast"))
@@ -129,6 +133,23 @@ def flatten(x):
     return x.reshape(x.shape[0], -1)
 
 
+@register("slice_axis")
+def slice_axis(x, axis=0, begin=0, end=None):
+    """``x[begin:end]`` along ``axis`` (a view)."""
+    axis = axis % x.ndim
+    end = x.shape[axis] if end is None else end
+    return x.narrow(axis, begin, end - begin)
+
+
+@register("Embedding", aliases=("embedding",))
+def embedding(data, weight, input_dim=None, output_dim=None, dtype=None,
+              sparse_grad=False):
+    """Rows of ``weight`` at ``data``, ids cast to integers and clipped
+    into [0, input_dim - 1] as the reference does."""
+    idx = data.to(torch.int64).clamp(0, weight.shape[0] - 1)
+    return F.embedding(idx, weight)
+
+
 @register("pick")
 def pick(data, index, axis=-1, keepdims=False, mode="clip"):
     """``data`` gathered along ``axis`` at ``index`` (cast to an integer,
@@ -150,3 +171,16 @@ def zeros(shape=None, dtype="float32", device=None):
 @register("ones", creation=True, differentiable=False)
 def ones(shape=None, dtype="float32", device=None):
     return torch.ones(shape, dtype=torch_dtype(dtype), device=device)
+
+
+@register("arange", creation=True, differentiable=False)
+def arange(start=0, stop=None, step=1.0, repeat=1, dtype="float32",
+           device=None):
+    """``start, start + step, ...`` below ``stop`` (one-argument form: from
+    0 below ``start``), each value ``repeat`` times, on ``device`` (the
+    frontend's context; a Gluon block passes its input's)."""
+    if stop is None:
+        start, stop = 0, start
+    r = torch.arange(start, stop, step, dtype=torch_dtype(dtype),
+                     device=device)
+    return r.repeat_interleave(repeat) if repeat != 1 else r

@@ -29,6 +29,9 @@ def functionalize(net, train_mode=False, with_state=False):
     are dropped.  ``with_state=True``: ``apply_fn`` returns
     ``(outputs, state)``, state mapping each state parameter's name to
     its new value.  The net's own Parameters are never written.
+    ``apply_fn(..., read=names)`` adds to the set ``names`` the name of
+    every parameter the forward read (a block that is never called reads
+    none of its parameters).
     """
     plist = sorted(net.collect_params().items())
     try:
@@ -39,7 +42,7 @@ def functionalize(net, train_mode=False, with_state=False):
             f"deferred shapes are resolved") from e
     name_of = {id(p): name for name, p in plist}
 
-    def apply_fn(params_dict, *inputs):
+    def apply_fn(params_dict, *inputs, read=None):
         tc = _TraceContext({p: NDArray._wrap(params_dict[name])
                             for name, p in plist})
         prev = _TRACE.ctx
@@ -50,6 +53,8 @@ def functionalize(net, train_mode=False, with_state=False):
                 out = net.forward(*(NDArray._wrap(t) for t in inputs))
         finally:
             _TRACE.ctx = prev
+        if read is not None:
+            read.update(name_of[id(p)] for p in tc.read)
         if isinstance(out, NDArray):
             out = out._data
         elif isinstance(out, (list, tuple)):

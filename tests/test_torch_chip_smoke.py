@@ -13,6 +13,11 @@ same step and fails each planted fault in it; the bf16 check (the card's
 bf16 step against the fp64 step, within a multiple of the CPU's bf16
 step's deviation from it) passes the same bf16 step and fails the planted
 bf16 faults; the Gluon loop agrees with TrainStep.
+
+Transformer training: the attention gradient checks pass the port and fail
+the planted backward faults, the BERT step check fails a planted fault,
+and the per-layer check of a bf16 step's attention fails a planted error
+in the forward's output.
 The new entry points raise without a card unless asked for the CPU.
 """
 import contextlib
@@ -212,3 +217,143 @@ def test_update_floor_is_per_kind():
                           for a, n in zip(after, names)])
     assert chip_smoke.compare_steps(cand, ref, names) == \
         (pytest.approx(0.1), "conv0_weight")
+
+
+# -- the transformer-training checks --------------------------------------------
+# small counterparts of chip_smoke's attention cases: GQA causal, plain
+# non-causal, and Lq < Lk causal (the diagonal offset)
+_GQA = (1, 4, 2, 64, 64, 32, True)
+_PLAIN = (2, 2, 2, 32, 32, 32, False)
+_OFFSET = (1, 4, 2, 32, 96, 32, True)
+
+
+def _gen(seed=0):
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return gen
+
+
+def test_attention_grad_checks_pass_the_port():
+    for shape in (_GQA, _PLAIN, _OFFSET):
+        assert chip_smoke.check_attention_grads(port_fa, shape, _gen(),
+                                                device="cpu") < 1e-5
+        chip_smoke.check_attention_grads_bf16(port_fa, shape, _gen(),
+                                              device="cpu")
+
+
+@pytest.mark.parametrize("fault,shape", [("no_gqa_fold", _GQA),
+                                         ("no_delta", _PLAIN),
+                                         ("offset_0", _OFFSET)])
+def test_attention_grad_check_catches_planted_faults(fault, shape):
+    """Each planted backward fault moves the gradients far past the fp32
+    bound, and the check fails on it."""
+    ratio = chip_smoke.attention_fault_ratio(port_fa, fault, shape, _gen(),
+                                             device="cpu")
+    assert ratio > 10 * chip_smoke.ATTN_FP32_BOUND, ratio
+    with chip_smoke.planted_attention_fault(port_fa, fault):
+        with pytest.raises(SystemExit, match="CHECK FAILED"):
+            chip_smoke.check_attention_grads(port_fa, shape, _gen(),
+                                             device="cpu")
+    # the fault is gone after the scope
+    chip_smoke.check_attention_grads(port_fa, shape, _gen(), device="cpu")
+
+
+def test_llama_grad_check_runs_on_the_cpu():
+    assert chip_smoke.check_llama_grads(port_llama, 0, device="cpu") == 0.0
+
+
+def _tiny_bert_cfg():
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+
+    return bert.BertConfig(vocab_size=64, hidden_size=32, num_layers=2,
+                           num_heads=2, intermediate_size=64,
+                           max_position=32, dropout=0.0)
+
+
+@pytest.fixture(scope="module")
+def tiny_bert():
+    """A small BertForPretraining on the CPU in fp64 (as the CPU's
+    reference step runs on the chip), a batch, and its SGD step."""
+    cfg = _tiny_bert_cfg()
+    net = chip_smoke.init_bert(cfg, 0, mx.cpu(), seq=16).double()
+    ids, labels = chip_smoke.bert_batch(0, 4, 16, cfg.vocab_size)
+    ref = chip_smoke.trainstep_result(net, ids, labels, "cpu",
+                                      chip_smoke.BERT_CHECK_OPT, None,
+                                      chip_smoke.bert_loss)
+    return cfg, net, ids, labels, ref
+
+
+@pytest.mark.parametrize("fault", [None, "no_delta"])
+def test_bert_step_check_catches_a_planted_fault(tiny_bert, fault):
+    cfg, net, ids, labels, ref = tiny_bert
+    names = list(net.collect_params())
+    other = chip_smoke.copy_bert(net, cfg, mx.cpu()).double()
+    scope = chip_smoke.planted_attention_fault(port_fa, fault) if fault \
+        else contextlib.nullcontext()
+    with scope:
+        cand = chip_smoke.trainstep_result(other, ids, labels, "cpu",
+                                           chip_smoke.BERT_CHECK_OPT, None,
+                                           chip_smoke.bert_loss)
+    bound = chip_smoke.BERT_FP32_BOUND
+    if fault is None:
+        assert chip_smoke.check_steps(cand, ref, names, "same step",
+                                      bound) == 0.0
+    else:
+        with pytest.raises(SystemExit, match="CHECK FAILED"):
+            chip_smoke.check_steps(cand, ref, names, fault, bound)
+
+
+@pytest.mark.parametrize("fault", [None, "o_scaled"])
+def test_attention_layer_check_catches_a_faulty_forward(tiny_bert, fault):
+    """The per-layer check of the bf16 step's attention records one
+    backward call per layer; on the CPU the forward that ran is the plain
+    version, so it passes at a ratio of exactly 1, and an o 5% off (a
+    planted forward fault) fails it."""
+    cfg, net, ids, labels, _ = tiny_bert
+    other = chip_smoke.copy_bert(net, cfg, mx.cpu())
+    with chip_smoke.record_backward(port_fa) as calls:
+        chip_smoke.trainstep_result(other, ids, labels, "cpu",
+                                    chip_smoke.BERT_CHECK_OPT, "bfloat16",
+                                    chip_smoke.bert_loss)
+    assert len(calls) == cfg.num_layers
+    assert all(c[0].dtype == torch.bfloat16 for c in calls)
+    if fault is None:
+        rows = chip_smoke.attention_layer_errors(port_fa, calls)
+        assert [r[0] for r in rows] == list(range(cfg.num_layers))
+        assert all(ran == plain for _, ran, plain, _ in rows)
+        chip_smoke.check_attention_layers(port_fa, calls)
+    else:
+        calls = [(q, k, v, (o.float() * 1.05).to(o.dtype), *rest)
+                 for q, k, v, o, *rest in calls]
+        with pytest.raises(SystemExit, match="CHECK FAILED"):
+            chip_smoke.check_attention_layers(port_fa, calls)
+
+
+def test_bert_step_leaves_only_the_token_type_embedding(tiny_bert):
+    """Under the checked SGD step only the token-type embedding (no token
+    types are passed) has a zero gradient, so only it stays unchanged."""
+    _, net, _, _, ref = tiny_bert
+    assert chip_smoke.unchanged(ref, list(net.collect_params())) == \
+        [net.bert.token_type_embed.weight.name]
+
+
+def test_bert_loss_is_bench_loss():
+    """chip_smoke's torch loss against bench.py's jax formula."""
+    import jax
+    import jax.numpy as jnp
+
+    r = np.random.RandomState(0)
+    mlm = r.randn(2, 5, 11).astype("float32")
+    nsp = r.randn(2, 2).astype("float32")
+    labels = np.concatenate([r.randint(0, 11, (2, 5)),
+                             r.randint(0, 2, (2, 1))], 1).astype("int32")
+    logp = jax.nn.log_softmax(jnp.asarray(mlm), axis=-1)
+    want = -jnp.take_along_axis(logp, jnp.asarray(labels[:, :-1, None]),
+                                axis=-1).mean()
+    nlogp = jax.nn.log_softmax(jnp.asarray(nsp), axis=-1)
+    want += -jnp.take_along_axis(nlogp, jnp.asarray(labels[:, -1:]),
+                                 axis=-1).mean()
+    got = chip_smoke.bert_loss((torch.from_numpy(mlm),
+                                torch.from_numpy(nsp)),
+                               torch.from_numpy(labels))
+    assert abs(got.item() - float(want)) < 1e-5

@@ -9,7 +9,16 @@ a seed and handed to both packages.  Tolerance: 1e-5 absolute on ``o`` and
 ``lse`` in fp32 (both sides sum in fp32 in different orders; the measured
 gap is ~1e-6).  The CUDA kernel itself runs only on the card: chip_smoke.py
 holds it against ``_mha_with_lse`` there.
+
+Gradients: the port's q/k/v gradients (``_FlashAttention``, whose backward
+is the port of ``_fa_backward_blockwise``) against ``jax.vjp`` of the
+reference's ``flash_attention``, which on the CPU runs ``_mha_with_lse`` and
+the reference's own ``_fa_backward_blockwise``, with GQA folded by
+``jnp.repeat``'s vjp.  Tolerance 1e-5 absolute in fp32 on gradients of
+magnitude up to ~5 (measured gap up to 3.6e-6, at Lk = 1024 with two key
+blocks).
 """
+import jax
 import numpy as np
 import pytest
 import torch
@@ -74,6 +83,122 @@ def test_public_flash_attention_matches_reference(hq, hkv, lq, lk, d,
     _, lse = port_fa._mha_with_lse(*_t(q, k, v), causal, 1.0 / np.sqrt(d))
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), rtol=0,
                                atol=ATOL)
+
+
+def _vjp_both(seed, b, hq, hkv, lq, lk, d, causal):
+    """(port's (dq, dk, dv), reference's) for one random cotangent."""
+    q, k, v = _qkv(seed, b, hq, hkv, lq, lk, d)
+    g = np.random.RandomState(seed + 100).randn(b, hq, lq, d) \
+        .astype("float32")
+    _, vjp = jax.vjp(lambda *a: ref_fa.flash_attention(*a, causal=causal),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    ref = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    leaves = [t.requires_grad_() for t in _t(q, k, v)]
+    o = port_fa.flash_attention(*leaves, causal=causal)
+    assert o.grad_fn is not None
+    port = torch.autograd.grad(o, leaves, torch.from_numpy(g))
+    return port, ref
+
+
+@pytest.mark.parametrize("hq,hkv,lq,lk,causal", [
+    (4, 4, 1024, 1024, True),      # Lk = 2 x 512: two key blocks
+    (4, 4, 1024, 1024, False),
+    (4, 2, 1024, 1024, True),      # GQA 4/2: dk/dv folded onto kv heads
+    (4, 2, 1024, 1024, False),
+    (4, 4, 256, 600, False),       # 600 % 512 != 0: one block of 600
+    (4, 2, 100, 600, True),        # Lq < Lk causal: the diagonal offset
+    (4, 2, 512, 1536, True),       # offset across three key blocks
+    (4, 2, 37, 37, True),          # ragged, one short block
+])
+def test_gradients_match_reference_vjp(hq, hkv, lq, lk, causal):
+    port, ref = _vjp_both(10, 2, hq, hkv, lq, lk, 32, causal)
+    for name, pg, rg in zip("qkv", port, ref):
+        assert tuple(pg.shape) == rg.shape, name
+        np.testing.assert_allclose(pg.numpy(), rg, rtol=0, atol=ATOL,
+                                   err_msg=f"d{name}")
+
+
+def test_backward_helpers_match_the_reference_blockwise():
+    """The port's ``_fa_backward_blockwise`` on GQA-repeated k/v against
+    the reference's function itself, with the block size forced small so
+    that the reference and the port both take several blocks."""
+    q, k, v = _qkv(11, 1, 4, 4, 64, 256, 32)
+    g = np.random.RandomState(12).randn(*q.shape).astype("float32")
+    scale = 1.0 / np.sqrt(32)
+    o, lse = port_fa._mha_with_lse(*_t(q, k, v), True, scale)
+    got = port_fa._fa_backward_blockwise(*_t(q, k, v), o, lse,
+                                         torch.from_numpy(g), True, scale,
+                                         block_k=64)
+    want = ref_fa._fa_backward_blockwise(
+        *(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(o.numpy()),
+        jnp.asarray(lse.numpy()), jnp.asarray(g), True, scale, block_k=64)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=ATOL)
+
+
+def test_backward_does_not_run_the_forward_again(monkeypatch):
+    """One forward per call: the backward recomputes the probabilities
+    from the saved lse (on the card, one kernel launch per layer)."""
+    calls = []
+    plain = port_fa._mha_with_lse
+
+    def counting(*a):
+        calls.append(1)
+        return plain(*a)
+
+    monkeypatch.setattr(port_fa, "_mha_with_lse", counting)
+    leaves = [t.requires_grad_() for t in _t(*_qkv(15, 1, 4, 2, 32, 32, 32))]
+    port_fa.flash_attention(*leaves, causal=True).sum().backward()
+    assert len(calls) == 1 and all(t.grad is not None for t in leaves)
+
+
+def test_fold_gqa_sums_each_group():
+    d = torch.arange(2 * 6 * 3 * 2, dtype=torch.float32).reshape(2, 6, 3, 2)
+    folded = port_fa._fold_gqa(d, 2)
+    assert folded.shape == (2, 2, 3, 2)
+    torch.testing.assert_close(folded[:, 1], d[:, 3] + d[:, 4] + d[:, 5])
+    assert port_fa._fold_gqa(d, 6) is d
+
+
+def test_no_grad_path_saves_nothing():
+    """Serving runs under no_grad: the output has no graph, so nothing is
+    saved for a backward; with grad on but no input requiring grad, the
+    same."""
+    q, k, v = _t(*_qkv(13, 1, 4, 2, 16, 16, 32))
+    with torch.no_grad():
+        o = port_fa.flash_attention(*(t.requires_grad_() for t in (q, k, v)),
+                                    causal=True)
+    assert o.grad_fn is None
+    o = port_fa.flash_attention(*(t.detach() for t in (q, k, v)))
+    assert o.grad_fn is None and not o.requires_grad
+
+
+def test_registered_op_reaches_the_function():
+    """``F.flash_attention`` in a Gluon block is the op table's
+    ``_contrib_flash_attention`` (alias ``flash_attention``), recorded for
+    autograd and cast to the target dtype under AMP."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    od = get_op("flash_attention")
+    assert od.name == "_contrib_flash_attention"
+    assert get_op("_contrib_flash_attention") is od
+    q, k, v = _qkv(14, 1, 2, 2, 8, 8, 32)
+    a = [nd.array(t, ctx=mx.cpu()) for t in (q, k, v)]
+    for t in a:
+        t.attach_grad()
+    with autograd.record():
+        o = nd.flash_attention(*a, causal=True)
+    o.backward()
+    assert all(float(abs(t.grad).sum().asscalar()) > 0 for t in a)
+    amp.init("bfloat16")
+    try:
+        assert nd.flash_attention(*a).dtype == "bfloat16"
+    finally:
+        amp.disable()
 
 
 def test_cpu_tensors_never_launch_the_kernel():
