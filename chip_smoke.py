@@ -44,7 +44,8 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    the plain version under torch autograd at the BERT shape, a causal GQA
    Llama-3-8B shape and an Lq < Lk causal shape, fp32 and bf16, each with
    planted backward faults that must fail, and llama_tiny's gradients on
-   the card against the CPU's; (b) one TrainStep step of
+   the card against the CPU's fp64 ones, three times on NaN-filled cached
+   memory; (b) one TrainStep step of
    BertForPretraining (dropout 0, batch 8, sequence 128) on the card in
    fp32 and bf16 against the CPU's fp64 step (the bf16 one within a
    multiple of the CPU's bf16 step's deviation), every tensor but the
@@ -58,7 +59,22 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    TrainStep's ``_foreach`` Adam update timed beside the loop form; (e)
    the kernel's forward and the ported backward at the BERT and the Llama
    shape, timed beside SDPA's forward and backward;
-7. the kernels line (its times at the main path's shape, BERT training;
+7. Llama training: (a) one TrainStep step of LlamaForCausalLM at
+   Llama-3-8B widths (one layer, batch 1, sequence 256, SGD) on the card
+   in fp32 and bf16 against the CPU's fp64 step (bf16 within a multiple of
+   the CPU's bf16 step's deviation), every tensor with a non-zero
+   gradient, planted faults (the GQA fold, the rope sign) that must fail;
+   (b) the same step with LlamaConfig(remat=True) against the plain one,
+   flash_attn_fwd launched once per layer and step without remat and twice
+   with it; (c) a four-expert MoE Llama at narrow widths against the CPU's
+   fp64 step, and the aux loss moving the router; (d) four layers at
+   Llama-3-8B widths, batch 1, sequence 2048, bf16, Adam 3e-4: 2 warm-up
+   and 20 timed steps without remat and with it (tokens/s, ms/step, MFU,
+   peak memory, a profiled pass by kernel group with the attention
+   backward apart, falling loss); (e) bench.py's llama_proxy_train
+   configuration timed the same way, and the attention at its shape beside
+   SDPA's forward and backward;
+8. the kernels line (its times at the main path's shape, Llama training;
    each path's shape, times and launches under ``by_path``), then the
    device line.
 """
@@ -146,15 +162,20 @@ def gpu_line():
 # of (B, L, H, D) tensors, as the model's projections hand them over.  The
 # first three rows are the serving path's prefills at Llama-3-8B widths
 # (buckets 2048, 512, 128), timed; the kernels line gives the largest
-# bucket's times for the serving path and BertSelfAttention's at bench.py's
-# batch (timed too) for the BERT training path, this slice's main path.
+# bucket's times for the serving path and for Llama training at
+# Llama-3-8B widths (sequence 2048: the same shape), this slice's main path;
+# BertSelfAttention's at bench.py's batch for the BERT training path; and
+# bench.py's Llama proxy's (batch 8, 16/8 heads of 64, sequence 1024).
 SERVING_SHAPE = (1, 32, 8, 2048, 2048, 128, True, False)
 BUCKET_SHAPES = [SERVING_SHAPE,
                  (1, 32, 8, 512, 512, 128, True, False),
                  (1, 32, 8, 128, 128, 128, True, False)]
 BERT_SHAPE = (64, 12, 12, 128, 128, 64, False, True)
-PATH_SHAPES = {"serving": SERVING_SHAPE, "bert_train": BERT_SHAPE}
-KERNEL_CASES = BUCKET_SHAPES + [
+PROXY_SHAPE = (8, 16, 8, 1024, 1024, 64, True, False)
+PATH_SHAPES = {"serving": SERVING_SHAPE, "bert_train": BERT_SHAPE,
+               "llama_train": SERVING_SHAPE,
+               "llama_proxy_train": PROXY_SHAPE}
+KERNEL_CASES = BUCKET_SHAPES + [PROXY_SHAPE] + [
     (1, 32, 8, 512, 512, 128, False, False),
     (1, 32, 8, 1000, 1000, 128, True, False),     # ragged length
     (1, 32, 8, 1000, 1000, 128, False, False),
@@ -255,7 +276,7 @@ def kernel_phase(gen):
     # autograd.Function around the kernel)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     by_path = {}
-    for shape in BUCKET_SHAPES + [BERT_SHAPE]:
+    for shape in BUCKET_SHAPES + [BERT_SHAPE, PROXY_SHAPE]:
         b, hq, hkv, lq, lk, d, causal, _ = shape
         q, k, v = make_qkv(shape, torch.bfloat16, gen)
         scale = 1.0 / math.sqrt(d)
@@ -287,7 +308,7 @@ def kernel_phase(gen):
                              "plain_ms": plain_ms, "bound_ms": bound,
                              "bound_by": bound_by, "library_ms": lib_ms}
         del q, k, v
-    main = by_path["bert_train"]
+    main = by_path["llama_train"]
     return {"name": "flash_attn_fwd", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
             "replaces": "mxnet_tpu/ops/flash_attention.py:68",
@@ -606,9 +627,9 @@ def serving_phase(seed):
     from mxnet_tpu_torch.ops import flash_attention as fa_mod
     from mxnet_tpu_torch.serving import ServingEngine
 
-    cfg = llama_mod.LlamaConfig(dtype="bfloat16")
     t0 = time.perf_counter()
-    net = llama_mod.init_random_(llama_mod.LlamaForCausalLM(cfg), seed)
+    net = llama_mod.init_random_(llama_mod.llama3_8b(dtype="bfloat16"), seed)
+    cfg = net.config
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in net.parameters())
     log(f"  model: vocab {cfg.vocab_size}, hidden {cfg.hidden_size}, "
@@ -762,16 +783,19 @@ def _host(t):
 
 
 def trainstep_result(net, x, y, device, opt=CHECK_OPT, dtype=None,
-                     loss_fn=None):
+                     loss_fn=None, before=None):
     """One SGD TrainStep step of ``net`` on ``device``, in the net's dtype
     or under TrainStep's ``dtype``, with ``loss_fn`` (default softmax
     cross-entropy): (loss, the parameters before, after), in
-    collect_params() order, on the host."""
+    collect_params() order, on the host.  ``before``: the host copy of the
+    weights to return (shared by steps from the same weights, so that a
+    full-width net's weights are held on the host once)."""
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.parallel import TrainStep
 
     params = net.collect_params()
-    before = [_host(p.data()._data) for p in params.values()]
+    if before is None:
+        before = [_host(p.data()._data) for p in params.values()]
     step = TrainStep(net, loss_fn or gluon.loss.SoftmaxCrossEntropyLoss(),
                      optimizer="sgd", optimizer_params=opt, device=device,
                      dtype=dtype)
@@ -1092,9 +1116,14 @@ ATTN_FAULTS = (("no_gqa_fold", LLAMA_ATTN), ("no_delta", BERT_ATTN),
 # gradient.  Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
 # 2.9e-7 to 1.0e-6 at the three shapes; the planted faults 0.79 to 1.0
 ATTN_FP32_BOUND = 1e-5
-# the port's Llama on the card against the same net on the CPU, fp32:
-# measured 8.3e-7 (the same card)
+# the port's Llama on the card, fp32, against the same net's fp64 gradients
+# on the CPU: measured 7.442e-7 in every run.  Not against the CPU's fp32
+# ones: their deviation from fp64 depends on the host (8.505e-7 on most,
+# 7.807e-5 at layer 0's q_proj on some, same card and card readings)
 LLAMA_GRAD_BOUND = 1e-5
+# the llama_tiny check runs this often on the card, each run after this many
+# GiB of the caching allocator's blocks were filled with NaN
+LLAMA_GRAD_REPEATS, POISON_GIB = 3, 4
 
 BERT_SEQ, BERT_CHECK_BATCH = 128, 8
 BERT_BATCH, BERT_WARMUP, BERT_STEPS = 64, 2, 20            # bench.py
@@ -1228,38 +1257,74 @@ def llama_grads(net, ids, cot):
     """{name: gradient} of sum(logits * cot) for the port's Llama."""
     net.zero_grad()
     (net(ids) * cot).sum().backward()
-    return {n: p.grad.detach().float().cpu()
-            for n, p in net.named_parameters()}
+    return {n: p.grad.detach().cpu() for n, p in net.named_parameters()}
+
+
+def poison_cached_memory(gib=POISON_GIB):
+    """Fill ``gib`` GiB of blocks of the caching allocator with NaN, in its
+    large pool and its small one (512 KiB tensors), and hand them back to
+    the cache, not to CUDA: the tensors allocated next start as NaN, so
+    a kernel or op that reads memory nothing wrote reads NaN, not what an
+    earlier phase left there."""
+    blocks = [torch.full((2**28,), float("nan"), device="cuda")
+              for _ in range(gib)]
+    blocks += [torch.full((2**17,), float("nan"), device="cuda")
+               for _ in range(512)]
+    del blocks
+
+
+def grad_deviation(got, want):
+    """(worst max |got - want| / max |want| over the tensors, its name)."""
+    worst, where = 0.0, None
+    for name, g in got.items():
+        w = want[name].double()
+        dev = ((g.double() - w).abs().max() /
+               w.abs().max().clamp_min(1e-30)).item()
+        if dev >= worst:
+            worst, where = dev, name
+    return worst, where
 
 
 def check_llama_grads(llama_mod, seed, device="cuda"):
     """The port's LlamaForCausalLM at llama_tiny widths (fp32, causal GQA
-    4/2, 256 tokens): its gradients on ``device`` against the same net's on
-    the CPU; the q/k/v projections must have non-zero ones."""
+    4/2, 256 tokens): its gradients on ``device`` against the same net's
+    fp64 gradients on the CPU, LLAMA_GRAD_REPEATS times on the card, each
+    after poison_cached_memory; the q/k/v projections must have non-zero
+    ones.  The CPU's fp32 deviation is printed beside each reading."""
     cpu = llama_mod.init_random_(llama_mod.llama_tiny(device="cpu"), seed)
     card = llama_mod.llama_tiny(device=device)
     card.load_state_dict(cpu.state_dict())
     r = np.random.RandomState(seed)
     ids = torch.from_numpy(r.randint(0, 512, (2, 256)).astype(np.int64))
     cot = torch.from_numpy(r.randn(2, 256, 512).astype(np.float32))
-    want = llama_grads(cpu, ids, cot)
-    got = llama_grads(card, ids.to(device), cot.to(device))
-    worst, where = 0.0, None
-    for name, g in got.items():
-        dev = ((g - want[name]).abs().max() /
-               want[name].abs().max().clamp_min(1e-30)).item()
-        if dev >= worst:
-            worst, where = dev, name
-        if "_proj" in name:
-            check(g.abs().max().item() > 0,
-                  f"the port's Llama gets a zero gradient for {name}")
-    qkv = [n for n in got if n.endswith(("q_proj.weight", "k_proj.weight",
-                                         "v_proj.weight"))]
-    log(f"  llama_tiny on {device}: {len(qkv)} q/k/v projections with "
-        f"non-zero gradients; gradients vs the CPU's worst {worst:.3e} "
-        f"({where}), bound {LLAMA_GRAD_BOUND:g}")
-    check(worst <= LLAMA_GRAD_BOUND,
-          f"llama_tiny gradients on {device} deviate {worst:.3e} at {where}")
+    cpu32 = llama_grads(cpu, ids, cot)
+    exact = llama_grads(cpu.double(), ids, cot.double())
+    cpu_dev, cpu_where = grad_deviation(cpu32, exact)
+    on_card = torch.device(device).type == "cuda"
+    worst = 0.0
+    for i in range(LLAMA_GRAD_REPEATS if on_card else 1):
+        if on_card:
+            poison_cached_memory()
+        got = llama_grads(card, ids.to(device), cot.to(device))
+        for name, g in got.items():
+            check(bool(torch.isfinite(g).all()),
+                  f"llama_tiny's gradient of {name} on {device} is not "
+                  f"finite")
+            if "_proj" in name:
+                check(g.abs().max().item() > 0,
+                      f"the port's Llama gets a zero gradient for {name}")
+        dev, where = grad_deviation(got, exact)
+        qkv = [n for n in got if n.endswith(("q_proj.weight",
+                                             "k_proj.weight",
+                                             "v_proj.weight"))]
+        log(f"  llama_tiny on {device}, run {i}: {len(qkv)} q/k/v "
+            f"projections with non-zero gradients; gradients vs the CPU's "
+            f"fp64 worst {dev:.3e} ({where}), bound {LLAMA_GRAD_BOUND:g}; "
+            f"the CPU's fp32 vs fp64 {cpu_dev:.3e} ({cpu_where})")
+        check(dev <= LLAMA_GRAD_BOUND,
+              f"llama_tiny gradients on {device} deviate {dev:.3e} from "
+              f"fp64 at {where}")
+        worst = max(worst, dev)
     return worst
 
 
@@ -1315,11 +1380,16 @@ def unchanged(result, names):
     return [n for n, b, a in zip(names, before, after) if torch.equal(a, b)]
 
 
-def matmul_params(step):
-    """bench.py's _matmul_params: the parameters of the matrix products
-    (embedding tables excluded: they are gathers)."""
+def matmul_params(step, bench_py=False):
+    """The parameters of the matrix products: every table of two or more
+    dimensions but the embeddings, which are gathers (BERT's
+    ``embedding<N>_weight`` and Llama's ``embed_tokens_weight``).  With
+    ``bench_py``, bench.py's _matmul_params count instead: its test,
+    ``"embedding" in name``, keeps Llama's ``embed_tokens_weight`` (BERT's
+    count is the same either way)."""
     return sum(v.numel() for k, v in step.params.items()
-               if "embedding" not in k and v.dim() >= 2)
+               if ("embedding" if bench_py else "embed") not in k
+               and v.dim() >= 2)
 
 
 def backward_work(shape, dtype):
@@ -1690,6 +1760,371 @@ def bert_phase(seed):
         time_attention(fa_mod, shape, gen)
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 7: Llama training at Llama-3-8B widths
+# ---------------------------------------------------------------------------
+# the checked step: one layer (the CPU's fp64 step of the embedding and the
+# head, 2 x 525 M parameters, dominates the phase), batch 1, sequence 256,
+# SGD (its update is the gradient itself)
+LLAMA_CHECK_LAYERS, LLAMA_CHECK_BATCH, LLAMA_CHECK_SEQ = 1, 1, 256
+LLAMA_CHECK_OPT = {"learning_rate": 0.1}
+# the timed run: four layers (Adam's 16 bytes a parameter over 1.92 G
+# parameters, ~31 GB, with the net's own copy and the logits, fit the 80 GB
+# card), batch 1, sequence 2048, bf16, Adam 3e-4 as bench.py
+LLAMA_TRAIN_LAYERS, LLAMA_BATCH, LLAMA_SEQ = 4, 1, 2048
+LLAMA_WARMUP, LLAMA_STEPS = 2, 20
+LLAMA_OPT = {"learning_rate": 3e-4}
+# bench.py's llama_proxy_train configuration (_bench_llama_once)
+PROXY_CFG = dict(vocab_size=32000, hidden_size=1024, num_layers=16,
+                 num_heads=16, num_kv_heads=8, intermediate_size=2816,
+                 max_seq_len=1024)
+PROXY_BATCH, PROXY_SEQ = 8, 1024
+PROXY_ATTN = PROXY_SHAPE[:7]
+# the MoE check: narrow widths, four experts, bench.py's capacity factor
+LLAMA_MOE_CFG = dict(vocab_size=1024, hidden_size=256, num_layers=2,
+                     num_heads=4, num_kv_heads=2, intermediate_size=512,
+                     max_seq_len=256, num_experts=4, moe_capacity_factor=1.25)
+LLAMA_MOE_BATCH, LLAMA_MOE_SEQ = 2, 128
+# compare_steps's ratio, the card's fp32 step against the CPU's fp64 step:
+# measured 1.218e-4 of the update at Llama-3-8B widths, 1.403e-4 for the
+# MoE check (an NVIDIA H100 80GB HBM3 at 700 W, PERF.md); the planted
+# faults read 0.90 (GQA fold) and 1.28 (rope sign)
+LLAMA_FP32_BOUND = 1e-3
+# the remat step against the plain one, both on the card in fp32: measured
+# bit-equal (0.0) on the same card
+LLAMA_REMAT_BOUND = 1e-6
+
+LLAMA_KERNEL_GROUPS = (
+    ("flash_attn_fwd", ("fa_fwd",)),
+    ("optimizer", ("multi_tensor", "foreach")),
+    ("matmul", ("gemm", "xmma", "nvjet", "cutlass", "gemv", "sm90")),
+    ("copies/casts", ("copy", "Memcpy", "Memset", "cast")),
+    ("softmax/loss", ("softmax", "nll", "gather", "scatter")),
+    ("embedding", ("embedding", "index")),
+    ("elementwise", ("elementwise", "vectorized", "reduce", "cat",
+                     "unrolled")))
+
+
+def llama_batch(seed, batch, seq, vocab):
+    """Token ids and next-token labels uniform over the vocabulary, as
+    bench.py makes them (numpy, from ``seed``)."""
+    r = np.random.RandomState(seed)
+    return (r.randint(0, vocab, (batch, seq)).astype("int32"),
+            r.randint(0, vocab, (batch, seq)).astype("int32"))
+
+
+def llama_loss(logits, labels):
+    """bench.py's loss: the cross-entropy of every token (TrainStep takes
+    the mean)."""
+    return -torch.log_softmax(logits, dim=-1).gather(
+        -1, labels.long()[..., None])
+
+
+def init_llama(cfg, seed, ctx):
+    """LlamaForCausalLM(cfg) on ``ctx`` with init_random_ weights from
+    ``seed``."""
+    from mxnet_tpu_torch.gluon.model_zoo.language import llama
+
+    net = llama.LlamaForCausalLM(cfg)
+    net.initialize(init="zeros", ctx=ctx)
+    return llama.init_random_(net, seed)
+
+
+def copy_llama(net, ctx, cfg=None):
+    """LlamaForCausalLM(cfg, default ``net``'s) on ``ctx`` holding ``net``'s
+    weights, copied by structural name."""
+    from mxnet_tpu_torch.gluon.model_zoo.language import llama
+
+    other = llama.LlamaForCausalLM(cfg or net.config)
+    other.initialize(init="zeros", ctx=ctx)
+    dst = other._collect_params_with_prefix()
+    for name, t in llama.serving_params(net).items():
+        dst[name].set_data(t)
+    return other
+
+
+def planted_rope_fault():
+    """Context manager: the rope op rotating the wrong way (the sine's
+    sign flipped), for showing that the step checks catch it."""
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    od = get_op("rope")
+    orig = od.fn
+
+    def faulty(x, positions=None, base=10000.0, scale=1.0):
+        if positions is None:
+            positions = torch.arange(x.shape[2], device=x.device)
+        return orig(x, -torch.as_tensor(positions, device=x.device),
+                    base=base, scale=scale)
+
+    return patched(od, "fn", faulty)
+
+
+def llama_fault(fa_mod, fault):
+    """Context manager planting ``fault``: "rope_sign" (planted_rope_fault)
+    or an attention backward fault (planted_attention_fault)."""
+    return planted_rope_fault() if fault == "rope_sign" else \
+        planted_attention_fault(fa_mod, fault)
+
+
+def llama_step_check(seed):
+    """(a) one SGD TrainStep step of LlamaForCausalLM at Llama-3-8B widths
+    (LLAMA_CHECK_LAYERS layers, weights and batch from ``seed``) on the card
+    in fp32 and in bf16, each held to the CPU's fp64 step, every tensor with
+    a non-zero gradient, and planted faults; (b) the same step with remat,
+    held to the plain step, and flash_attn_fwd's launches with and without
+    it."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.language import llama
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+
+    cfg = llama.LlamaConfig(num_layers=LLAMA_CHECK_LAYERS)
+    t0 = time.perf_counter()
+    net = init_llama(cfg, seed, mx.gpu(0))
+    params = net.collect_params()
+    names = list(params)
+    before = [_host(p.data()._data) for p in params.values()]
+    log(f"  LlamaForCausalLM: {len(names)} parameters, "
+        f"{sum(t.numel() for t in before) / 1e9:.3f} G values, "
+        f"{cfg.num_layers} layer(s) ({time.perf_counter() - t0:.1f} s to "
+        f"build)")
+    ids, labels = llama_batch(seed, LLAMA_CHECK_BATCH, LLAMA_CHECK_SEQ,
+                              cfg.vocab_size)
+
+    def step(model, device, dtype=None):
+        return trainstep_result(model, ids, labels, device, LLAMA_CHECK_OPT,
+                                dtype, llama_loss, before)
+
+    cpu_net = copy_llama(net, mx.cpu())
+    t0 = time.perf_counter()
+    cpu16 = step(cpu_net, "cpu", "bfloat16")
+    t1 = time.perf_counter()
+    cpu64 = step(cpu_net.double(), "cpu")
+    log(f"  CPU steps: bf16 {t1 - t0:.1f} s, fp64 "
+        f"{time.perf_counter() - t1:.1f} s")
+    del cpu_net
+    t0 = time.perf_counter()
+    fa_mod._flash_fwd_cuda.launches = 0
+    card = step(net, "cuda")
+    plain_launches = fa_mod._flash_fwd_cuda.launches
+    check(all(bool(torch.isfinite(t).all()) for t in card[2]),
+          "non-finite parameters after the card's Llama step")
+    s64 = update_scales(cpu64, names)       # computed once: 1.3 G values
+    check_steps(card, cpu64, names, "fp32 card vs the fp64 CPU step",
+                LLAMA_FP32_BOUND, s64)
+    for what, result in (("card fp32", card), ("CPU fp64", cpu64)):
+        zero = unchanged(result, names)
+        log(f"  tensors with a zero gradient ({what}): {zero}")
+        check(not zero, f"{what}: tensors with a zero gradient: {zero}")
+    for fault in ("no_gqa_fold", "rope_sign"):
+        with llama_fault(fa_mod, fault):
+            ratio, where = compare_steps(step(net, "cuda"), cpu64, names,
+                                         s64)
+        log(f"  fp32 with a planted fault ({fault}): {ratio:.3e} at {where}")
+        check(ratio > LLAMA_FP32_BOUND,
+              f"the fp32 Llama check misses the planted fault {fault}")
+
+    card16 = step(net, "cuda", "bfloat16")
+    check(all(t.dtype == torch.float32 for t in card16[2]),
+          "the bf16 step's master weights are not fp32")
+    for what, cand in (("card", card16), ("CPU", cpu16)):
+        ratio, where = compare_steps(cand, cpu64, names, s64)
+        log(f"  {what}'s bf16 step vs the fp64 step: {ratio:.3e} of the "
+            f"update ({where})")
+    scales = noise_scales(cpu16, cpu64, names)
+    del cpu16
+    check_steps(card16, cpu64, names, "bf16, card vs the fp64 step",
+                BF16_NOISE_FACTOR, scales, "of the CPU's bf16 deviation")
+    del card16
+    with planted_rope_fault():
+        ratio, where = compare_steps(step(net, "cuda", "bfloat16"), cpu64,
+                                     names, scales)
+    log(f"  bf16 with a planted fault (rope_sign): {ratio:.3e} at {where}")
+    check(ratio > BF16_NOISE_FACTOR, "the bf16 Llama check misses rope_sign")
+    del cpu64
+    log(f"  card steps and their checks: {time.perf_counter() - t0:.1f} s")
+
+    log("  remat: the same fp32 step with LlamaConfig(remat=True)")
+    rnet = copy_llama(net, mx.gpu(0), llama.LlamaConfig(
+        num_layers=LLAMA_CHECK_LAYERS, remat=True))
+    del net
+    fa_mod._flash_fwd_cuda.launches = 0
+    remat = step(rnet, "cuda")
+    remat_launches = fa_mod._flash_fwd_cuda.launches
+    check_steps(remat, card, names, "remat vs plain, card fp32",
+                LLAMA_REMAT_BOUND)
+    log(f"  flash_attn_fwd launches in one step: {plain_launches} plain, "
+        f"{remat_launches} with remat ({cfg.num_layers} layer(s))")
+    check(plain_launches == cfg.num_layers,
+          f"flash_attn_fwd launched {plain_launches} times in a step, "
+          f"expected num_layers = {cfg.num_layers}")
+    check(remat_launches == 2 * cfg.num_layers,
+          f"flash_attn_fwd launched {remat_launches} times in a remat step, "
+          f"expected 2 x num_layers = {2 * cfg.num_layers}")
+    del rnet, card, remat
+    torch.cuda.empty_cache()
+
+
+def llama_moe_check(seed, device="cuda"):
+    """(c) an MoE Llama (LLAMA_MOE_CFG, aux-loss weight 0.5): one SGD step
+    on ``device`` held to the CPU's fp64 step, and the router's step
+    changed by the aux-loss weight (0 against 0.5) by more than that
+    bound.  Returns (the step's ratio, the router's change)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.language import llama
+
+    def cfg(w):
+        return llama.LlamaConfig(moe_aux_loss_weight=w, **LLAMA_MOE_CFG)
+
+    ctx = mx.Context.from_device(device)
+    net = init_llama(cfg(0.5), seed, ctx)
+    names = list(net.collect_params())
+    before = [_host(p.data()._data) for p in net.collect_params().values()]
+    ids, labels = llama_batch(seed, LLAMA_MOE_BATCH, LLAMA_MOE_SEQ,
+                              LLAMA_MOE_CFG["vocab_size"])
+
+    def step(model, dev):
+        return trainstep_result(model, ids, labels, dev, LLAMA_CHECK_OPT,
+                                None, llama_loss, before)
+
+    cpu64 = step(copy_llama(net, mx.cpu()).double(), "cpu")
+    card = step(net, device)
+    ratio = check_steps(card, cpu64, names, f"MoE fp32 {device} vs the "
+                        "fp64 CPU step", LLAMA_FP32_BOUND)
+    card0 = step(copy_llama(net, ctx, cfg(0.0)), device)
+    moved = 0.0
+    for i, name in enumerate(names):
+        if name.endswith("router_weight"):
+            upd = (card[2][i] - before[i]).abs().max().item()
+            diff = (card0[2][i] - card[2][i]).abs().max().item()
+            moved = max(moved, diff / upd)
+    log(f"  the router's step at aux-loss weight 0 differs from its step at "
+        f"0.5 by {moved:.3e} of the update")
+    check(moved > LLAMA_FP32_BOUND,
+          "the aux loss does not reach the router")
+    return ratio, moved
+
+
+def time_llama(net, ids, labels, what):
+    """bench.py's timing of a bf16 Adam TrainStep (LLAMA_OPT) of ``net``:
+    LLAMA_WARMUP warm-up and LLAMA_STEPS timed steps on one batch (finite,
+    falling loss), tokens/s, ms/step, MFU, peak memory, and a profiled
+    pass by kernel group with the attention backward apart.  Returns
+    flash_attn_fwd's launches over the warm-up and timed steps."""
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    ids_t = torch.from_numpy(ids).cuda()
+    labels_t = torch.from_numpy(labels).cuda()
+    step = TrainStep(net, llama_loss, optimizer="adam",
+                     optimizer_params=LLAMA_OPT, dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fa_mod._flash_fwd_cuda.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(LLAMA_WARMUP):
+        losses.append(step(ids_t, labels_t))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(LLAMA_STEPS):
+        losses.append(step(ids_t, labels_t))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = fa_mod._flash_fwd_cuda.launches
+    losses = [v.item() for v in losses]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  losses: {' '.join(f'{v:.4f}' for v in losses)}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss ({what})")
+    check(losses[-1] < losses[0], f"the loss did not fall ({what})")
+    tokens_s = ids.size * LLAMA_STEPS / dt
+    n_mm = matmul_params(step)
+    n_bench = matmul_params(step, bench_py=True)
+    mfu, mfu_bench = (tokens_s * 6.0 * n / PEAK_FLOPS[torch.bfloat16]
+                      for n in (n_mm, n_bench))
+    step_ms = 1e3 * dt / LLAMA_STEPS
+    log(f"  [{gpu_line()}] {what}: {tokens_s:.1f} tokens/s, "
+        f"{step_ms:.2f} ms/step over {LLAMA_STEPS} steps (warm-up "
+        f"{LLAMA_WARMUP} steps {t1 - t0:.2f} s), MFU {100 * mfu:.2f}% (6 x "
+        f"{n_mm / 1e9:.4f} G matmul parameters = "
+        f"{6 * n_mm / 1e9:.2f} GFLOP a token, over the bf16 peak; "
+        f"{100 * mfu_bench:.2f}% with bench.py's count, "
+        f"{n_bench / 1e9:.4f} G, which keeps embed_tokens), peak "
+        f"memory {peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB before "
+        f"the first step: the net, the step's fp32 weights, Adam's m and "
+        f"v); flash_attn_fwd launches {launches}")
+    with labelled(fa_mod, "_fa_backward_blockwise", "attention_backward"):
+        log_device_profile(lambda: [step(ids_t, labels_t)
+                                    for _ in range(2)],
+                           LLAMA_KERNEL_GROUPS, n_top=12,
+                           label="attention_backward", steps=2,
+                           step_ms=step_ms)
+    del step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def llama_phase(seed):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.language import llama
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+
+    log(f"== llama 1: one TrainStep step of LlamaForCausalLM at Llama-3-8B "
+        f"widths, {LLAMA_CHECK_LAYERS} layer(s), batch {LLAMA_CHECK_BATCH}, "
+        f"sequence {LLAMA_CHECK_SEQ}, SGD {LLAMA_CHECK_OPT}: card against "
+        f"the CPU's fp64 step; then with remat")
+    llama_step_check(seed)
+
+    log(f"== llama 2: an MoE Llama ({LLAMA_MOE_CFG['num_experts']} "
+        f"experts, narrow widths): card against the CPU's fp64 step, and "
+        f"the aux loss reaching the router")
+    llama_moe_check(seed)
+
+    n_steps = LLAMA_WARMUP + LLAMA_STEPS
+    launches = {}
+    for remat in (False, True):
+        log(f"== llama {3 + remat}: Llama-3-8B widths, "
+            f"{LLAMA_TRAIN_LAYERS} layers, batch {LLAMA_BATCH}, sequence "
+            f"{LLAMA_SEQ}, Adam {LLAMA_OPT}, bf16, remat {remat}")
+        cfg = llama.LlamaConfig(num_layers=LLAMA_TRAIN_LAYERS, remat=remat)
+        t0 = time.perf_counter()
+        net = init_llama(cfg, seed, mx.gpu(0))
+        log(f"  built in {time.perf_counter() - t0:.1f} s")
+        ids, labels = llama_batch(seed, LLAMA_BATCH, LLAMA_SEQ,
+                                  cfg.vocab_size)
+        n = time_llama(net, ids, labels, f"remat {remat}")
+        want = cfg.num_layers * n_steps * (2 if remat else 1)
+        check(n == want, f"flash_attn_fwd launched {n} times in {n_steps} "
+                         f"steps (remat {remat}), expected {want}")
+        if not remat:
+            launches["llama_train"] = n       # the main path's count
+        del net
+        torch.cuda.empty_cache()
+
+    log(f"== llama 5: bench.py's llama_proxy_train configuration: "
+        f"{PROXY_CFG}, batch {PROXY_BATCH}, sequence {PROXY_SEQ}, Adam "
+        f"{LLAMA_OPT}, bf16")
+    mx.random.seed(seed)
+    cfg = llama.LlamaConfig(**PROXY_CFG)
+    net = llama.LlamaForCausalLM(cfg)
+    net.initialize(ctx=mx.gpu(0))                 # Gluon's default, bench.py
+    ids, labels = llama_batch(seed, PROXY_BATCH, PROXY_SEQ, cfg.vocab_size)
+    n = time_llama(net, ids, labels, "bench.py's proxy")
+    check(n == cfg.num_layers * n_steps,
+          f"flash_attn_fwd launched {n} times in the proxy's {n_steps} "
+          f"steps, expected {cfg.num_layers * n_steps}")
+    launches["llama_proxy_train"] = n
+    del net
+    torch.cuda.empty_cache()
+
+    log("== llama 6: attention device times at the proxy's shape")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    time_attention(fa_mod, PROXY_ATTN, gen)
+    return launches
+
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1713,7 +2148,9 @@ def main():
     log("== environment")
     log(f"  {gpu_line()}")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+        f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s); "
+        f"host CPU: {os.cpu_count()} threads, "
+        f"{torch.backends.cpu.get_cpu_capability()}")
     nvcc = _kernels._nvcc()
     log(f"  {nvcc}: " + subprocess.run([nvcc, "--version"],
                                        capture_output=True, text=True,
@@ -1741,10 +2178,12 @@ def main():
     log("== kernels vs plain versions")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
+    t0 = time.perf_counter()
     row = kernel_phase(gen)
+    log(f"  kernel phase took {time.perf_counter() - t0:.1f} s")
 
     # the kernel's launches on each path, each counted from zero over the
-    # path's run; this slice's main path is BERT training
+    # path's run; this slice's main path is Llama training
     t0 = time.perf_counter()
     log("== serving: Llama-3-8B widths and depth (32 layers)")
     launches = {"serving": serving_phase(args.seed)["flash_attn_fwd"]}
@@ -1760,11 +2199,17 @@ def main():
 
     log("== transformer training: BERT-base widths")
     launches["bert_train"] = bert_phase(args.seed)
-    log(f"  bert phase took {time.perf_counter() - t2:.1f} s")
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    log(f"  bert phase took {t3 - t2:.1f} s")
+
+    log("== Llama training: Llama-3-8B widths")
+    launches.update(llama_phase(args.seed))
+    log(f"  llama phase took {time.perf_counter() - t3:.1f} s")
     for path, n in launches.items():
         check(n > 0, f"flash_attn_fwd never ran on the {path} path")
         row["by_path"][path]["launches"] = n
-    row["launches"] = launches["bert_train"]
+    row["launches"] = launches["llama_train"]
 
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(gpu_line())

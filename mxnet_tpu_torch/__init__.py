@@ -1,13 +1,14 @@
 """mxnet_tpu_torch: the PyTorch/CUDA port of ``mxnet_tpu``, for NVIDIA
 Hopper (H100).
 
-Two slices are ported.  Serving: the model-zoo Llama
-(``gluon.model_zoo.language.llama``) served by the continuous-batching,
-paged-KV ``serving.ServingEngine``, with prefill attention in a
-hand-written CUDA flash-attention kernel (``csrc/flash_attn_fwd.cu``).
-Training: ``mx.nd`` over an op table, ``autograd``, Gluon blocks and
-parameters, ``gluon.Trainer`` and the fused ``parallel.TrainStep``, which
-train the model-zoo ResNets (``gluon.model_zoo.vision``).  Entry points run
+Serving: the model-zoo Llama (``gluon.model_zoo.language.llama``) served
+by the continuous-batching, paged-KV ``serving.ServingEngine``, with
+prefill attention in a hand-written CUDA flash-attention kernel
+(``csrc/flash_attn_fwd.cu``).  Training: ``mx.nd`` over an op table,
+``autograd``, Gluon blocks and parameters, ``gluon.Trainer`` and the fused
+``parallel.TrainStep``, which train the model-zoo ResNets
+(``gluon.model_zoo.vision``), BERT and the same Llama the engine serves
+(``gluon.model_zoo.language``).  Entry points run
 on the first CUDA card unless the caller passes ``device="cpu"`` /
 ``ctx=mx.cpu()``.  The package imports ``torch`` and numpy, never ``jax``
 and nothing of ``mxnet_tpu``.

@@ -7,7 +7,8 @@
 op with torch's grad mode on only while recording, so work outside a
 record scope costs no graph.  A marked variable (``attach_grad``, or a
 Gluon Parameter) is a leaf tensor that requires grad, with an MXNet
-gradient buffer beside it.  ``backward`` runs torch's backward from the
+gradient buffer beside it (a Parameter's is made with its first
+gradient).  ``backward`` runs torch's backward from the
 heads, then moves each reached variable's ``.grad`` into its buffer by
 its ``grad_req``: ``write`` overwrites (contributions within one backward
 sum), ``add`` accumulates, ``null`` drops.  Variables the heads do not
@@ -135,9 +136,11 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
                 continue
             var._data.grad = None
             buf = var._grad
-            if var._grad_req == "null" or buf is None:
+            if var._grad_req == "null":
                 continue
-            if var._grad_req == "add":
+            if buf is None:          # a Parameter's buffer, made on demand
+                var._grad = type(var)._wrap(g)
+            elif var._grad_req == "add":
                 buf._data.add_(g)
             else:
                 buf._data.copy_(g)

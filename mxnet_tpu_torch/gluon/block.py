@@ -119,6 +119,17 @@ class Block(torch.nn.Module):
             ret.update(child.collect_params(select))
         return ret
 
+    def _collect_params_with_prefix(self, prefix=""):
+        """{structural name: Parameter}: attribute paths such as
+        ``model.layers.0.self_attn.q_proj.weight``, which do not depend on
+        the global name counters (reference: the same method)."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + k: v for k, v in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):
         """Initialize every parameter on ``ctx`` (default: the current

@@ -1,7 +1,12 @@
-"""Language models of the port: BERT (Gluon blocks, trained through
-``TrainStep``) and Llama (``llama``, served by ``ServingEngine``)."""
+"""Language models of the port: Llama-3 family and BERT, Gluon blocks
+trained through ``TrainStep``; the Llama is also served by
+``ServingEngine``."""
 from .bert import (BertConfig, BertForPretraining, BertLayer, BertModel,
                    BertSelfAttention, bert_base, bert_large, bert_tiny)
+from .llama import (LlamaConfig, LlamaForCausalLM, LlamaModel, RMSNorm,
+                    llama3_8b, llama_tiny)
 
-__all__ = ["BertConfig", "BertSelfAttention", "BertLayer", "BertModel",
-           "BertForPretraining", "bert_base", "bert_large", "bert_tiny"]
+__all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama3_8b",
+           "llama_tiny", "RMSNorm", "BertConfig", "BertSelfAttention",
+           "BertLayer", "BertModel", "BertForPretraining", "bert_base",
+           "bert_large", "bert_tiny"]

@@ -1,33 +1,44 @@
-"""Llama-3-family decoder in PyTorch (counterpart of
-``mxnet_tpu/gluon/model_zoo/language/llama.py``, dense MLP only).
+"""Llama-3-family decoder as Gluon HybridBlocks (counterpart of
+``mxnet_tpu/gluon/model_zoo/language/llama.py``).
 
-Module attribute names reproduce the reference's structural parameter
-names, so ``state_dict()`` keys equal the keys of the reference's
-``serving_params(net)`` (``model.layers.0.self_attn.q_proj.weight``, ...)
-and weights carry over one to one (:func:`load_reference_params`).  Weight
-layouts are the reference's: ``nn.Linear``'s (out, in) is ``Dense``'s
-(units, in_units), the embedding is (vocab, hidden).
+One net trains and serves.  The blocks, their prefixes and their
+parameters (names, shapes, creation order) are the reference's, so
+``gluon.load_reference_params`` carries the reference's weights over by
+position and ``TrainStep`` / ``Trainer`` train the net like any Gluon
+block.  RMSNorm, RoPE, SwiGLU and the switch-MoE FFN are op-table ops
+(``F.rms_norm`` ...); attention is ``F.flash_attention`` (the Hopper kernel
+forward and the blockwise backward on the card, the plain version on the
+CPU).  ``remat=True`` rematerializes each decoder layer under ``TrainStep``.
+Weight layouts are Gluon's: ``Dense`` weights are (units, in_units), the
+embedding is (vocab, hidden).
 
 The serving path is the pure functions at the bottom (``prefill_apply`` /
-``decode_apply`` over a name -> tensor dict), written op for op like the
-modules' ``forward`` so that incremental decode reproduces the full-context
-forward.  Prefill attention goes through ``ops.flash_attention``: the Hopper
-kernel on the card, the plain version on the CPU.
+``decode_apply`` over the structural-name dict ``serving_params(net)``
+returns, ``model.layers.0.self_attn.q_proj.weight`` ...), written op for op
+like the blocks' forward so that incremental decode reproduces the
+full-context forward.  ``pipeline_decompose`` (pipeline parallelism) is not
+ported.
 """
 from __future__ import annotations
 
 import math
+import warnings
 from collections import OrderedDict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
+from .... import autograd as _ag
 from ....base import MXNetError
-from ....context import resolve_device
+from ....context import Context, resolve_device
+from ....ndarray.ndarray import NDArray
 from ....ops.attention_ops import rms_norm, rope, swiglu
 from ....ops.flash_attention import NEG_INF, flash_attention
+from ....parallel.functional import rematerialize
+from ... import nn
+from ...block import HybridBlock
+from ...parameter import _TRACE
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama3_8b",
            "llama_tiny", "RMSNorm", "serving_params", "prefill_apply",
@@ -35,10 +46,23 @@ __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama3_8b",
 
 
 class LlamaConfig:
+    """Llama-3-8B dimensions by default.  ``dtype`` is the parameters'
+    dtype.  ``num_experts`` > 0 replaces the dense SwiGLU MLP with a
+    switch-MoE FFN (top-1 routing, ``moe_capacity_factor``), whose
+    load-balance loss times ``moe_aux_loss_weight`` rides the backward
+    (0 disables it).  ``remat`` rematerializes each decoder layer's
+    activations in the backward under ``TrainStep``."""
+
     def __init__(self, vocab_size=128256, hidden_size=4096, num_layers=32,
                  num_heads=32, num_kv_heads=8, intermediate_size=14336,
                  rope_base=500000.0, max_seq_len=8192, rms_eps=1e-5,
-                 dtype="float32", num_experts=0):
+                 dtype="float32", remat=False,
+                 num_experts=0, moe_capacity_factor=1.25,
+                 moe_aux_loss_weight=0.01):
+        self.num_experts = num_experts
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_aux_loss_weight = moe_aux_loss_weight
+        self.remat = remat
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -49,7 +73,6 @@ class LlamaConfig:
         self.max_seq_len = max_seq_len
         self.rms_eps = rms_eps
         self.dtype = dtype
-        self.num_experts = num_experts
         if hidden_size % num_heads:
             raise MXNetError(
                 f"num_heads ({num_heads}) must divide hidden_size "
@@ -61,104 +84,168 @@ class LlamaConfig:
         self.head_dim = hidden_size // num_heads
 
 
-def _linear(n_in, n_out, fk):
-    return nn.Linear(n_in, n_out, bias=False, **fk)
+def _dense(cfg, units, in_units, prefix):
+    return nn.Dense(units, use_bias=False, flatten=False, in_units=in_units,
+                    dtype=cfg.dtype, prefix=prefix)
 
 
-class RMSNorm(nn.Module):
-    def __init__(self, dim, eps=1e-5, **fk):
-        super().__init__()
+class RMSNorm(HybridBlock):
+    def __init__(self, dim, eps=1e-5, dtype="float32", **kwargs):
+        super().__init__(**kwargs)
         self._eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, **fk))
+        self.weight = self.params.get("weight", shape=(dim,), init="ones",
+                                      dtype=dtype)
 
-    def forward(self, x):
-        return rms_norm(x, self.weight, eps=self._eps)
+    def hybrid_forward(self, F, x, weight):
+        return F.rms_norm(x, weight, eps=self._eps)
 
 
-class LlamaAttention(nn.Module):
-    def __init__(self, cfg, **fk):
-        super().__init__()
+class LlamaAttention(HybridBlock):
+    def __init__(self, cfg, **kwargs):
+        super().__init__(**kwargs)
         d, hd = cfg.hidden_size, cfg.head_dim
         self._cfg = cfg
-        self.q_proj = _linear(d, cfg.num_heads * hd, fk)
-        self.k_proj = _linear(d, cfg.num_kv_heads * hd, fk)
-        self.v_proj = _linear(d, cfg.num_kv_heads * hd, fk)
-        self.o_proj = _linear(cfg.num_heads * hd, d, fk)
+        with self.name_scope():
+            self.q_proj = _dense(cfg, cfg.num_heads * hd, d, "q_proj_")
+            self.k_proj = _dense(cfg, cfg.num_kv_heads * hd, d, "k_proj_")
+            self.v_proj = _dense(cfg, cfg.num_kv_heads * hd, d, "v_proj_")
+            self.o_proj = _dense(cfg, d, cfg.num_heads * hd, "o_proj_")
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         cfg = self._cfg
         b, l = x.shape[0], x.shape[1]
         hd = cfg.head_dim
-        q = self.q_proj(x).reshape(b, l, cfg.num_heads, hd).transpose(1, 2)
-        k = self.k_proj(x).reshape(b, l, cfg.num_kv_heads, hd).transpose(1, 2)
-        v = self.v_proj(x).reshape(b, l, cfg.num_kv_heads, hd).transpose(1, 2)
-        q = rope(q, base=cfg.rope_base)
-        k = rope(k, base=cfg.rope_base)
-        o = flash_attention(q, k, v, causal=True, sm_scale=1.0 / math.sqrt(hd))
-        o = o.transpose(1, 2).reshape(b, l, cfg.num_heads * hd)
+        q = self.q_proj(x).reshape((b, l, cfg.num_heads, hd)).transpose(
+            (0, 2, 1, 3))
+        k = self.k_proj(x).reshape((b, l, cfg.num_kv_heads, hd)).transpose(
+            (0, 2, 1, 3))
+        v = self.v_proj(x).reshape((b, l, cfg.num_kv_heads, hd)).transpose(
+            (0, 2, 1, 3))
+        q = F.rope(q, base=cfg.rope_base)
+        k = F.rope(k, base=cfg.rope_base)
+        o = F.flash_attention(q, k, v, causal=True,
+                              sm_scale=1.0 / math.sqrt(hd))
+        o = o.transpose((0, 2, 1, 3)).reshape((b, l, cfg.num_heads * hd))
         return self.o_proj(o)
 
 
-class LlamaMLP(nn.Module):
-    def __init__(self, cfg, **fk):
-        super().__init__()
-        self.gate_proj = _linear(cfg.hidden_size, cfg.intermediate_size, fk)
-        self.up_proj = _linear(cfg.hidden_size, cfg.intermediate_size, fk)
-        self.down_proj = _linear(cfg.intermediate_size, cfg.hidden_size, fk)
+class LlamaMLP(HybridBlock):
+    def __init__(self, cfg, **kwargs):
+        super().__init__(**kwargs)
+        h, i = cfg.hidden_size, cfg.intermediate_size
+        with self.name_scope():
+            self.gate_proj = _dense(cfg, i, h, "gate_proj_")
+            self.up_proj = _dense(cfg, i, h, "up_proj_")
+            self.down_proj = _dense(cfg, h, i, "down_proj_")
 
-    def forward(self, x):
-        return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
+    def hybrid_forward(self, F, x):
+        return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
-class LlamaDecoderLayer(nn.Module):
-    def __init__(self, cfg, **fk):
-        super().__init__()
-        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_eps, **fk)
-        self.self_attn = LlamaAttention(cfg, **fk)
-        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_eps,
-                                                **fk)
-        self.mlp = LlamaMLP(cfg, **fk)
+class LlamaMoEMLP(HybridBlock):
+    """Switch-MoE SwiGLU FFN.  The expert weights are stacked on a leading
+    expert axis, gate/up (E, H, I) and down (E, I, H), with the router at
+    (H, E), so ``moe_apply``'s dispatch and combine apply directly."""
 
-    def forward(self, x):
+    def __init__(self, cfg, **kwargs):
+        super().__init__(**kwargs)
+        self._cfg = cfg
+        E, H, I = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+        dt = cfg.dtype
+        with self.name_scope():
+            self.router = self.params.get("router_weight", shape=(H, E),
+                                          dtype=dt)
+            self.gate_proj = self.params.get("gate_proj_weight",
+                                             shape=(E, H, I), dtype=dt)
+            self.up_proj = self.params.get("up_proj_weight", shape=(E, H, I),
+                                           dtype=dt)
+            self.down_proj = self.params.get("down_proj_weight",
+                                             shape=(E, I, H), dtype=dt)
+
+    def hybrid_forward(self, F, x, router, gate_proj, up_proj, down_proj):
+        cfg = self._cfg
+        return F.moe_swiglu(x, router, gate_proj, up_proj, down_proj,
+                            capacity_factor=cfg.moe_capacity_factor,
+                            aux_loss_weight=cfg.moe_aux_loss_weight)
+
+
+class LlamaDecoderLayer(HybridBlock):
+    def __init__(self, cfg, **kwargs):
+        super().__init__(**kwargs)
+        self._remat = cfg.remat
+        h, dt = cfg.hidden_size, cfg.dtype
+        with self.name_scope():
+            self.input_layernorm = RMSNorm(h, cfg.rms_eps, dt,
+                                           prefix="input_layernorm_")
+            self.self_attn = LlamaAttention(cfg, prefix="self_attn_")
+            self.post_attention_layernorm = RMSNorm(
+                h, cfg.rms_eps, dt, prefix="post_attention_layernorm_")
+            if cfg.num_experts > 0:
+                self.mlp = LlamaMoEMLP(cfg, prefix="mlp_")
+            else:
+                self.mlp = LlamaMLP(cfg, prefix="mlp_")
+
+    def _body(self, x):
         x = x + self.self_attn(self.input_layernorm(x))
         return x + self.mlp(self.post_attention_layernorm(x))
 
+    def hybrid_forward(self, F, x):
+        if self._remat:
+            if _TRACE.ctx is not None and _ag.is_recording():
+                # under a functionalized forward that records (TrainStep):
+                # the layer's activations are recomputed in the backward
+                return NDArray._wrap(rematerialize(
+                    lambda t: self._body(NDArray._wrap(t))._data, x._data))
+            if _ag.is_recording():
+                warnings.warn(
+                    "LlamaConfig(remat=True) has no effect under the eager "
+                    "autograd tape; use parallel.TrainStep for "
+                    "rematerialized training", stacklevel=2)
+        return self._body(x)
 
-class LlamaModel(nn.Module):
-    def __init__(self, cfg, **fk):
-        super().__init__()
+
+class LlamaModel(HybridBlock):
+    def __init__(self, cfg, **kwargs):
+        super().__init__(**kwargs)
         self._cfg = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                         **fk)
-        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, **fk)
-                                    for _ in range(cfg.num_layers))
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, **fk)
+        with self.name_scope():
+            self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                             dtype=cfg.dtype,
+                                             prefix="embed_tokens_")
+            self.layers = nn.HybridSequential(prefix="layers_")
+            with self.layers.name_scope():
+                for i in range(cfg.num_layers):
+                    self.layers.add(LlamaDecoderLayer(cfg, prefix=f"{i}_"))
+            self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
+                                prefix="norm_")
 
-    def forward(self, input_ids):
-        idx = input_ids.long().clamp(0, self._cfg.vocab_size - 1)
-        h = self.embed_tokens(idx)
-        for layer in self.layers:
-            h = layer(h)
+    def hybrid_forward(self, F, input_ids):
+        h = self.embed_tokens(input_ids)
+        h = self.layers(h)
         return self.norm(h)
 
 
-class LlamaForCausalLM(nn.Module):
-    """The causal LM.  ``device=None`` means the first CUDA card (raises
-    without one); tests pass ``device="cpu"``.  Parameters are created on
-    ``device`` in ``cfg.dtype``."""
+class LlamaForCausalLM(HybridBlock):
+    """The causal LM.  A Gluon block: construct, then ``initialize(ctx=...)``
+    (``llama3_8b`` / ``llama_tiny`` do both).  Called with an NDArray it
+    returns an NDArray; called with a torch tensor, as a ``torch.nn.Module``,
+    it returns a tensor, recorded for torch autograd iff grad mode is on."""
 
-    def __init__(self, cfg, device=None):
-        super().__init__()
-        if cfg.num_experts > 0:
-            raise MXNetError("incremental decode does not support MoE FFNs "
-                             "yet")
+    def __init__(self, cfg, **kwargs):
+        super().__init__(**kwargs)
         self._cfg = cfg
-        fk = {"device": resolve_device(device),
-              "dtype": getattr(torch, cfg.dtype)}
-        self.model = LlamaModel(cfg, **fk)
-        self.lm_head = _linear(cfg.hidden_size, cfg.vocab_size, fk)
+        with self.name_scope():
+            self.model = LlamaModel(cfg, prefix="model_")
+            self.lm_head = _dense(cfg, cfg.vocab_size, cfg.hidden_size,
+                                  "lm_head_")
 
     def forward(self, input_ids):
+        if isinstance(input_ids, torch.Tensor):
+            with _ag._scope(recording=torch.is_grad_enabled()):
+                return super().forward(NDArray._wrap(input_ids))._data
+        return super().forward(input_ids)
+
+    def hybrid_forward(self, F, input_ids):
         return self.lm_head(self.model(input_ids))
 
     @property
@@ -167,11 +254,11 @@ class LlamaForCausalLM(nn.Module):
 
     @property
     def device(self):
-        return self.lm_head.weight.device
+        return self.lm_head.weight.data()._data.device
 
     @property
     def dtype(self):
-        return self.lm_head.weight.dtype
+        return self.lm_head.weight.data()._data.dtype
 
     # -- incremental (KV-cached) decode over a dense cache -----------------
     def init_decode_cache(self, batch, max_len=None):
@@ -234,12 +321,14 @@ def _is_norm(name):
 
 @torch.no_grad()
 def load_reference_params(net, params):
-    """Copy the reference's weights into ``net``.  ``params`` maps the
-    reference's structural names to numpy arrays, as
+    """Copy the reference's weights into ``net`` by structural name.
+    ``params`` maps the reference's structural names to numpy arrays, as
     ``{k: np.asarray(v) for k, v in serving_params(jax_net).items()}``
     gives them.  The key sets must be equal and every shape must match;
-    values are cast to the module's dtype on its device."""
-    own = dict(net.named_parameters())
+    values are cast to the parameters' dtype on their device.
+    (``gluon.load_reference_params`` carries weights by position
+    instead.)"""
+    own = net._collect_params_with_prefix()
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
     if missing or extra:
@@ -250,7 +339,7 @@ def load_reference_params(net, params):
         if tuple(src.shape) != tuple(p.shape):
             raise MXNetError(f"{name}: reference shape {tuple(src.shape)} "
                              f"!= model shape {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(src)))
+        p.set_data(torch.from_numpy(np.array(src)))
 
 
 @torch.no_grad()
@@ -260,11 +349,11 @@ def init_random_(net, seed):
     a full-width model gets weights without a download."""
     gen = torch.Generator(device=net.device)
     gen.manual_seed(int(seed))
-    for name, p in sorted(net.named_parameters()):
+    for name, t in serving_params(net).items():
         if _is_norm(name):
-            p.fill_(1.0)
+            t.fill_(1.0)
         else:
-            p.normal_(0.0, 0.02, generator=gen)
+            t.normal_(0.0, 0.02, generator=gen)
     return net
 
 
@@ -273,10 +362,12 @@ def init_random_(net, seed):
 # ==========================================================================
 def serving_params(net):
     """Structural-name parameter dict for the pure serving forwards
-    (``model.layers.0.self_attn.q_proj.weight`` ...).  Values are the live
-    parameter tensors, detached (no copy): a served model does not train."""
-    return OrderedDict((name, p.detach())
-                       for name, p in sorted(net.named_parameters()))
+    (``model.layers.0.self_attn.q_proj.weight`` ...), from
+    ``_collect_params_with_prefix``.  Values are the live parameter
+    tensors, detached (no copy): a served model does not train."""
+    return OrderedDict(
+        (name, p.data()._data.detach())
+        for name, p in sorted(net._collect_params_with_prefix().items()))
 
 
 def _dense_nb(x, weight):
@@ -408,14 +499,24 @@ def decode_apply(params, cfg, ids, positions, kv_join):
     return _dense_nb(x, params["lm_head.weight"])[:, 0, :]         # (B, V)
 
 
+def _built(cfg, device):
+    """``LlamaForCausalLM(cfg)`` initialized on ``device`` (None: the first
+    CUDA card; raises without one) with Gluon's default initializer."""
+    net = LlamaForCausalLM(cfg)
+    net.initialize(ctx=Context.from_device(resolve_device(device)))
+    return net
+
+
 def llama3_8b(device=None, **overrides):
-    """Llama-3-8B dimensions (the ``LlamaConfig`` defaults)."""
-    return LlamaForCausalLM(LlamaConfig(**overrides), device=device)
+    """Llama-3-8B dimensions (the ``LlamaConfig`` defaults), initialized
+    on ``device``."""
+    return _built(LlamaConfig(**overrides), device)
 
 
 def llama_tiny(device=None, **overrides):
-    """Test-scale Llama (same architecture, small dims)."""
+    """Test-scale Llama (same architecture, small dims), initialized on
+    ``device``."""
     kw = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
               num_kv_heads=2, intermediate_size=256, max_seq_len=256)
     kw.update(overrides)
-    return LlamaForCausalLM(LlamaConfig(**kw), device=device)
+    return _built(LlamaConfig(**kw), device)

@@ -5,7 +5,8 @@ A Parameter holds one ``torch.nn.Parameter`` on one device (multi-device
 copies are not ported), created when its shape is known: at
 ``initialize()``, or at the first forward for a deferred shape.  Its
 ``data()`` is an NDArray over that tensor, marked as an autograd variable
-with a gradient buffer per ``grad_req``.  Every Block that holds the
+per ``grad_req``; the gradient buffer is allocated with the first
+gradient.  Every Block that holds the
 Parameter as an attribute registers the torch tensor in its
 ``_parameters`` under that attribute name, so ``parameters()`` and
 ``.to()`` work on a Gluon net as on any ``nn.Module``.
@@ -13,6 +14,7 @@ Parameter as an attribute registers the torch tensor in its
 from __future__ import annotations
 
 import threading
+import weakref
 from collections import OrderedDict
 
 import numpy as _np
@@ -65,7 +67,10 @@ class Parameter:
         self._differentiable = differentiable
         self._nd = None          # NDArray over the torch.nn.Parameter
         self._deferred_init = ()
-        self._owners = []        # [(Block, attribute name)]
+        # [(weak reference to a Block, attribute name)]: weak, so that a
+        # net nothing else holds is freed at once, not at the next cyclic
+        # garbage collection (a full-width net holds tens of GB on the card)
+        self._owners = []
 
     # -- shape with deferred (0/None) dims ---------------------------------
     @property
@@ -153,11 +158,13 @@ class Parameter:
         """Make ``var`` this parameter's tensor, in every owning Block."""
         self._nd = NDArray._wrap(var)
         self._init_grad()
-        for block, attr in self._owners:
-            block._parameters[attr] = var
+        for ref, attr in self._owners:
+            block = ref()
+            if block is not None:
+                block._parameters[attr] = var
 
     def _attach(self, block, attr):
-        self._owners.append((block, attr))
+        self._owners.append((weakref.ref(block), attr))
         if self._nd is not None:
             block._parameters[attr] = self._nd._data
 
@@ -168,8 +175,10 @@ class Parameter:
             self._nd._grad = None
             self._nd._grad_req = "null"
         else:
-            self._nd._mark_variable(NDArray._wrap(torch.zeros_like(var)),
-                                    self._grad_req)
+            # the buffer comes with the first gradient (autograd.backward)
+            # or the first grad() call: a net that is only served, or only
+            # trained through TrainStep, holds no second copy of its weights
+            self._nd._mark_variable(None, self._grad_req)
 
     # -- access -------------------------------------------------------------
     def _check_initialized(self):
@@ -191,8 +200,10 @@ class Parameter:
 
     def grad(self, ctx=None):
         self._check_initialized()
-        if self._nd._grad is None:
+        if self._grad_req == "null":
             raise MXNetError(f"Parameter {self.name} has grad_req='null'")
+        if self._nd._grad is None:
+            self._nd._grad = NDArray._wrap(torch.zeros_like(self._nd._data))
         return self._nd._grad
 
     def zero_grad(self):
@@ -217,7 +228,8 @@ class Parameter:
         buffer beside the data."""
         if self._nd is None:
             return
-        block, attr = self._owners[0]
+        block, attr = next((ref(), attr) for ref, attr in self._owners
+                           if ref() is not None)
         var = block._parameters.get(attr)
         if var is not None and var is not self._nd._data:
             self._bind(var)

@@ -6,8 +6,9 @@ over all trainable tensors at once, in one call per step.
 The master weights and optimizer state are fp32 tensors the step owns; with
 ``dtype="bfloat16"`` the model's forward runs under the AMP cast policy
 (``contrib.amp``), its outputs are cast back to fp32 and the loss is fp32,
-as in the reference.  Sharding (``mesh``, ``plan``), pipelining,
-``remat``, the compile cache and ``run()`` are not ported.
+as in the reference.  ``remat=True`` recomputes the whole forward in the
+backward instead of storing its activations.  Sharding (``mesh``,
+``plan``), pipelining, the compile cache and ``run()`` are not ported.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from ..base import MXNetError
 from ..context import resolve_device
 from ..gluon.block import Block
 from ..ndarray.ndarray import NDArray
-from .functional import functionalize
+from .functional import functionalize, rematerialize
 
 __all__ = ["TrainStep", "make_sgd_update", "make_adam_update"]
 
@@ -111,7 +112,8 @@ class TrainStep:
     CUDA card; raises without one) and trains those copies; BatchNorm
     moving stats are threaded through as state when ``train_mode``.
     Dropout draws its masks from the device's generator
-    (``mxnet_tpu_torch.random``): the same seed gives the same step.
+    (``mxnet_tpu_torch.random``): the same seed gives the same step, with
+    ``remat`` or without.
 
     Gradients: a trainable parameter the forward never read (a block that
     was not called, such as BERT's token-type embedding without token
@@ -122,12 +124,30 @@ class TrainStep:
     """
 
     def __init__(self, net, loss_fn, optimizer="sgd", optimizer_params=None,
-                 train_mode=True, dtype=None, device=None):
+                 train_mode=True, dtype=None, device=None, pipeline=None,
+                 remat=False):
+        if pipeline is not None:
+            if remat:
+                raise MXNetError(
+                    "TrainStep(remat=True) does not compose with pipeline=; "
+                    "use pipeline={'remat_stage': True} for per-stage "
+                    "rematerialization inside the pipe")
+            raise MXNetError("TrainStep(pipeline=...) is not ported yet")
         self._device = resolve_device(device)
         self._net = net
         self._loss_fn = loss_fn
         self._apply_fn, params = functionalize(net, train_mode=train_mode,
                                                with_state=train_mode)
+        if remat:
+            # whole-model rematerialization; a model with finer-grained
+            # remat (Llama's per-layer checkpoint) has its own option
+            base_apply = self._apply_fn
+
+            def remat_apply(p, *inputs, read=None):
+                return rematerialize(
+                    lambda *a: base_apply(p, *a, read=read), *inputs)
+
+            self._apply_fn = remat_apply
         self._with_state = train_mode
         grad_req = {name: p.grad_req
                     for name, p in net.collect_params().items()}

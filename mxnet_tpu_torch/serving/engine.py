@@ -73,7 +73,7 @@ class _Seq:
 class ServingEngine:
     """Continuous-batching inference engine for the llama model zoo.
 
-    ``net`` is a ``LlamaForCausalLM``; its parameters are served
+    ``net`` is a (dense) ``LlamaForCausalLM``; its parameters are served
     as they are (frozen-weights semantics: a served model does not train).
     ``device=None`` means the first CUDA card; the net must live on the
     engine's device.  Bucket grids default from the ``MXNET_SERVING_*``
@@ -90,6 +90,9 @@ class ServingEngine:
             raise MXNetError("ServingEngine serves the model-zoo llama "
                              f"family, got {type(net).__name__}")
         cfg = net.config
+        if cfg.num_experts > 0:
+            raise MXNetError("incremental decode does not support MoE "
+                             "FFNs yet (prefill/decode_apply contract)")
         self._device = resolve_device(device)
         if net.device != self._device:
             raise MXNetError(f"the net lives on {net.device}, the engine "

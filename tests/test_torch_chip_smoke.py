@@ -18,6 +18,11 @@ Transformer training: the attention gradient checks pass the port and fail
 the planted backward faults, the BERT step check fails a planted fault,
 and the per-layer check of a bf16 step's attention fails a planted error
 in the forward's output.
+
+Llama training: the fp32 step check (against the fp64 step) passes the
+port and fails the planted faults (the GQA fold, the rope sign), the remat
+step equals the plain one, the bf16 check fails the rope fault, and the
+MoE check holds its step and sees the aux loss move the router.
 The new entry points raise without a card unless asked for the CPU.
 """
 import contextlib
@@ -29,6 +34,7 @@ import torch
 import chip_smoke
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import attention_ops as port_attention_ops
 from mxnet_tpu_torch.ops import nn as port_nn
 from mxnet_tpu_torch.ops.registry import get_op as port_get_op
 from mxnet_tpu_torch.parallel import data_parallel
@@ -63,11 +69,8 @@ def _plant(engine, fault):
 @pytest.mark.parametrize("fault", [None, "decode_position", "table_rows",
                                    "prefill_pages"])
 def test_fp32_serving_check_catches_paging_faults(fault, monkeypatch):
-    cfg = port_llama.LlamaConfig(vocab_size=512, hidden_size=128,
-                                 num_layers=2, num_heads=4, num_kv_heads=2,
-                                 intermediate_size=256, max_seq_len=256)
-    net = port_llama.init_random_(
-        port_llama.LlamaForCausalLM(cfg, device="cpu"), 0)
+    net = port_llama.init_random_(port_llama.llama_tiny(device="cpu"), 0)
+    cfg = net.config
     engine = ServingEngine(net, batch_buckets=[1, 2, 4],
                            prefill_buckets=[32, 64], kv_pages=64,
                            page_size=8, max_batch=4, device="cpu").start()
@@ -259,7 +262,10 @@ def test_attention_grad_check_catches_planted_faults(fault, shape):
 
 
 def test_llama_grad_check_runs_on_the_cpu():
-    assert chip_smoke.check_llama_grads(port_llama, 0, device="cpu") == 0.0
+    """On the CPU the check holds the CPU's fp32 gradients to its fp64
+    ones: a rounding-sized deviation, within the card's bound."""
+    worst = chip_smoke.check_llama_grads(port_llama, 0, device="cpu")
+    assert 0.0 < worst <= chip_smoke.LLAMA_GRAD_BOUND
 
 
 def _tiny_bert_cfg():
@@ -357,3 +363,89 @@ def test_bert_loss_is_bench_loss():
                                 torch.from_numpy(nsp)),
                                torch.from_numpy(labels))
     assert abs(got.item() - float(want)) < 1e-5
+
+
+# -- the Llama-training checks ------------------------------------------------
+@pytest.fixture(scope="module")
+def tiny_llama():
+    """llama_tiny with init_random_ weights on the CPU, a batch, and the
+    fp64 SGD step the checks hold others to (as the CPU's step on the
+    chip)."""
+    net = chip_smoke.init_llama(port_llama.llama_tiny(device="cpu").config,
+                                0, mx.cpu())
+    ids, labels = chip_smoke.llama_batch(0, 2, 32, net.config.vocab_size)
+    ref = chip_smoke.trainstep_result(
+        chip_smoke.copy_llama(net, mx.cpu()).double(), ids, labels, "cpu",
+        chip_smoke.LLAMA_CHECK_OPT, None, chip_smoke.llama_loss)
+    return net, ids, labels, list(net.collect_params()), ref
+
+
+def _llama_step(net, ids, labels, ref, dtype=None):
+    return chip_smoke.trainstep_result(net, ids, labels, "cpu",
+                                       chip_smoke.LLAMA_CHECK_OPT, dtype,
+                                       chip_smoke.llama_loss, ref[1])
+
+
+@pytest.mark.parametrize("fault", [None, "no_gqa_fold", "rope_sign"])
+def test_llama_step_check_catches_planted_faults(tiny_llama, fault):
+    """The fp32 step sits within LLAMA_FP32_BOUND of the fp64 step, every
+    tensor moves, and each planted fault (the GQA fold of the attention
+    backward, rope rotating the wrong way) fails the check."""
+    net, ids, labels, names, ref = tiny_llama
+    scope = chip_smoke.llama_fault(port_fa, fault) if fault else \
+        contextlib.nullcontext()
+    with scope:
+        cand = _llama_step(net, ids, labels, ref)
+    bound = chip_smoke.LLAMA_FP32_BOUND
+    if fault is None:
+        assert 0.0 < chip_smoke.check_steps(cand, ref, names, "fp32", bound)
+        assert chip_smoke.unchanged(cand, names) == []
+    else:
+        with pytest.raises(SystemExit, match="CHECK FAILED"):
+            chip_smoke.check_steps(cand, ref, names, fault, bound)
+    assert port_get_op("rope").fn is port_attention_ops.rope
+
+
+def test_llama_remat_step_equals_the_plain_step(tiny_llama):
+    net, ids, labels, names, ref = tiny_llama
+    plain = _llama_step(net, ids, labels, ref)
+    rnet = chip_smoke.copy_llama(
+        net, mx.cpu(), port_llama.llama_tiny(device="cpu", remat=True).config)
+    remat = _llama_step(rnet, ids, labels, ref)
+    assert chip_smoke.check_steps(remat, plain, names, "remat",
+                                  chip_smoke.LLAMA_REMAT_BOUND) == 0.0
+
+
+def test_llama_bf16_step_check_catches_rope_sign(tiny_llama):
+    net, ids, labels, names, ref = tiny_llama
+    noise = _llama_step(net, ids, labels, ref, "bfloat16")
+    scales = chip_smoke.noise_scales(noise, ref, names)
+    bound = chip_smoke.BF16_NOISE_FACTOR
+    assert chip_smoke.check_steps(_llama_step(net, ids, labels, ref,
+                                              "bfloat16"),
+                                  ref, names, "bf16", bound, scales) <= 1.0
+    with chip_smoke.planted_rope_fault():
+        cand = _llama_step(net, ids, labels, ref, "bfloat16")
+    with pytest.raises(SystemExit, match="CHECK FAILED"):
+        chip_smoke.check_steps(cand, ref, names, "rope_sign", bound, scales)
+
+
+def test_llama_moe_check_runs_on_the_cpu():
+    ratio, moved = chip_smoke.llama_moe_check(0, device="cpu")
+    assert 0.0 < ratio <= chip_smoke.LLAMA_FP32_BOUND < moved
+
+
+def test_llama_loss_is_bench_loss():
+    """chip_smoke's torch loss against bench.py's jax formula."""
+    import jax
+    import jax.numpy as jnp
+
+    r = np.random.RandomState(0)
+    logits = r.randn(2, 5, 11).astype("float32")
+    labels = r.randint(0, 11, (2, 5)).astype("int32")
+    logp = jax.nn.log_softmax(jnp.asarray(logits), axis=-1)
+    want = -jnp.take_along_axis(logp, jnp.asarray(labels)[..., None],
+                                axis=-1)
+    got = chip_smoke.llama_loss(torch.from_numpy(logits),
+                                torch.from_numpy(labels))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)

@@ -135,12 +135,24 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(MXNetError, match="no CUDA device"):
         port_llama.LlamaForCausalLM(port_llama.LlamaConfig(
             vocab_size=64, hidden_size=32, num_layers=1, num_heads=2,
-            num_kv_heads=1, intermediate_size=64))
+            num_kv_heads=1, intermediate_size=64)).initialize()
 
 
 def test_moe_config_is_refused():
+    """An MoE net builds and trains; the serving entry points refuse it,
+    as the reference's prefill_apply / decode_apply / ServingEngine do."""
+    from mxnet_tpu_torch.serving import ServingEngine
+
+    net = port_llama.llama_tiny(device="cpu", num_experts=4)
+    ids = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(MXNetError, match="MoE"):
-        port_llama.llama_tiny(device="cpu", num_experts=4)
+        port_llama.prefill_apply(port_llama.serving_params(net), net.config,
+                                 ids)
+    with pytest.raises(MXNetError, match="MoE"):
+        port_llama.decode_apply(port_llama.serving_params(net), net.config,
+                                ids[:, 0], ids[:, 0], None)
+    with pytest.raises(MXNetError, match="MoE"):
+        ServingEngine(net, device="cpu")
 
 
 # -- forwards --------------------------------------------------------------
