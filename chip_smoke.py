@@ -25,8 +25,17 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    over the run, in all and by prefill bucket, and every logits row the
    engine sampled from held against
    the port's full-context forward with the plain attention (bf16, to a
-   bound measured in the run); then the same weights upcast to fp32 and
-   served again, every logits row held to FP32_LOGIT_TOL;
+   bound measured in the run); 4b: the same net behind serving.serve()
+   on this thread, driven over HTTP from the on_ready thread: the same 8
+   requests POSTed concurrently to /v1/completions (every sampled logits
+   row held as in 4, flash_attn_fwd launched layers x prefills times),
+   /v1/serving, /metrics and /v1/requests, a decode fault the loop
+   retries, a persistent one that fails the in-flight request and dumps
+   the flight recorder's black box, and a SIGTERM with one request in
+   flight and one queued (the first finishes, the second is rejected,
+   serve() returns 43), with TTFT, latency and decode tokens/s beside
+   phase 4's; then the same weights upcast to fp32 and served again,
+   every logits row held to FP32_LOGIT_TOL;
 5. training: ResNet-50 v1 at full width (1000 classes, 224x224, NHWC,
    random weights from --seed, a synthetic batch from --seed as bench.py
    makes it).  One TrainStep step at batch 8 on the card against the same
@@ -74,7 +83,8 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    backward apart, falling loss); (e) bench.py's llama_proxy_train
    configuration timed the same way, and the attention at its shape beside
    SDPA's forward and backward;
-8. the kernels line (its times at the main path's shape, Llama training;
+8. the kernels line (its times and launches at the main path's shape,
+   serving over HTTP;
    each path's shape, times and launches under ``by_path``), then the
    device line.
 """
@@ -86,9 +96,14 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -162,8 +177,9 @@ def gpu_line():
 # of (B, L, H, D) tensors, as the model's projections hand them over.  The
 # first three rows are the serving path's prefills at Llama-3-8B widths
 # (buckets 2048, 512, 128), timed; the kernels line gives the largest
-# bucket's times for the serving path and for Llama training at
-# Llama-3-8B widths (sequence 2048: the same shape), this slice's main path;
+# bucket's times for the serving paths (submit() and HTTP, this slice's
+# main path) and for Llama training at Llama-3-8B widths (sequence 2048:
+# the same shape);
 # BertSelfAttention's at bench.py's batch for the BERT training path; and
 # bench.py's Llama proxy's (batch 8, 16/8 heads of 64, sequence 1024).
 SERVING_SHAPE = (1, 32, 8, 2048, 2048, 128, True, False)
@@ -172,8 +188,8 @@ BUCKET_SHAPES = [SERVING_SHAPE,
                  (1, 32, 8, 128, 128, 128, True, False)]
 BERT_SHAPE = (64, 12, 12, 128, 128, 64, False, True)
 PROXY_SHAPE = (8, 16, 8, 1024, 1024, 64, True, False)
-PATH_SHAPES = {"serving": SERVING_SHAPE, "bert_train": BERT_SHAPE,
-               "llama_train": SERVING_SHAPE,
+PATH_SHAPES = {"serving": SERVING_SHAPE, "serve_http": SERVING_SHAPE,
+               "bert_train": BERT_SHAPE, "llama_train": SERVING_SHAPE,
                "llama_proxy_train": PROXY_SHAPE}
 KERNEL_CASES = BUCKET_SHAPES + [PROXY_SHAPE] + [
     (1, 32, 8, 512, 512, 128, False, False),
@@ -308,7 +324,7 @@ def kernel_phase(gen):
                              "plain_ms": plain_ms, "bound_ms": bound,
                              "bound_by": bound_by, "library_ms": lib_ms}
         del q, k, v
-    main = by_path["llama_train"]
+    main = by_path["serve_http"]
     return {"name": "flash_attn_fwd", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
             "replaces": "mxnet_tpu/ops/flash_attention.py:68",
@@ -464,12 +480,13 @@ def log_device_profile(run, kernel_groups, n_top=8, label=None, steps=1,
         log(f"    {ms / steps:10.2f} ms{unit}  {key[:110]}")
 
 
-def serve(engine, prompts, temps, seed):
-    """Submit every prompt at once and wait for all.  Returns the results
-    and the logits row the engine sampled each token from, keyed by
-    (request id, token index): the engine's ``_sample`` is wrapped for the
-    run, and each row is cloned on the device (the last capture of a key
-    wins, so a re-prefilled continuation keeps its own rows)."""
+@contextlib.contextmanager
+def recorded_rows(engine):
+    """While open, the logits row the engine samples each token from is
+    kept in the yielded dict, keyed by (request id, token index): the
+    engine's ``_sample`` is wrapped, and each row is cloned on the device
+    (the last capture of a key wins, so a re-prefilled continuation keeps
+    its own rows)."""
     rows = {}
     sample = engine._sample
 
@@ -480,13 +497,42 @@ def serve(engine, prompts, temps, seed):
 
     engine._sample = recording_sample
     try:
+        yield rows
+    finally:
+        del engine._sample
+
+
+def serve(engine, prompts, temps, seed):
+    """Submit every prompt at once and wait for all.  Returns the results
+    and the logits rows the engine sampled from (``recorded_rows``)."""
+    with recorded_rows(engine) as rows:
         reqs = [engine.submit(p, max_new_tokens=MAX_NEW, temperature=t,
                               seed=seed * 1000 + i)
                 for i, (p, t) in enumerate(zip(prompts, temps))]
         results = [r.result(timeout=900) for r in reqs]
-    finally:
-        del engine._sample
     return results, rows
+
+
+def phase_totals():
+    """Wall seconds of the serving engine's prefill and decode phases since
+    the last telemetry reset (``mxnet_serving_phase_seconds``)."""
+    from mxnet_tpu_torch import telemetry
+
+    fam = telemetry.snapshot()["metrics"]["mxnet_serving_phase_seconds"]
+    out = {"prefill": 0.0, "decode": 0.0}
+    for sample in fam["samples"]:
+        out[sample["labels"]["phase"]] = sample["sum"]
+    return out
+
+
+def occupancy():
+    """(mean decode-batch fill, decode steps) from the serving engine's
+    ``mxnet_serving_batch_occupancy`` histogram since the last reset."""
+    from mxnet_tpu_torch import telemetry
+
+    sample = telemetry.snapshot()["metrics"][
+        "mxnet_serving_batch_occupancy"]["samples"][0]
+    return sample["sum"] / max(1, sample["count"]), sample["count"]
 
 
 def engine_rows(rows, result):
@@ -622,9 +668,287 @@ def check_fp32_run(llama_mod, fa_mod, net, prompts, temps, results, rows):
         f"error {worst:.3e} (tolerance {FP32_LOGIT_TOL})")
 
 
+# ---------------------------------------------------------------------------
+# phase 4b: the same net served over HTTP by serving.serve()
+# ---------------------------------------------------------------------------
+HTTP_TIMEOUT = 600        # seconds: every HTTP call and every wait
+DRAIN_TOKENS = 96         # the in-flight request of the drain check
+SERVING_FAMILIES = (
+    "mxnet_serving_queue_depth", "mxnet_serving_active_sequences",
+    "mxnet_serving_batch_occupancy", "mxnet_serving_phase_seconds",
+    "mxnet_serving_request_seconds", "mxnet_serving_ttft_seconds",
+    "mxnet_serving_tokens_total", "mxnet_serving_requests_total",
+    "mxnet_serving_evictions_total", "mxnet_serving_kv_pages",
+    "mxnet_serving_tokens_per_s", "mxnet_tokens_per_s_per_chip",
+    "mxnet_serving_join_to_first_token_seconds",
+    "mxnet_serving_step_failures_total")
+
+
+def http_call(port, path, body=None):
+    """(status, body) of one call to the server on 127.0.0.1:``port``;
+    a JSON body is parsed, any other is text."""
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data,
+                                 method="POST" if data is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    text = raw.decode()
+    try:
+        return status, json.loads(text)
+    except ValueError:
+        return status, text
+
+
+def wait_until(cond, what, timeout=HTTP_TIMEOUT, poll=0.005):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(poll)
+
+
+def in_thread(fn, *args):
+    """Start ``fn(*args)`` on a thread; returns (thread, result box)."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as e:       # re-raised by joined()
+            box["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, box
+
+
+def joined(t, box):
+    t.join(HTTP_TIMEOUT)
+    check(not t.is_alive(), "a phase 4b thread did not end in time")
+    if "error" in box:
+        raise box["error"]
+    return box["out"]
+
+
+def metric_lines(port):
+    status, text = http_call(port, "/metrics")
+    check(status == 200, f"/metrics answered {status}")
+    return text.splitlines()
+
+
+def http_checks(engine, port, prompts, temps, seed, stop, counter,
+                drain_tokens):
+    """Phase 4b's requests and checks, run on their own thread while
+    ``serve()`` holds the main thread.  Returns the completions, the logits
+    rows the engine sampled from (as ``serve`` records them), the kernel's
+    launches over the 8 completions and the timing figures."""
+    from mxnet_tpu_torch import fault, lifecycle
+
+    out = {}
+
+    def post(body):
+        """(status, body, client wall-clock start and end)."""
+        t0 = time.time()
+        status, res = http_call(port, "/v1/completions", body)
+        return status, res, (t0, time.time())
+
+    # the client's first call in a process builds urllib's default opener
+    # (with a TLS context), once per thread that races to it: made here,
+    # outside the timed calls
+    check(http_call(port, "/healthz")[0] == 200, "/healthz did not answer")
+
+    # (1) the 8 requests of phase 4, concurrently, through /v1/completions
+    counter.launches = 0
+    counter.launches_by_len = {}
+    t0 = time.perf_counter()
+    with recorded_rows(engine) as rows:
+        calls = [in_thread(post, {"prompt": p.tolist(),
+                                  "max_new_tokens": MAX_NEW,
+                                  "temperature": t,
+                                  "seed": seed * 1000 + i})
+                 for i, (p, t) in enumerate(zip(prompts, temps))]
+        answers = [joined(*c) for c in calls]
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = counter.launches
+    out["launches_by_len"] = dict(sorted(counter.launches_by_len.items()))
+    out["decode_s"] = phase_totals()["decode"]
+    out["occupancy"] = occupancy()
+    for status, res, _ in answers:
+        check(status == 200, f"/v1/completions answered {status}: {res}")
+        check(len(res["token_ids"]) == MAX_NEW
+              and res["finish_reason"] == "length",
+              f"HTTP request {res['request_id']} came back with "
+              f"{len(res['token_ids'])} tokens, finish "
+              f"{res['finish_reason']}; expected {MAX_NEW}, length")
+    out["results"] = [res for _, res, _ in answers]
+    out["client_s"] = [t1 - t0 for _, _, (t0, t1) in answers]
+    out["rows"] = rows
+
+    # (2) the engine's planes over HTTP
+    status, st = http_call(port, "/v1/serving")
+    check(status == 200 and st["latency_s"]["count"] == N_REQUESTS
+          and st["ttft_s"]["count"] == N_REQUESTS
+          and st["queue_depth"] == 0 and st["active_sequences"] == 0,
+          f"/v1/serving after the completions: {st}")
+    lines = metric_lines(port)
+    families = {ln.split()[2] for ln in lines if ln.startswith("# TYPE ")}
+    missing = set(SERVING_FAMILIES) - families
+    check(not missing, f"/metrics lacks the serving families {missing}")
+    done = f'mxnet_serving_requests_total{{outcome="length"}} {N_REQUESTS}'
+    check(done in lines, f"/metrics does not count {N_REQUESTS} completed "
+                         f"requests ({done!r})")
+    status, tr = http_call(port, "/v1/requests")
+    want = {"queue_wait", "prefill", "sample", "decode_step"}
+    check(status == 200 and tr["traced_requests"] == N_REQUESTS
+          and len(tr["requests"]) == N_REQUESTS,
+          f"/v1/requests holds {tr.get('traced_requests')} traces")
+    # the client's round trip beyond the server's submit -> resolve: before
+    # the submit (connection, request parse) and after (response)
+    spans = {item["trace_id"]: (item["time"], item["duration_s"])
+             for item in tr["requests"]}
+    out["pre_s"], out["post_s"] = [], []
+    for _, res, (c0, c1) in answers:
+        wall0, dur = spans[res["request_id"]]
+        out["pre_s"].append(wall0 - c0)
+        out["post_s"].append(c1 - (wall0 + dur))
+    for item in tr["requests"]:
+        names = {c["name"] for c in item["tree"]["children"]}
+        names |= {g["name"] for c in item["tree"]["children"]
+                  for g in c["children"]}
+        check(want <= names and item["outcome"] == "length",
+              f"trace {item['trace_id']} has spans {sorted(names)}")
+    out["stats"] = st
+
+    # (3) fault seams: one decode failure is retried ...
+    probe = {"prompt": prompts[0][:64].tolist(), "max_new_tokens": 8}
+    with fault.inject("serving.decode_step", times=1):
+        status, res, _ = post(probe)
+    check(status == 200 and len(res["token_ids"]) == 8,
+          f"after one injected decode failure: {status} {res}")
+    check("mxnet_serving_step_failures_total 1" in metric_lines(port),
+          "the step failure was not counted")
+    # ... a persistent one fails the in-flight request and dumps the ring
+    n = engine._MAX_CONSEC_STEP_FAILURES
+    with fault.inject("serving.decode_step", times=n):
+        status, res, _ = post(probe)
+    check(status == 503
+          and "injected fault at serving.decode_step" in res["error"]
+          and "persistently failing" in res["error"],
+          f"after {n} injected decode failures: {status} {res}")
+    path = os.path.join(os.environ["MXNET_FLIGHT_DIR"], "blackbox.rank0.json")
+    check(os.path.isfile(path), f"no black-box dump at {path}")
+    with open(path) as f:
+        box = json.load(f)
+    events = [e.get("event") or e.get("seam") for e in box["events"]]
+    check(box["reason"] == "serving_step_failure"
+          and "serving_step_failure" in events
+          and "serving.decode_step" in events,
+          f"black-box dump: reason {box['reason']}, events {events[-5:]}")
+    out["blackbox"] = path
+    status, res, _ = post(probe)
+    check(status == 200 and len(res["token_ids"]) == 8,
+          f"the request after the persistent failure: {status} {res}")
+
+    # (4) the stop: one request in flight, one held in the queue by a
+    # tripping admission; the in-flight one finishes, the queued one is
+    # rejected, and serve() returns EXIT_PREEMPTED (checked by the caller)
+    a = in_thread(post, {"prompt": prompts[0][:64].tolist(),
+                         "max_new_tokens": drain_tokens})
+    wait_until(lambda: http_call(port, "/v1/serving")[1]
+               ["active_sequences"] == 1, "the first request's prefill")
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(fault.inject("serving.admit", times=10**9))
+        b = in_thread(post, {"prompt": prompts[1][:64].tolist(),
+                             "max_new_tokens": 8})
+        wait_until(lambda: http_call(port, "/v1/serving")[1]
+                   ["queue_depth"] == 1, "the second request in the queue")
+        st = http_call(port, "/v1/serving")[1]
+        check(st["active_sequences"] == 1 and a[0].is_alive(),
+              f"the first request left the batch before the stop: {st}")
+        stop()
+        wait_until(lifecycle.stop_requested, "the stop request", timeout=60)
+        # the engine has seen the stop (and admits nothing more) before
+        # the admission fault is disarmed
+        wait_until(engine._stop_evt.is_set, "the engine's stop", timeout=60)
+    status_a, res_a, _ = joined(*a)
+    status_b, res_b, _ = joined(*b)
+    check(status_a == 200 and len(res_a["token_ids"]) == drain_tokens,
+          f"the in-flight request at the stop: {status_a} {res_a}")
+    check(status_b == 503 and "rejected: server shutting down"
+          in res_b.get("error", ""),
+          f"the queued request at the stop: {status_b} {res_b}")
+    return out
+
+
+def http_phase(net, engine_kw, prompts, temps, seed, counter, check_rows,
+               stop=None, install_signals=True, device=None,
+               drain_tokens=DRAIN_TOKENS):
+    """Phase 4b: ``serving.serve(net, port=0)`` on this (the main) thread,
+    driven over HTTP from a thread started in ``on_ready``: the 8
+    completions (each with MAX_NEW tokens, every sampled logits row held by
+    ``check_rows(results, rows)``), ``/v1/serving``, ``/metrics`` and
+    ``/v1/requests``, a retried decode fault, a persistent one (the request
+    fails, a black box is dumped), and the stop (``stop()``: SIGTERM to
+    this process by default), which must drain and make ``serve()`` return
+    ``lifecycle.EXIT_PREEMPTED``.  ``counter`` is the kernel wrapper whose
+    launches are counted over the 8 completions.  Returns the client's
+    figures."""
+    from mxnet_tpu_torch import fault, flight_recorder, lifecycle, telemetry
+    from mxnet_tpu_torch.serving import serve
+
+    if stop is None:
+        def stop():
+            os.kill(os.getpid(), signal.SIGTERM)
+    for plane in (lifecycle, telemetry, flight_recorder):
+        plane.reset()
+    fault.reload_spec()
+    fault.reset_stats()
+    client = []
+
+    def on_ready(engine, port):
+        def drive():
+            try:
+                return http_checks(engine, port, prompts, temps, seed, stop,
+                                   counter, drain_tokens)
+            except BaseException:
+                lifecycle.request_stop("phase 4b client failed")
+                raise
+        client.extend(in_thread(drive))
+
+    saved = os.environ.get("MXNET_FLIGHT_DIR")
+    with tempfile.TemporaryDirectory(prefix="mxnet_blackbox_") as tmp:
+        os.environ["MXNET_FLIGHT_DIR"] = tmp
+        try:
+            rc = serve(net, port=0, install_signals=install_signals,
+                       on_ready=on_ready, device=device, **engine_kw)
+            out = joined(*client)          # the client's failure, raised
+            drained = "mxnet_serving_requests_total" \
+                '{outcome="drain_rejected"} 1' in \
+                telemetry.render_prometheus().splitlines()
+        finally:
+            telemetry.stop_http_server()
+            lifecycle.reset()
+            if saved is None:
+                os.environ.pop("MXNET_FLIGHT_DIR", None)
+            else:
+                os.environ["MXNET_FLIGHT_DIR"] = saved
+    check(rc == lifecycle.EXIT_PREEMPTED,
+          f"serve() returned {rc} after the stop, expected "
+          f"{lifecycle.EXIT_PREEMPTED}")
+    check(drained, "the drain's rejection was not counted "
+                   "(mxnet_serving_requests_total{outcome=drain_rejected})")
+    check_rows(out["results"], out["rows"])
+    out["rc"] = rc
+    return out
+
+
 def serving_phase(seed):
     from mxnet_tpu_torch.gluon.model_zoo.language import llama as llama_mod
     from mxnet_tpu_torch.ops import flash_attention as fa_mod
+    from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.serving import ServingEngine
 
     t0 = time.perf_counter()
@@ -648,13 +972,15 @@ def serving_phase(seed):
     torch.cuda.reset_peak_memory_stats()
     fa_mod._flash_fwd_cuda.launches = 0          # counts of this run only
     fa_mod._flash_fwd_cuda.launches_by_len = {}
+    telemetry.reset()
     t0 = time.perf_counter()
     results, rows = serve(engine, prompts, temps, seed)
     wall = time.perf_counter() - t0
+    fill = occupancy()
     launches = fa_mod._flash_fwd_cuda.launches
     by_bucket = dict(sorted(fa_mod._flash_fwd_cuda.launches_by_len.items()))
     peak = torch.cuda.max_memory_allocated()
-    phase = dict(engine.phase_seconds)
+    phase = phase_totals()
 
     prefills = sum(r["prefills"] for r in results)
     for p, t, r in zip(prompts, temps, results):
@@ -683,9 +1009,49 @@ def serving_phase(seed):
     engine.close()
     del engine
     check_bf16_run(llama_mod, fa_mod, net, prompts, temps, results, rows)
+    del rows
+
+    log("== serving 4b: the same net behind serving.serve() over HTTP")
+    t0 = time.perf_counter()
+    http = http_phase(
+        net, engine_kw, prompts, temps, seed, fa_mod._flash_fwd_cuda,
+        lambda res, rows: check_bf16_run(llama_mod, fa_mod, net, prompts,
+                                         temps, res, rows))
+    http_prefills = sum(r["prefills"] for r in http["results"])
+    check(http["launches"] == cfg.num_layers * http_prefills,
+          f"flash_attn_fwd launched {http['launches']} times over the HTTP "
+          f"completions, expected num_layers x prefills = "
+          f"{cfg.num_layers * http_prefills}")
+    http_ttft = sorted(r["ttft_s"] for r in http["results"])
+    http_lat = sorted(r["latency_s"] for r in http["results"])
+    client = sorted(http["client_s"])
+    lat = sorted(r["latency_s"] for r in results)
+    mid = N_REQUESTS // 2
+    http_tokens = sum(len(r["token_ids"]) - r["prefills"]
+                      for r in http["results"])
+    log(f"  [{gpu_line()}] {N_REQUESTS} requests, submit() (phase 4) | "
+        f"HTTP (4b): TTFT p50 {ttft[mid]:.4f} | {http_ttft[mid]:.4f} s; "
+        f"latency p50 {lat[mid]:.4f} | {http_lat[mid]:.4f} s (client "
+        f"round trip p50 {client[mid]:.4f} s); decode "
+        f"{decode_tokens / phase['decode']:.1f} | "
+        f"{http_tokens / http['decode_s']:.1f} tokens/s; wall {wall:.3f} | "
+        f"{http['wall_s']:.3f} s; decode-batch fill {fill[0]:.3f} over "
+        f"{fill[1]} steps | {http['occupancy'][0]:.3f} over "
+        f"{http['occupancy'][1]} steps")
+    pre, post = sorted(http["pre_s"]), sorted(http["post_s"])
+    log(f"  HTTP round trip beyond the server's submit -> resolve: before "
+        f"the submit p50 {pre[mid]:.4f} s (max {pre[-1]:.4f} s), after the "
+        f"resolve p50 {post[mid]:.4f} s (max {post[-1]:.4f} s)")
+    log(f"  flash_attn_fwd over the HTTP completions: {http['launches']} = "
+        f"{cfg.num_layers} layers x {http_prefills} prefills ("
+        + ", ".join(f"{n} at {lb}" for lb, n in
+                    http["launches_by_len"].items())
+        + f"); decode faults retried and failed as the reference's loop "
+        f"does, black box {os.path.basename(http['blackbox'])}; SIGTERM "
+        f"drained and serve() returned {http['rc']} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     log("== serving in fp32: the same weights and requests, held tight")
-    del rows
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     net.float()
@@ -701,7 +1067,7 @@ def serving_phase(seed):
     del engine
     check_fp32_run(llama_mod, fa_mod, net, prompts, temps, results32, rows32)
     log(f"  fp32 pass took {time.perf_counter() - t0:.1f} s")
-    return {"flash_attn_fwd": launches}
+    return {"serving": launches, "serve_http": http["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1714,7 +2080,7 @@ def bert_phase(seed):
                      optimizer_params=BERT_OPT, dtype="bfloat16")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa_mod._flash_fwd_cuda.launches = 0        # the main path's count
+    fa_mod._flash_fwd_cuda.launches = 0        # this path's count
     losses = []
     t0 = time.perf_counter()
     for _ in range(BERT_WARMUP):
@@ -2098,7 +2464,7 @@ def llama_phase(seed):
         check(n == want, f"flash_attn_fwd launched {n} times in {n_steps} "
                          f"steps (remat {remat}), expected {want}")
         if not remat:
-            launches["llama_train"] = n       # the main path's count
+            launches["llama_train"] = n       # this path's count
         del net
         torch.cuda.empty_cache()
 
@@ -2183,10 +2549,10 @@ def main():
     log(f"  kernel phase took {time.perf_counter() - t0:.1f} s")
 
     # the kernel's launches on each path, each counted from zero over the
-    # path's run; this slice's main path is Llama training
+    # path's run; this slice's main path is serving over HTTP (4b)
     t0 = time.perf_counter()
     log("== serving: Llama-3-8B widths and depth (32 layers)")
-    launches = {"serving": serving_phase(args.seed)["flash_attn_fwd"]}
+    launches = serving_phase(args.seed)
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     log(f"  serving phase took {t1 - t0:.1f} s")
@@ -2209,7 +2575,7 @@ def main():
     for path, n in launches.items():
         check(n > 0, f"flash_attn_fwd never ran on the {path} path")
         row["by_path"][path]["launches"] = n
-    row["launches"] = launches["llama_train"]
+    row["launches"] = launches["serve_http"]
 
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(gpu_line())

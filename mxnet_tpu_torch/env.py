@@ -1,13 +1,61 @@
-"""The ``MXNET_SERVING_*`` knobs the serving engine reads (counterpart of
-``mxnet_tpu/env.py``'s serving accessors: same names, same defaults)."""
+"""The ``MXNET_*`` environment knobs the port reads (counterpart of
+``mxnet_tpu/env.py``: the same names, defaults and parsing of malformed
+values, for the knobs of the planes the port has).
+
+Wired vars:
+
+- ``MXNET_SEED``: seeds the global RNG at import (``random.seed``).
+- ``MXNET_FAULT_SPEC``: deterministic fault injection,
+  ``<seam>:fail[:times[:Error]]``, comma-separated; see
+  :mod:`mxnet_tpu_torch.fault`.  Read lazily at the first seam check.
+- ``MXNET_FAULT_MAX_RETRIES``: retry budget for transient errors
+  (default 3).
+- ``MXNET_FAULT_BACKOFF_MS``: first-retry backoff seed in ms (doubles per
+  retry, full jitter, 30 s cap; default 100).
+- ``MXNET_TELEMETRY_PORT``: opt-in HTTP telemetry endpoint (``/metrics``,
+  ``/snapshot``, ``/healthz``) on 127.0.0.1:<port>, started at import;
+  unset/0 = no server.
+- ``MXNET_TELEMETRY_TIMELINE_STEPS``: step-timeline ring capacity
+  (default 256).
+- ``MXNET_TELEMETRY_AGG_DIR``: read only as the fallback of
+  ``MXNET_FLIGHT_DIR`` (the cross-rank aggregator is not ported).
+- ``MXNET_FLIGHT_RECORDER``: the flight-recorder ring (default 1).
+- ``MXNET_FLIGHT_RECORDER_CAP``: its capacity in events (default 4096).
+- ``MXNET_FLIGHT_DIR``: directory for ``blackbox.rank<N>.json`` dumps
+  (default ``MXNET_TELEMETRY_AGG_DIR``; neither set = no dumps).
+- ``MXNET_WORKER_ID`` / ``DMLC_WORKER_ID``, ``MXNET_NUM_WORKERS`` /
+  ``DMLC_NUM_WORKER``: launcher rank and world size.
+- ``MXNET_GOODPUT_SLO``, ``MXNET_GOODPUT_SLO_WINDOWS``: goodput-ratio SLO
+  alerting (default 0 = off; 3 windows).
+- ``MXNET_TRACE_REQUESTS``: per-request serving traces (default 1).
+- ``MXNET_TRACE_KEEP_SLOWEST``: slowest-N traces always kept (default 16).
+- ``MXNET_GRACE_PERIOD_S``: seconds between a stop request and a forced
+  exit (default 0 = none).
+- ``MXNET_SERVING_PORT``: default port of ``serving.serve`` (0 = free).
+- ``MXNET_SERVING_MAX_BATCH``, ``MXNET_SERVING_BATCH_BUCKETS``,
+  ``MXNET_SERVING_PREFILL_BUCKETS``, ``MXNET_SERVING_QUEUE``,
+  ``MXNET_SERVING_KV_PAGES``, ``MXNET_SERVING_PAGE_SIZE``,
+  ``MXNET_SERVING_DEADLINE_MS``: the serving engine's grids and bounds.
+
+The knobs of planes not ported yet (planner, graph, guard, ZeRO, compile
+cache, tuning, fleet, data path), and those of the lifecycle's watchdog
+(``MXNET_WATCHDOG_TIMEOUT_S``) and multi-process stop agreement
+(``MXNET_STOP_SYNC_EVERY``), wait for their code.
+"""
 from __future__ import annotations
 
 import os
 import warnings
 
-__all__ = ["serving_max_batch", "serving_batch_buckets",
+__all__ = ["get_str", "get_int", "get_bool", "get_float",
+           "serving_max_batch", "serving_batch_buckets",
            "serving_prefill_buckets", "serving_queue_bound",
-           "serving_kv_pages", "serving_page_size", "serving_deadline_ms"]
+           "serving_kv_pages", "serving_page_size", "serving_deadline_ms",
+           "serving_port", "grace_period_s", "flight_recorder_enabled",
+           "flight_recorder_cap", "flight_dir", "telemetry_agg_dir",
+           "launcher_rank", "launcher_world", "goodput_slo",
+           "goodput_slo_windows", "trace_requests", "trace_keep_slowest",
+           "describe", "apply_env"]
 
 
 def get_str(name, default=None):
@@ -22,6 +70,25 @@ def get_int(name, default=0):
         return int(v)
     except ValueError:
         warnings.warn(f"{name}={v!r} is not an integer; using {default}",
+                      stacklevel=2)
+        return default
+
+
+def get_bool(name, default=False):
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.lower() in ("1", "true", "yes", "on")
+
+
+def get_float(name, default=0.0):
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    try:
+        return float(v)
+    except ValueError:
+        warnings.warn(f"{name}={v!r} is not a number; using {default}",
                       stacklevel=2)
         return default
 
@@ -63,3 +130,164 @@ def serving_deadline_ms():
     """Default per-request deadline in ms (MXNET_SERVING_DEADLINE_MS,
     default 0 = none)."""
     return max(0, get_int("MXNET_SERVING_DEADLINE_MS", 0))
+
+
+def serving_port():
+    """Default port of serving.serve's HTTP endpoint (MXNET_SERVING_PORT,
+    default 0 = pick a free port)."""
+    return max(0, get_int("MXNET_SERVING_PORT", 0))
+
+
+def grace_period_s():
+    """Stop-request -> forced-exit deadline (MXNET_GRACE_PERIOD_S, default
+    0 = no forced exit)."""
+    return max(0.0, get_float("MXNET_GRACE_PERIOD_S", 0.0))
+
+
+def launcher_rank():
+    """Launcher-provided rank (MXNET_WORKER_ID / DMLC_WORKER_ID; default
+    0), read from the environment alone, so that it is known before any
+    process group exists."""
+    for name in ("MXNET_WORKER_ID", "DMLC_WORKER_ID"):
+        v = os.environ.get(name)
+        if v:
+            try:
+                return int(v)
+            except ValueError:
+                pass
+    return 0
+
+
+def launcher_world():
+    """Launcher-provided world size (MXNET_NUM_WORKERS / DMLC_NUM_WORKER;
+    default 1)."""
+    for name in ("MXNET_NUM_WORKERS", "DMLC_NUM_WORKER"):
+        v = os.environ.get(name)
+        if v:
+            try:
+                return max(1, int(v))
+            except ValueError:
+                pass
+    return 1
+
+
+def telemetry_agg_dir():
+    """The cross-rank snapshot directory (MXNET_TELEMETRY_AGG_DIR); the
+    port reads it only as the fallback of :func:`flight_dir`."""
+    return get_str("MXNET_TELEMETRY_AGG_DIR")
+
+
+def flight_recorder_enabled():
+    """Flight-recorder gate (MXNET_FLIGHT_RECORDER, default on)."""
+    return get_bool("MXNET_FLIGHT_RECORDER", True)
+
+
+def flight_recorder_cap():
+    """Flight-recorder ring capacity in events (MXNET_FLIGHT_RECORDER_CAP,
+    default 4096, at least 8)."""
+    return max(8, get_int("MXNET_FLIGHT_RECORDER_CAP", 4096))
+
+
+def flight_dir():
+    """Directory for black-box dumps (MXNET_FLIGHT_DIR, default
+    MXNET_TELEMETRY_AGG_DIR; None when neither is set: no dumps)."""
+    return get_str("MXNET_FLIGHT_DIR") or telemetry_agg_dir()
+
+
+def goodput_slo():
+    """Goodput-ratio SLO in [0, 1] (MXNET_GOODPUT_SLO, default 0 = off)."""
+    return min(1.0, max(0.0, get_float("MXNET_GOODPUT_SLO", 0.0)))
+
+
+def goodput_slo_windows():
+    """Consecutive below-SLO windows before the alert fires
+    (MXNET_GOODPUT_SLO_WINDOWS, default 3)."""
+    return max(1, get_int("MXNET_GOODPUT_SLO_WINDOWS", 3))
+
+
+def trace_requests():
+    """Per-request serving traces (MXNET_TRACE_REQUESTS, default on)."""
+    return get_bool("MXNET_TRACE_REQUESTS", True)
+
+
+def trace_keep_slowest():
+    """How many of the slowest completed request traces are always kept
+    (MXNET_TRACE_KEEP_SLOWEST, default 16)."""
+    return max(1, get_int("MXNET_TRACE_KEEP_SLOWEST", 16))
+
+
+_WIRED = (
+    ("MXNET_SEED", "global RNG seed at import (random.seed)"),
+    ("MXNET_FAULT_SPEC", "deterministic fault injection spec "
+     "(<seam>:fail[:times[:Error]], comma-separated; mxnet_tpu_torch.fault)"),
+    ("MXNET_FAULT_MAX_RETRIES", "transient-error retry budget (default 3)"),
+    ("MXNET_FAULT_BACKOFF_MS", "retry backoff seed in ms (default 100; "
+     "doubles per retry, full jitter)"),
+    ("MXNET_TELEMETRY_PORT", "opt-in HTTP telemetry endpoint (/metrics "
+     "Prometheus, /snapshot JSON; unset/0 = off)"),
+    ("MXNET_TELEMETRY_TIMELINE_STEPS", "step-timeline ring capacity "
+     "(default 256)"),
+    ("MXNET_TELEMETRY_AGG_DIR", "fallback directory of the black-box "
+     "dumps"),
+    ("MXNET_FLIGHT_RECORDER", "flight-recorder ring (default 1)"),
+    ("MXNET_FLIGHT_RECORDER_CAP", "flight-recorder ring capacity in events "
+     "(default 4096)"),
+    ("MXNET_FLIGHT_DIR", "directory for blackbox.rank<N>.json dumps "
+     "(default = MXNET_TELEMETRY_AGG_DIR; neither set = no dumps)"),
+    ("MXNET_GOODPUT_SLO", "goodput-ratio SLO (default 0 = alerting off)"),
+    ("MXNET_GOODPUT_SLO_WINDOWS", "consecutive below-SLO windows before "
+     "the goodput alert fires (default 3)"),
+    ("MXNET_TRACE_REQUESTS", "per-request serving span traces (default 1)"),
+    ("MXNET_TRACE_KEEP_SLOWEST", "slowest-N request traces always retained "
+     "(default 16)"),
+    ("MXNET_GRACE_PERIOD_S", "stop-request -> forced-exit deadline "
+     "(default 0 = none)"),
+    ("MXNET_SERVING_PORT", "serving.serve HTTP endpoint port (default 0 = "
+     "pick free; routes mount beside /metrics)"),
+    ("MXNET_SERVING_MAX_BATCH", "serving decode-batch admission cap "
+     "(default 8)"),
+    ("MXNET_SERVING_BATCH_BUCKETS", "decode batch-size buckets (default "
+     "1,2,4,8)"),
+    ("MXNET_SERVING_PREFILL_BUCKETS", "prompt-length prefill buckets "
+     "(default 32,64,128)"),
+    ("MXNET_SERVING_QUEUE", "serving admission-queue bound (default 64; "
+     "full = clean 429 rejection)"),
+    ("MXNET_SERVING_KV_PAGES", "KV-cache pool pages (default 512; page 0 "
+     "reserved as scratch)"),
+    ("MXNET_SERVING_PAGE_SIZE", "tokens per KV-cache page (default 16)"),
+    ("MXNET_SERVING_DEADLINE_MS", "default per-request serving deadline in "
+     "ms (default 0 = none)"),
+    ("MXNET_NUM_WORKERS", "launcher world size (alias DMLC_NUM_WORKER; "
+     "default 1)"),
+    ("MXNET_WORKER_ID", "launcher rank (alias DMLC_WORKER_ID)"),
+)
+
+
+def describe():
+    """One line per knob the port reads: its current value and what it
+    maps to."""
+    return "\n".join(f"{name}={os.environ.get(name, '<unset>')} — {what}"
+                     for name, what in _WIRED)
+
+
+def apply_env():
+    """Apply the import-time knobs (called once from
+    ``mxnet_tpu_torch/__init__``): MXNET_SEED and MXNET_TELEMETRY_PORT."""
+    seed = os.environ.get("MXNET_SEED")
+    if seed:
+        from . import random as _random
+
+        _random.seed(int(seed))
+    port = get_int("MXNET_TELEMETRY_PORT", 0)
+    if port > 0:
+        from . import telemetry
+
+        try:
+            telemetry.start_http_server(port)
+        except OSError as e:
+            # another process on this host (a parent, a peer rank) holds
+            # the port: recording still works, only the endpoint is missing
+            warnings.warn(
+                f"MXNET_TELEMETRY_PORT={port}: endpoint not started ({e}); "
+                "another process on this host likely holds the port",
+                stacklevel=2)

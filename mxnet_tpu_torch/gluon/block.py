@@ -136,6 +136,15 @@ class Block(torch.nn.Module):
         context, the first CUDA card)."""
         self.collect_params().initialize(init, ctx, verbose, force_reinit)
 
+    def cast(self, dtype):
+        """Cast every parameter of self and its descendants to ``dtype``
+        (reference: Block.cast; HybridBlock needs no override, as the
+        port keeps no staged graph to drop)."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for _, p in self._params.items():
+            p.cast(dtype)
+
     def hybridize(self, active=True, **kwargs):
         """Accepted for compatibility: the forward stays eager, so the net
         computes exactly what it did (a staged graph is not ported)."""

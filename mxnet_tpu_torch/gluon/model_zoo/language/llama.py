@@ -47,7 +47,11 @@ __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama3_8b",
 
 class LlamaConfig:
     """Llama-3-8B dimensions by default.  ``dtype`` is the parameters'
-    dtype.  ``num_experts`` > 0 replaces the dense SwiGLU MLP with a
+    dtype: an extension of the port.  The reference stores ``dtype`` and
+    never reads it (its nets are built in fp32 and cast with
+    ``net.cast("bfloat16")``, which the port also has); here
+    ``llama3_8b(dtype="bfloat16")`` builds the bf16 net directly, with no
+    fp32 copy on the way.  ``num_experts`` > 0 replaces the dense SwiGLU MLP with a
     switch-MoE FFN (top-1 routing, ``moe_capacity_factor``), whose
     load-balance loss times ``moe_aux_loss_weight`` rides the backward
     (0 disables it).  ``remat`` rematerializes each decoder layer's

@@ -222,6 +222,17 @@ class Parameter:
             data = data._data
         self._nd._set(torch.as_tensor(data))
 
+    def cast(self, dtype):
+        """Cast the data to ``dtype`` and make it the parameter's dtype
+        (reference: Parameter.cast).  The gradient buffer stays lazy: it
+        is made, in the new dtype, with the next gradient."""
+        self.dtype = dtype
+        if self._nd is None:
+            return
+        with torch.no_grad():
+            data = self._nd._data.detach().to(torch_dtype(dtype))
+        self._bind(torch.nn.Parameter(data, requires_grad=False))
+
     def _sync_device(self):
         """After ``Module._apply`` (``.to()``, ``.float()``...): rebind to
         the owner's tensor if torch replaced it, and move the gradient

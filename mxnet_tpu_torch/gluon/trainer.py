@@ -6,15 +6,24 @@ ported; with one device there is nothing to reduce."""
 from __future__ import annotations
 
 from .. import optimizer as opt_mod
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
 
+_STEPS_TOTAL = _telemetry.counter(
+    "mxnet_trainer_steps_total", "Trainer.step calls (telemetry=True)")
+
 
 class Trainer:
+    """``telemetry=True`` attributes each ``step()`` to the telemetry step
+    timeline, as the reference's Trainer does: gradient sync as the
+    ``collectives`` phase, the parameter update as ``optimizer`` (see
+    :mod:`mxnet_tpu_torch.telemetry`).  Off by default."""
+
     def __init__(self, params, optimizer, optimizer_params=None,
-                 kvstore="device"):
+                 kvstore="device", telemetry=False):
         if isinstance(params, (dict, ParameterDict)):
             params = list(params.values())
         if not isinstance(params, (list, tuple)):
@@ -37,6 +46,7 @@ class Trainer:
                                              **(optimizer_params or {}))
         self._updater = opt_mod.get_updater(self._optimizer)
         self._scale = self._optimizer.rescale_grad
+        self._telemetry = bool(telemetry)
 
     @property
     def learning_rate(self):
@@ -52,7 +62,12 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """Update every parameter from its gradient, scaled by
         1 / batch_size (reference: Trainer.step)."""
-        self.update(batch_size, ignore_stale_grad)
+        if self._telemetry:
+            _STEPS_TOTAL.inc()
+        with _telemetry.maybe_phase(self._telemetry, "collectives"):
+            self.allreduce_grads()
+        with _telemetry.maybe_phase(self._telemetry, "optimizer"):
+            self.update(batch_size, ignore_stale_grad)
 
     def allreduce_grads(self):
         """Sum gradients across devices: the identity on one device."""

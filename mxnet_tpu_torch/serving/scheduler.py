@@ -66,7 +66,7 @@ class Request:
     __slots__ = ("id", "prompt", "max_new_tokens", "temperature", "eos_id",
                  "deadline", "submitted", "first_token_t", "finished_t",
                  "tokens", "error", "_done", "prefills", "seed",
-                 "finish_reason")
+                 "finish_reason", "trace", "on_resolve")
 
     def __init__(self, prompt, max_new_tokens=16, temperature=0.0,
                  eos_id=None, deadline_ms=None, seed=0):
@@ -91,6 +91,12 @@ class Request:
         self.prefills = 0     # > 1: the sequence was evicted + re-prefilled
         self.seed = int(seed)
         self.finish_reason = None   # "stop" (eos) | "length" (caps)
+        # the engine attaches a RequestTrace at submit (serving/tracing.py)
+        # and an on_resolve hook that files the finished trace: every
+        # resolution path (finish, deadline, drain, step failure) goes
+        # through resolve(), so one hook sees them all
+        self.trace = None
+        self.on_resolve = None
 
     def full_ids(self):
         """Prompt plus everything generated so far: the prefill input of a
@@ -101,9 +107,15 @@ class Request:
             [self.prompt, np.asarray(self.tokens, dtype=np.int32)])
 
     # -- engine side -------------------------------------------------------
-    def resolve(self, error=None):
+    def resolve(self, error=None, now=None):
         self.error = error
-        self.finished_t = time.monotonic()
+        self.finished_t = time.monotonic() if now is None else now
+        hook = self.on_resolve
+        if hook is not None:
+            try:
+                hook(self)
+            except Exception:   # tracing must never fail a request
+                pass
         self._done.set()
 
     def expired(self, now=None):
@@ -111,6 +123,9 @@ class Request:
             (now if now is not None else time.monotonic()) > self.deadline
 
     # -- caller side -------------------------------------------------------
+    def done(self):
+        return self._done.is_set()
+
     def result(self, timeout=None):
         """Block for the completion dict (raises the request's error)."""
         if not self._done.wait(timeout):
@@ -136,10 +151,12 @@ class AdmissionQueue:
 
     ``put`` raises :class:`QueueFullError` at the bound.  ``requeue``
     (eviction re-admission) is exempt from the bound: the engine already
-    accepted that work."""
+    accepted that work.  ``on_expire(req)`` fires for every request whose
+    deadline lapses in the queue (the engine counts these)."""
 
-    def __init__(self, bound):
+    def __init__(self, bound, on_expire=None):
         self._bound = int(bound)
+        self._on_expire = on_expire
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._items: list = []
@@ -171,6 +188,10 @@ class AdmissionQueue:
             while self._items:
                 req = self._items.pop(0)
                 if req.expired(now):
+                    if req.trace is not None:
+                        req.trace.event("deadline_expired", where="queue")
+                    if self._on_expire is not None:
+                        self._on_expire(req)
                     req.resolve(DeadlineExceededError(
                         f"request {req.id} expired after "
                         f"{now - req.submitted:.3f}s in queue"))

@@ -24,8 +24,14 @@ port and fails the planted faults (the GQA fold, the rope sign), the remat
 step equals the plain one, the bf16 check fails the rope fault, and the
 MoE check holds its step and sees the aux loss move the router.
 The new entry points raise without a card unless asked for the CPU.
+
+Serving over HTTP (phase 4b): the client's checks pass a correct port
+and fail a route that drops a token and a drain that serves the queued
+request instead of rejecting it.
 """
 import contextlib
+import json
+import time
 
 import numpy as np
 import pytest
@@ -92,6 +98,92 @@ def test_fp32_serving_check_catches_paging_faults(fault, monkeypatch):
             chip_smoke.check_fp32_run(port_llama, port_fa, net, prompts,
                                       temps, results, rows)
     assert port_llama.flash_attention is port_fa.flash_attention
+
+
+# -- phase 4b: serve() over HTTP -------------------------------------------------
+def _route_dropping_a_token(original):
+    def route(self, method, path, query, body):
+        status, ctype, payload = original(self, method, path, query, body)
+        if status == 200:
+            doc = json.loads(payload)
+            doc["token_ids"] = doc["token_ids"][:-1]
+            payload = json.dumps(doc).encode()
+        return status, ctype, payload
+    return route
+
+
+def _step_admitting_after_stop(self):
+    """ServingEngine._step without its stop check: queued work is served
+    after a stop instead of rejected."""
+    did = False
+    while len(self._active) < self._max_batch:
+        req = self._queue.pop_ready()
+        if req is None:
+            break
+        admitted = self._timed("prefill", self._admit, req)
+        did = True
+        if not admitted:
+            break
+    if self._active:
+        self._timed("decode", self._decode_step)
+        did = True
+    self._publish_gauges()
+    return did
+
+
+@pytest.mark.parametrize("fault", [None, "drop_token", "serve_queued"])
+def test_http_phase_checks_catch_planted_faults(fault, monkeypatch):
+    """Phase 4b's client and checks on llama_tiny (fp32, rows held by the
+    fp32 check), with lifecycle.request_stop for the SIGTERM and no signal
+    handlers: a correct port passes, a route that drops a token and a
+    drain that serves the queued request fail."""
+    from mxnet_tpu_torch import lifecycle
+
+    net = port_llama.init_random_(port_llama.llama_tiny(device="cpu"), 0)
+    r = np.random.RandomState(1)
+    prompts = [r.randint(0, net.config.vocab_size, (int(n),))
+               .astype(np.int32) for n in (20, 37, 50, 61)]
+    temps = [0.0, 0.8, 0.0, 0.0]
+    monkeypatch.setattr(chip_smoke, "MAX_NEW", 6)
+    monkeypatch.setattr(chip_smoke, "N_REQUESTS", len(prompts))
+    monkeypatch.setattr(chip_smoke, "HTTP_TIMEOUT", 120)
+    monkeypatch.setattr(ServingEngine, "_MAX_CONSEC_STEP_FAILURES", 5)
+    decode = ServingEngine._decode_body
+
+    def slow_decode(self, *args):       # the drain's request stays in flight
+        time.sleep(0.01)
+        return decode(self, *args)
+
+    monkeypatch.setattr(ServingEngine, "_decode_body", slow_decode)
+    if fault == "drop_token":
+        monkeypatch.setattr(
+            ServingEngine, "_http_completions",
+            _route_dropping_a_token(ServingEngine._http_completions))
+    elif fault == "serve_queued":
+        monkeypatch.setattr(ServingEngine, "_step",
+                            _step_admitting_after_stop)
+    engine_kw = dict(batch_buckets=[1, 2, 4], prefill_buckets=[32, 64],
+                     kv_pages=64, page_size=8, max_batch=4)
+
+    def run():
+        return chip_smoke.http_phase(
+            net, engine_kw, prompts, temps, 0, port_fa._flash_fwd_cuda,
+            lambda res, rows: chip_smoke.check_fp32_run(
+                port_llama, port_fa, net, prompts, temps, res, rows),
+            stop=lambda: lifecycle.request_stop("test stop"),
+            install_signals=False, device="cpu", drain_tokens=120)
+
+    if fault is None:
+        out = run()
+        assert out["rc"] == lifecycle.EXIT_PREEMPTED
+        assert [len(r["token_ids"]) for r in out["results"]] == [6] * 4
+        assert out["launches"] == 0          # no kernel on the CPU
+    else:
+        with pytest.raises(SystemExit, match="CHECK FAILED"):
+            run()
+    assert not lifecycle.stop_requested()
+    from mxnet_tpu_torch import telemetry
+    assert telemetry._HTTP_SERVER is None
 
 
 # -- the training checks -------------------------------------------------------

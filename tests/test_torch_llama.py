@@ -258,3 +258,88 @@ def test_sequential_decode_matches_full_context(nets):
         step = port.decode_step(ids[:, t], cache).numpy()
         np.testing.assert_allclose(step, full[:, t], rtol=0, atol=ATOL)
     assert cache["len"] == 10
+
+
+# -- net.cast (ROADMAP C6): the reference's route to a bf16 net ------------
+# tests/test_llm.py::test_llama_incremental_decode_amp_bf16_tolerance pins
+# AMP bf16 logits to 0.05 x max|logit| of the full-context forward
+AMP_BF16_BOUND = 0.05
+
+
+def _fresh_pair():
+    """A reference llama_tiny and a port net carrying its weights."""
+    ref = ref_llama.llama_tiny()
+    ref.initialize()
+    ref(nd.zeros((1, 8), dtype="int32"))
+    port = port_llama.llama_tiny(device="cpu")
+    port_llama.load_reference_params(
+        port, {k: np.asarray(v)
+               for k, v in ref_llama.serving_params(ref).items()})
+    return ref, port
+
+
+def _param_dtypes(net, port):
+    return {name: (str(p.data()._data.dtype).replace("torch.", "")
+                   if port else str(p.data().dtype))
+            for name, p in net._collect_params_with_prefix().items()}
+
+
+def test_config_dtype_is_a_port_extension_the_reference_ignores():
+    ref = ref_llama.llama_tiny(dtype="bfloat16")
+    ref.initialize()
+    ref(nd.zeros((1, 8), dtype="int32"))
+    assert set(_param_dtypes(ref, port=False).values()) == {"float32"}
+    port = port_llama.llama_tiny(device="cpu", dtype="bfloat16")
+    assert set(_param_dtypes(port, port=True).values()) == {"bfloat16"}
+
+
+def test_cast_bfloat16_matches_reference_under_amp():
+    """The test_llm.py case in both packages: net.cast("bfloat16") gives
+    the same parameter dtypes, and under AMP bf16 the port's full-context
+    logits lie within the pinned bound of the reference's, and the port's
+    own decode within it of its full-context forward."""
+    from mxnet_tpu.contrib import amp as ref_amp
+    from mxnet_tpu_torch.contrib import amp as port_amp
+
+    ref, port = _fresh_pair()
+    ref.cast("bfloat16")
+    port.cast("bfloat16")
+    ref_dt, port_dt = _param_dtypes(ref, False), _param_dtypes(port, True)
+    assert ref_dt == port_dt and set(port_dt.values()) == {"bfloat16"}
+    assert port.dtype == torch.bfloat16
+    ids = _ids(2, 2, 10)
+    ref_amp.init("bfloat16")
+    port_amp.init("bfloat16")
+    try:
+        want = ref(nd.array(ids, dtype="int32")).asnumpy().astype("f")
+        with torch.no_grad():
+            full = port(torch.from_numpy(ids)).float().numpy()
+        cache = port.init_decode_cache(2, max_len=16)
+        port.prefill(ids[:, :4], cache)
+        steps = [port.decode_step(ids[:, t], cache).float().numpy()
+                 for t in range(4, 10)]
+    finally:
+        ref_amp.disable()
+        port_amp.disable()
+    scale = np.abs(want).max()
+    assert np.abs(full - want).max() <= AMP_BF16_BOUND * scale
+    for t, step in zip(range(4, 10), steps):
+        assert np.abs(step - full[:, t]).max() <= AMP_BF16_BOUND * scale, \
+            f"position {t}"
+
+
+def test_cast_rebinds_in_place_and_leaves_gradient_buffers_lazy():
+    _, port = _fresh_pair()
+    before = port.lm_head.weight.data()._data.clone()
+    ids = torch.from_numpy(_ids(3, 1, 6))
+    port(ids).float().sum().backward()
+    assert port.lm_head.weight.data()._data.grad is not None
+    port.cast("bfloat16")
+    w = port.lm_head.weight
+    assert w.dtype == "bfloat16" and w.data()._grad is None
+    assert port._parameters == {} and \
+        port.lm_head._parameters["weight"] is w.data()._data
+    assert torch.equal(w.data()._data, before.to(torch.bfloat16))
+    port(ids).float().sum().backward()
+    grad = w.data()._data.grad
+    assert grad.dtype == torch.bfloat16 and grad.abs().sum() > 0
