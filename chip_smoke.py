@@ -34,8 +34,25 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    the flight recorder's black box, and a SIGTERM with one request in
    flight and one queued (the first finishes, the second is rejected,
    serve() returns 43), with TTFT, latency and decode tokens/s beside
-   phase 4's; then the same weights upcast to fp32 and served again,
-   every logits row held to FP32_LOGIT_TOL;
+   phase 4's; 4c: the same net behind ``serve_fleet`` in local mode, two
+   replicas on the card, the second ``ServingEngine.join_replica`` of the
+   first (every parameter's storage the donor's; the card's memory grows
+   by its KV pool, at most 10% more), the 8 requests POSTed at once to the
+   router (every answer 32 tokens, each delivered once, both replicas
+   healthy and serving, every sampled logits row of each engine held as
+   in 4, flash_attn_fwd launched layers x prefills summed over the
+   replicas), then ``replica.crash`` armed once mid-load (every request
+   answered exactly once, the crashed replica reaped and freed, a
+   ``join_replica`` replacement that serves, the card back at the
+   two-replica level) and a SIGTERM (``serve_fleet`` returns 43); then
+   the same weights upcast to fp32 and served again, every logits row
+   held to FP32_LOGIT_TOL; 4c (3): the parent's nets freed, a process
+   fleet of two children of this script (``--fleet-replica``: the same
+   net from the seed, ``serve(net, port=0)``), one SIGKILLed mid-load
+   (every request answered exactly once, the death noted by the first
+   health sweep after the child's exit, a cold replacement that serves)
+   and a SIGTERM that drains both children (43 each) and makes
+   ``serve_fleet`` return 43;
 5. training: ResNet-50 v1 at full width (1000 classes, 224x224, NHWC,
    random weights from --seed, a synthetic batch from --seed as bench.py
    makes it).  One TrainStep step at batch 8 on the card against the same
@@ -84,7 +101,7 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    configuration timed the same way, and the attention at its shape beside
    SDPA's forward and backward;
 8. the kernels line (its times and launches at the main path's shape,
-   serving over HTTP;
+   the serving fleet, 4c;
    each path's shape, times and launches under ``by_path``), then the
    device line.
 """
@@ -189,6 +206,7 @@ BUCKET_SHAPES = [SERVING_SHAPE,
 BERT_SHAPE = (64, 12, 12, 128, 128, 64, False, True)
 PROXY_SHAPE = (8, 16, 8, 1024, 1024, 64, True, False)
 PATH_SHAPES = {"serving": SERVING_SHAPE, "serve_http": SERVING_SHAPE,
+               "serve_fleet": SERVING_SHAPE,
                "bert_train": BERT_SHAPE, "llama_train": SERVING_SHAPE,
                "llama_proxy_train": PROXY_SHAPE}
 KERNEL_CASES = BUCKET_SHAPES + [PROXY_SHAPE] + [
@@ -324,7 +342,7 @@ def kernel_phase(gen):
                              "plain_ms": plain_ms, "bound_ms": bound,
                              "bound_by": bound_by, "library_ms": lib_ms}
         del q, k, v
-    main = by_path["serve_http"]
+    main = by_path["serve_fleet"]
     return {"name": "flash_attn_fwd", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
             "replaces": "mxnet_tpu/ops/flash_attention.py:68",
@@ -382,6 +400,9 @@ def build_checks(kernels):
 # ---------------------------------------------------------------------------
 N_REQUESTS = 8
 MAX_NEW = 32
+SERVING_ENGINE_KW = dict(batch_buckets=[1, 2, 4, 8],
+                         prefill_buckets=[128, 512, 2048], kv_pages=2048,
+                         page_size=16, max_batch=8)
 
 
 def make_prompts(seed, vocab):
@@ -945,6 +966,529 @@ def http_phase(net, engine_kw, prompts, temps, seed, counter, check_rows,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4c: the serving fleet, a router over engine replicas
+# ---------------------------------------------------------------------------
+FLEET_PROBE_MS = 250        # the router's health-probe period (the default)
+FLEET_DEADLINE_MS = 600_000  # every fleet request's deadline
+# hedging off: a 32-token answer at these widths takes seconds, so at the
+# default 50 ms floor every request would be sent to both replicas
+FLEET_HEDGE_MS = 3_600_000
+FLEET_DISPATCHERS = 16      # requests the router has in flight at most
+FLEET_WAIT = 600            # seconds: every wait for a replica to change
+FLEET_MEM_SLACK = 0.10      # a join may add its KV pool and this share more
+FLEET_WAKE_S = 0.05         # the health thread's wake-up, on a loaded host
+
+
+def metric_total(name, field="value", **labels):
+    """The sum of ``field`` over the samples of one telemetry family whose
+    labels include ``labels`` (0 when it has none yet)."""
+    from mxnet_tpu_torch import telemetry
+
+    fam = telemetry.snapshot()["metrics"].get(name, {"samples": []})
+    return sum(s[field] for s in fam["samples"]
+               if all(s["labels"].get(k) == v for k, v in labels.items()))
+
+
+def fleet_post(port, prompt, max_new, temperature=0.0):
+    """(status, body, client seconds) of one completion through the
+    router."""
+    t0 = time.perf_counter()
+    status, res = http_call(port, "/v1/completions", {
+        "prompt": [int(t) for t in prompt], "max_new_tokens": max_new,
+        "temperature": temperature, "deadline_ms": FLEET_DEADLINE_MS})
+    return status, res, time.perf_counter() - t0
+
+
+def fleet_answers(calls, n_tokens, what):
+    """Join the POST threads; every answer a 200 with ``n_tokens`` tokens
+    and finish ``length``, each fleet request id once."""
+    answers = [joined(*c) for c in calls]
+    for status, res, _ in answers:
+        check(status == 200, f"{what}: the router answered {status}: {res}")
+        check(len(res["token_ids"]) == n_tokens
+              and res["finish_reason"] == "length",
+              f"{what}: fleet request {res['fleet']['request_id']} came "
+              f"back with {len(res['token_ids'])} tokens, finish "
+              f"{res['finish_reason']}; expected {n_tokens}, length")
+    ids = [res["fleet"]["request_id"] for _, res, _ in answers]
+    check(len(set(ids)) == len(ids),
+          f"{what}: a fleet request id was answered twice: {ids}")
+    return answers
+
+
+def fleet_delivery(answers, ok0, dup0, resub0, what):
+    """Every answer delivered exactly once: the router's successful
+    dispatches since ``ok0`` equal the answers; each late completion the
+    ledger dropped belongs to a request attempted more than once; the
+    resubmit counter agrees with the answers.  Returns (attempts beyond
+    one, duplicates suppressed, resubmits)."""
+    ok = int(metric_total("mxnet_fleet_dispatches_total", outcome="ok")
+             - ok0)
+    dup = int(metric_total("mxnet_fleet_duplicates_suppressed_total") - dup0)
+    resub = int(metric_total("mxnet_fleet_resubmits_total") - resub0)
+    extra = sum(res["fleet"]["attempts"] - 1 for _, res, _ in answers)
+    check(ok == len(answers),
+          f"{what}: the router delivered {ok} completions for "
+          f"{len(answers)} requests")
+    check(dup <= extra,
+          f"{what}: {dup} duplicate completions suppressed, more than the "
+          f"{extra} repeated attempts")
+    check(resub == sum(res["fleet"]["resubmits"] for _, res, _ in answers),
+          f"{what}: {resub} resubmits counted, the answers carry "
+          f"{sum(res['fleet']['resubmits'] for _, res, _ in answers)}")
+    return extra, dup, resub
+
+
+def fleet_homed_on(rid, rids, prompts):
+    """A prompt (a slice of one of ``prompts``) whose affinity home among
+    ``rids`` is ``rid``."""
+    from mxnet_tpu_torch.serving.fleet import prefix_key, rendezvous_order
+
+    for p in prompts:
+        for j in range(0, min(64, len(p)), 4):
+            cand = p[j:j + 64]
+            if rendezvous_order(prefix_key(cand), sorted(rids))[0] == rid:
+                return cand
+    check(False, f"no prompt has its affinity home on {rid}")
+
+
+def fleet_served_by(port):
+    """{fleet request id: (replica id, the grafted replica trace's id)}
+    from the router's request traces."""
+    status, doc = http_call(port, "/v1/requests")
+    check(status == 200, f"/v1/requests answered {status}")
+    out = {}
+    for item in doc["requests"]:
+        for span in item["tree"]["children"]:
+            if span["name"] == "dispatch":
+                tree = span["attrs"]["replica_trace"]
+                out[item["trace_id"]] = (span["attrs"]["replica"],
+                                         tree["trace_id"])
+    return out
+
+
+def fleet_local_checks(router, port, state, prompts, temps, counter, stop):
+    """4c (1) and (2), run on their own thread while ``serve_fleet`` holds
+    the main thread.  Returns the figures and, per engine, the indices of
+    the prompts it answered, its answers and the logits rows it sampled
+    from.  It holds no engine beyond part (1): the reaped one must be
+    freed."""
+    import gc
+
+    from mxnet_tpu_torch import fault
+
+    out = {}
+    check(http_call(port, "/healthz")[0] == 200, "/healthz did not answer")
+    rids = [r.rid for r in router.replicas()]
+    check(rids == ["replica-1", "replica-2"], f"the fleet started with {rids}")
+    join = state["joins"][0]
+    check(join["shared"], "join_replica did not share the donor's weights "
+                          "(a parameter's storage differs)")
+    if join["grew"] is not None:
+        check(join["kv"] <= join["grew"] <= (1 + FLEET_MEM_SLACK) * join["kv"],
+              f"the join added {join['grew'] / 2**30:.3f} GiB to the card; "
+              f"its KV pool is {join['kv'] / 2**30:.3f} GiB (bound "
+              f"{1 + FLEET_MEM_SLACK:.2f} x)")
+
+    # (1) the 8 requests of phase 4 at once through the router
+    counter.launches = 0
+    counter.launches_by_len = {}
+    ok0 = metric_total("mxnet_fleet_dispatches_total", outcome="ok")
+    dup0 = metric_total("mxnet_fleet_duplicates_suppressed_total")
+    resub0 = metric_total("mxnet_fleet_resubmits_total")
+    dec0 = phase_totals()["decode"]
+    if state["on_card"]:
+        torch.cuda.reset_peak_memory_stats()
+    engines = [r.engine for r in router.replicas()]
+    t0 = time.perf_counter()
+    with recorded_rows(engines[0]) as rows1, \
+            recorded_rows(engines[1]) as rows2:
+        answers = fleet_answers(
+            [in_thread(fleet_post, port, p, MAX_NEW, t)
+             for p, t in zip(prompts, temps)], MAX_NEW, "fleet (1)")
+    out["wall_s"] = time.perf_counter() - t0
+    del engines
+    out["launches"] = counter.launches
+    out["launches_by_len"] = dict(sorted(counter.launches_by_len.items()))
+    out["decode_s"] = phase_totals()["decode"] - dec0
+    if state["on_card"]:
+        out["peak"] = torch.cuda.max_memory_allocated()
+    fleet_delivery(answers, ok0, dup0, resub0, "fleet (1)")
+    for _, res, _ in answers:
+        check(res["fleet"]["attempts"] == 1 and res["fleet"]["hedges"] == 0,
+              f"fleet (1): request {res['fleet']} was not served by one "
+              f"dispatch")
+    status, doc = http_call(port, "/v1/fleet")
+    states = [r["health"]["state"] for r in doc["replicas"]]
+    check(status == 200 and states == ["healthy", "healthy"],
+          f"/v1/fleet after the completions: {status} {states}")
+    check(metric_total("mxnet_serving_join_to_first_token_seconds",
+                       "count") == state["j0"][0] + 1,
+          "replica 2's first token did not stop its join clock")
+    out["first_join_s"] = metric_total(
+        "mxnet_serving_join_to_first_token_seconds", "sum") - state["j0"][1]
+    served = fleet_served_by(port)
+    by_replica = {}
+    for i, (_, res, _) in enumerate(answers):
+        rid, eng_trace = served[res["fleet"]["request_id"]]
+        check(eng_trace == res["fleet"]["request_id"],
+              f"the replica's trace of fleet request {res['fleet']} is "
+              f"{eng_trace}")
+        by_replica.setdefault(rid, []).append((i, res))
+    check(sorted(by_replica) == ["replica-1", "replica-2"],
+          f"not both replicas served: {sorted(by_replica)}")
+    out["results"] = [res for _, res, _ in answers]
+    out["client_s"] = [dt for _, _, dt in answers]
+    out["per_engine"] = [
+        ([i for i, _ in by_replica[rid]], [r for _, r in by_replica[rid]],
+         rows) for rid, rows in (("replica-1", rows1), ("replica-2", rows2))]
+    if state["on_card"]:
+        torch.cuda.synchronize()
+        out["mem_two"] = torch.cuda.memory_allocated()
+
+    # (1b) the same requests with each replica on a device turn of its own:
+    # the two loops contend for the GIL op by op, the contrast that the
+    # engines' shared turn is measured against
+    shared = [(r.engine, r.engine._turn) for r in router.replicas()]
+    for eng, _ in shared:
+        eng._turn = threading.Lock()
+    t0 = time.perf_counter()
+    own = fleet_answers(
+        [in_thread(fleet_post, port, p, MAX_NEW, t)
+         for p, t in zip(prompts, temps)], MAX_NEW, "fleet (1b)")
+    out["own_turns_wall_s"] = time.perf_counter() - t0
+    out["own_turns_tokens"] = sum(len(r["token_ids"]) - r["prefills"]
+                                  for _, r, _ in own)
+    for eng, turn in shared:
+        eng._turn = turn
+    del shared, eng
+
+    # (2) a replica crashes mid-load: 4 requests in flight, then
+    # replica.crash armed once and 4 more, the first of which takes its
+    # replica down; the manager reaps it and joins a replacement
+    ok0 = metric_total("mxnet_fleet_dispatches_total", outcome="ok")
+    dup0 = metric_total("mxnet_fleet_duplicates_suppressed_total")
+    resub0 = metric_total("mxnet_fleet_resubmits_total")
+    trips0 = fault.stats()["replica.crash"]["trips"]
+    first = [in_thread(fleet_post, port, p, MAX_NEW) for p in prompts[:4]]
+    wait_until(lambda: sum(r.inflight_count() for r in router.replicas())
+               == 4, "the first 4 requests on the replicas")
+    with fault.inject("replica.crash", times=1):
+        rest = [in_thread(fleet_post, port, p, MAX_NEW) for p in prompts[4:]]
+        wait_until(lambda: fault.stats()["replica.crash"]["trips"]
+                   == trips0 + 1, "the replica crash", timeout=FLEET_WAIT)
+    answers2 = fleet_answers(first + rest, MAX_NEW, "fleet (2)")
+    extra, dup, resub = fleet_delivery(answers2, ok0, dup0, resub0,
+                                       "fleet (2)")
+    check(extra + resub > 0, "fleet (2): the crash moved no request")
+    manager = router._manager
+    wait_until(lambda: len(router.replicas()) == 2
+               and any(k == "replacement" for _, k, _ in manager.spawn_times),
+               "the replacement replica", timeout=FLEET_WAIT)
+    now = [r.rid for r in router.replicas()]
+    dead = [rid for rid in rids if rid not in now]
+    check(len(dead) == 1 and "replica-3" in now,
+          f"fleet (2): after the heal the fleet is {now}")
+    rids = now
+    check(len(state["joins"]) == 2 and state["joins"][1]["shared"],
+          "the replacement's join did not share the donor's weights")
+    out["spawn_s"] = [dt for _, _, dt in manager.spawn_times]
+    # the replacement's first token stops its join clock
+    j0 = metric_total("mxnet_serving_join_to_first_token_seconds", "count")
+    js0 = metric_total("mxnet_serving_join_to_first_token_seconds", "sum")
+    probe = fleet_homed_on("replica-3", rids, prompts)
+    status, res, _ = fleet_post(port, probe, 8)
+    check(status == 200 and len(res["token_ids"]) == 8,
+          f"the request homed on the replacement: {status} {res}")
+    check(fleet_served_by(port)[res["fleet"]["request_id"]][0] == "replica-3",
+          "the request homed on the replacement went elsewhere")
+    check(metric_total("mxnet_serving_join_to_first_token_seconds", "count")
+          == j0 + 1, "the replacement's first token did not stop its "
+                     "join clock")
+    out["join_s"] = [out.pop("first_join_s"),
+                     metric_total("mxnet_serving_join_to_first_token_seconds",
+                                  "sum") - js0]
+    # the reaped engine is gone, its pool back on the card
+    gone = state["engines"][dead[0]]
+    wait_until(lambda: gone() is None or not gone().running(),
+               "the reaped engine's loop", timeout=60)
+    gc.collect()
+    check(gone() is None, f"the reaped replica {dead[0]}'s engine is still "
+                          f"referenced")
+    if state["on_card"]:
+        torch.cuda.synchronize()
+        out["mem_healed"] = torch.cuda.memory_allocated()
+        check(abs(out["mem_healed"] - out["mem_two"]) <= 0.02 * join["kv"],
+              f"after the heal the card holds "
+              f"{out['mem_healed'] / 2**30:.3f} GiB, with two replicas "
+              f"{out['mem_two'] / 2**30:.3f} GiB")
+    out["crash"] = {"dead": dead[0], "extra_attempts": extra,
+                    "duplicates": dup, "resubmits": resub}
+    stop()
+    return out
+
+
+def fleet_local_phase(net, engine_kw, prompts, temps, counter, check_rows,
+                      stop=None, install_signals=True, device=None):
+    """Phase 4c (1) and (2): ``serve_fleet`` in local mode on this (the
+    main) thread, replica 1 a ServingEngine, replica 2 and every
+    replacement ``ServingEngine.join_replica`` on a live replica; driven
+    over HTTP from a thread that ``on_ready`` starts.  ``check_rows(idx,
+    results, rows)`` holds the logits rows one engine sampled from for the
+    prompts ``idx`` it answered; ``stop()`` (SIGTERM to this process by
+    default) must drain the fleet and make ``serve_fleet`` return 43."""
+    import weakref
+
+    from mxnet_tpu_torch import fault, flight_recorder, lifecycle, telemetry
+    from mxnet_tpu_torch.serving import ServingEngine
+    from mxnet_tpu_torch.serving.fleet import serve_fleet
+
+    if stop is None:
+        def stop():
+            os.kill(os.getpid(), signal.SIGTERM)
+    for plane in (lifecycle, telemetry, flight_recorder):
+        plane.reset()
+    fault.reload_spec()
+    fault.reset_stats()
+    on_card = torch.device(device or "cuda").type == "cuda"
+    state = {"on_card": on_card, "engines": {}, "joins": [],
+             "j0": (metric_total("mxnet_serving_join_to_first_token_seconds",
+                                 "count"),
+                    metric_total("mxnet_serving_join_to_first_token_seconds",
+                                 "sum"))}
+
+    def factory(rid, donor):
+        live = [e() for e in state["engines"].values()]
+        live = [e for e in live if e is not None and e.running()]
+        donor = donor or (live[0] if live else None)
+        if donor is None:
+            eng = ServingEngine(net, device=device, **engine_kw).start()
+        else:
+            if on_card:
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+            eng = ServingEngine.join_replica(net, donor, device=device,
+                                             **engine_kw).start()
+            grew = None
+            if on_card:
+                torch.cuda.synchronize()
+                grew = torch.cuda.memory_allocated() - before
+            state["joins"].append({
+                "rid": rid, "kv": eng._kv.nbytes(), "grew": grew,
+                "shared": set(eng._params) == set(donor._params) and all(
+                    eng._params[k].data_ptr() == v.data_ptr()
+                    for k, v in donor._params.items())})
+        state["engines"][rid] = weakref.ref(eng)
+        return eng
+
+    client = []
+
+    def on_ready(router, port):
+        def drive():
+            try:
+                return fleet_local_checks(router, port, state, prompts,
+                                          temps, counter, stop)
+            except BaseException:
+                lifecycle.request_stop("phase 4c client failed")
+                raise
+        client.extend(in_thread(drive))
+
+    try:
+        rc = serve_fleet(engine_factory=factory, replicas=2, port=0,
+                         install_signals=install_signals, on_ready=on_ready,
+                         hedge_ms=FLEET_HEDGE_MS,
+                         dispatchers=FLEET_DISPATCHERS,
+                         probe_interval_ms=FLEET_PROBE_MS)
+        out = joined(*client)
+    finally:
+        telemetry.stop_http_server()
+        lifecycle.reset()
+    check(rc == lifecycle.EXIT_PREEMPTED,
+          f"serve_fleet returned {rc} after the stop, expected "
+          f"{lifecycle.EXIT_PREEMPTED}")
+    for rid, ref in state["engines"].items():
+        eng = ref()
+        check(eng is None or (not eng.running() and eng._kv.k_pool is None),
+              f"{rid}'s engine outlived the fleet's drain with its pool")
+    for idx, results, rows in out.pop("per_engine"):
+        check_rows(idx, results, rows)
+    out["rc"] = rc
+    return out
+
+
+def fleet_replica_main(args):
+    """A child of 4c's process-mode fleet: the Llama-3-8B-width bf16 net
+    from the seed on the card, served by ``serving.serve(net, port=0)``
+    (its banner is the fleet manager's readiness signal) until a SIGTERM
+    drains it (exit 43).  Its stderr goes to ``args.fleet_replica_log``."""
+    from mxnet_tpu_torch.gluon.model_zoo.language import llama as llama_mod
+    from mxnet_tpu_torch.serving import serve
+
+    if args.fleet_replica_log:
+        fd = os.open(args.fleet_replica_log,
+                     os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+        os.dup2(fd, 2)
+        os.close(fd)
+    net = llama_mod.init_random_(llama_mod.llama3_8b(dtype="bfloat16"),
+                                 args.seed)
+    return serve(net, port=0, **SERVING_ENGINE_KW)
+
+
+def fleet_process_checks(router, port, prompts, stop, n_tokens):
+    """4c (3), on its own thread while ``serve_fleet`` holds the main
+    thread: the requests at once, one child SIGKILLed while it has work in
+    flight, every request answered exactly once, the death seen by the
+    first health sweep after the child's exit, a cold replacement that
+    serves, then ``stop()``."""
+    out = {}
+    check(http_call(port, "/healthz")[0] == 200, "/healthz did not answer")
+    children = router.replicas()
+    check([c.rid for c in children] == ["replica-1", "replica-2"],
+          f"the process fleet started with {[c.rid for c in children]}")
+    victim = children[0]
+    monitor = router._monitor
+    sweeps, seen = [], {}
+    poll_once, fire_dead = monitor.poll_once, monitor._fire_dead
+
+    def timed_sweep():
+        t0 = time.monotonic()
+        try:
+            poll_once()
+        finally:
+            sweeps.append(time.monotonic() - t0)
+
+    def noted_death(replica):
+        seen.setdefault(replica.rid, time.monotonic())
+        fire_dead(replica)
+
+    monitor.poll_once, monitor._fire_dead = timed_sweep, noted_death
+    exited = {}
+
+    def wait_exit():
+        victim.proc.wait()
+        exited["t"] = time.monotonic()
+
+    ok0 = metric_total("mxnet_fleet_dispatches_total", outcome="ok")
+    dup0 = metric_total("mxnet_fleet_duplicates_suppressed_total")
+    resub0 = metric_total("mxnet_fleet_resubmits_total")
+    t0 = time.perf_counter()
+    calls = [in_thread(fleet_post, port, p, n_tokens) for p in prompts]
+    wait_until(lambda: victim.inflight_count() > 0,
+               "work in flight on the victim")
+    waiter = threading.Thread(target=wait_exit, daemon=True)
+    waiter.start()
+    victim.kill()
+    answers = fleet_answers(calls, n_tokens, "process fleet")
+    out["wall_s"] = time.perf_counter() - t0
+    extra, dup, resub = fleet_delivery(answers, ok0, dup0, resub0,
+                                       "process fleet")
+    check(extra + resub > 0, "process fleet: the SIGKILL moved no request")
+    waiter.join(60)
+    check("t" in exited and victim.proc.returncode == -signal.SIGKILL,
+          f"the victim's exit: {victim.proc.returncode}")
+    wait_until(lambda: victim.rid in seen, "the victim's death noted",
+               timeout=60)
+    # the first sweep that starts after the exit notes it: at most one
+    # probe interval after the sweep in progress ends
+    lag = seen[victim.rid] - exited["t"]
+    allowed = FLEET_PROBE_MS / 1e3 + max(sweeps) + FLEET_WAKE_S
+    check(lag <= allowed,
+          f"the victim's death was noted {lag:.3f} s after its exit; one "
+          f"probe interval plus the longest sweep and the thread's wake-up "
+          f"is {allowed:.3f} s")
+    out["lag_s"], out["sweep_s"] = lag, max(sweeps)
+    manager = router._manager
+    wait_until(lambda: len(router.replicas()) == 2
+               and any(k == "replacement" for _, k, _ in manager.spawn_times),
+               "the replacement child", timeout=FLEET_WAIT)
+    rids = [r.rid for r in router.replicas()]
+    check(rids == ["replica-2", "replica-3"],
+          f"after the heal the fleet is {rids}")
+    probe = fleet_homed_on("replica-3", rids, prompts)
+    status, res, _ = fleet_post(port, probe, 8)
+    check(status == 200 and len(res["token_ids"]) == 8,
+          f"the request homed on the replacement: {status} {res}")
+    check(fleet_served_by(port)[res["fleet"]["request_id"]][0] == "replica-3",
+          "the request homed on the replacement went elsewhere")
+    out["spawn_s"] = list(manager.spawn_times)
+    out["results"] = [res for _, res, _ in answers]
+    out["client_s"] = [dt for _, _, dt in answers]
+    out["crash"] = {"extra_attempts": extra, "duplicates": dup,
+                    "resubmits": resub}
+    smi = shutil.which("nvidia-smi")
+    out["memory_used"] = subprocess.run(
+        [smi, "--query-gpu=memory.used", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip() if smi else \
+        "not measured"
+    out["children"] = router.replicas()
+    stop()
+    return out
+
+
+def fleet_process_phase(prompts, spawn_argv, stop=None, install_signals=True,
+                        n_tokens=None):
+    """Phase 4c (3): ``serve_fleet(spawn_cmd=...)`` on this thread, two
+    children each started as ``spawn_argv(rid, log_path)`` (exec, no fork;
+    each builds its own weights), driven over HTTP from a thread that
+    ``on_ready`` starts.  ``stop()`` (SIGTERM to this process by default)
+    must drain every child (exit 43) and make ``serve_fleet`` return 43.
+    Each child's stderr goes to a log whose tail is printed if the phase
+    fails."""
+    from mxnet_tpu_torch import fault, flight_recorder, lifecycle, telemetry
+    from mxnet_tpu_torch.serving.fleet import serve_fleet
+
+    if stop is None:
+        def stop():
+            os.kill(os.getpid(), signal.SIGTERM)
+    for plane in (lifecycle, telemetry, flight_recorder):
+        plane.reset()
+    fault.reload_spec()
+    fault.reset_stats()
+    client = []
+
+    def on_ready(router, port):
+        def drive():
+            try:
+                return fleet_process_checks(router, port, prompts, stop,
+                                            n_tokens or MAX_NEW)
+            except BaseException:
+                lifecycle.request_stop("phase 4c client failed")
+                raise
+        client.extend(in_thread(drive))
+
+    with tempfile.TemporaryDirectory(prefix="mxnet_fleet_") as logs:
+        def spawn_cmd(rid):
+            return spawn_argv(rid, os.path.join(logs, f"{rid}.log")), {}
+
+        try:
+            try:
+                rc = serve_fleet(spawn_cmd=spawn_cmd, replicas=2, port=0,
+                                 install_signals=install_signals,
+                                 on_ready=on_ready, hedge_ms=FLEET_HEDGE_MS,
+                                 dispatchers=FLEET_DISPATCHERS,
+                                 probe_interval_ms=FLEET_PROBE_MS)
+                out = joined(*client)
+            finally:
+                telemetry.stop_http_server()
+                lifecycle.reset()
+            check(rc == lifecycle.EXIT_PREEMPTED,
+                  f"serve_fleet returned {rc} after the stop, expected "
+                  f"{lifecycle.EXIT_PREEMPTED}")
+            codes = [c.proc.returncode for c in out.pop("children")]
+            check(codes == [43, 43],
+                  f"the children exited {codes} after the drain, expected "
+                  f"43 each")
+        except BaseException:
+            for name in sorted(os.listdir(logs)):
+                with open(os.path.join(logs, name), errors="replace") as f:
+                    tail = f.read()[-3000:]
+                log(f"  --- {name} (last 3000 bytes) ---\n{tail}")
+            raise
+    out["rc"] = rc
+    return out
+
+
 def serving_phase(seed):
     from mxnet_tpu_torch.gluon.model_zoo.language import llama as llama_mod
     from mxnet_tpu_torch.ops import flash_attention as fa_mod
@@ -961,9 +1505,7 @@ def serving_phase(seed):
         f"{cfg.num_kv_heads}, head_dim {cfg.head_dim}, ffn "
         f"{cfg.intermediate_size}, bf16, {n_params / 1e9:.3f} B params "
         f"({time.perf_counter() - t0:.1f} s to build)")
-    engine_kw = dict(batch_buckets=[1, 2, 4, 8],
-                     prefill_buckets=[128, 512, 2048], kv_pages=2048,
-                     page_size=16, max_batch=8)
+    engine_kw = SERVING_ENGINE_KW
     engine = ServingEngine(net, **engine_kw).start()
     log(f"  KV pool: {engine._kv.nbytes() / 2**30:.3f} GiB")
     prompts = make_prompts(seed, cfg.vocab_size)
@@ -1051,6 +1593,17 @@ def serving_phase(seed):
         f"drained and serve() returned {http['rc']} "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    log("== serving 4c: the same net behind serve_fleet, two local replicas "
+        "(the second joined on the first's weights)")
+    t0 = time.perf_counter()
+    fleet = fleet_local_phase(
+        net, engine_kw, prompts, temps, fa_mod._flash_fwd_cuda,
+        lambda idx, res, rows: check_bf16_run(
+            llama_mod, fa_mod, net, [prompts[i] for i in idx],
+            [temps[i] for i in idx], res, rows))
+    log_fleet_local(fleet, cfg, phase, decode_tokens, ttft, lat,
+                    time.perf_counter() - t0)
+
     log("== serving in fp32: the same weights and requests, held tight")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1067,7 +1620,96 @@ def serving_phase(seed):
     del engine
     check_fp32_run(llama_mod, fa_mod, net, prompts, temps, results32, rows32)
     log(f"  fp32 pass took {time.perf_counter() - t0:.1f} s")
-    return {"serving": launches, "serve_http": http["launches"]}
+    return {"serving": launches, "serve_http": http["launches"],
+            "serve_fleet": fleet["launches"]}
+
+
+def log_fleet_local(fleet, cfg, phase, decode_tokens, ttft, lat, secs):
+    """4c (1) and (2)'s figures beside phase 4's, and the launch check."""
+    res = fleet["results"]
+    prefills = sum(r["prefills"] for r in res)
+    check(fleet["launches"] == cfg.num_layers * prefills,
+          f"flash_attn_fwd launched {fleet['launches']} times over the "
+          f"fleet's completions, expected num_layers x prefills = "
+          f"{cfg.num_layers * prefills}")
+    mid = N_REQUESTS // 2
+    f_ttft = sorted(r["ttft_s"] for r in res)
+    f_lat = sorted(r["latency_s"] for r in res)
+    client = sorted(fleet["client_s"])
+    tokens = sum(len(r["token_ids"]) - r["prefills"] for r in res)
+    log(f"  [{gpu_line()}] {N_REQUESTS} requests, submit() (phase 4) | "
+        f"fleet (4c): TTFT p50 {ttft[mid]:.4f} | {f_ttft[mid]:.4f} s; "
+        f"latency p50 {lat[mid]:.4f} | {f_lat[mid]:.4f} s (client round "
+        f"trip through the router p50 {client[mid]:.4f} s); decode "
+        f"{decode_tokens / phase['decode']:.1f} | "
+        f"{tokens / fleet['decode_s']:.1f} tokens/s per engine loop "
+        f"(decode-phase seconds summed over the replicas); fleet aggregate "
+        f"{tokens / fleet['wall_s']:.1f} decode tokens/s over the "
+        f"{fleet['wall_s']:.3f} s wall; with a device turn per replica "
+        f"{fleet['own_turns_tokens'] / fleet['own_turns_wall_s']:.1f} "
+        f"decode tokens/s over {fleet['own_turns_wall_s']:.3f} s")
+    log(f"  flash_attn_fwd over the fleet's completions: {fleet['launches']}"
+        f" = {cfg.num_layers} layers x {prefills} prefills, summed over "
+        f"both replicas (" + ", ".join(f"{n} at {lb}" for lb, n in
+                                       fleet["launches_by_len"].items())
+        + ")")
+    gib = 2 ** 30
+    log(f"  memory: two replicas {fleet['mem_two'] / gib:.3f} GiB at rest, "
+        f"peak {fleet['peak'] / gib:.3f} GiB over the 8 requests, after "
+        f"the crash and heal {fleet['mem_healed'] / gib:.3f} GiB; spawn "
+        f"seconds " + ", ".join(f"{dt:.3f}" for dt in fleet["spawn_s"])
+        + f" (replica 1, the join, the replacement join); join to first "
+        f"token {fleet['join_s'][0]:.3f} s (replica 2), "
+        f"{fleet['join_s'][1]:.3f} s (the replacement)")
+    c = fleet["crash"]
+    log(f"  replica.crash took {c['dead']} down mid-load: 8 answers, each "
+        f"once; {c['extra_attempts']} repeated attempts, {c['resubmits']} "
+        f"resubmits, {c['duplicates']} duplicate completions suppressed; "
+        f"serve_fleet returned {fleet['rc']} after the SIGTERM "
+        f"({secs:.1f} s)")
+
+
+def fleet_process_run(seed):
+    """4c (3) on the card: the parent's nets are gone first, then two
+    children of this script at Llama-3-8B widths behind the router."""
+    import gc
+
+    from mxnet_tpu_torch.gluon.model_zoo.language.llama import LlamaConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"the parent still holds {held / 2**30:.3f} GiB on "
+                        f"the card before the process fleet")
+    prompts = make_prompts(seed, LlamaConfig().vocab_size)
+    script = os.path.abspath(__file__)
+
+    def spawn_argv(rid, log_path):
+        return [sys.executable, script, "--fleet-replica", "--seed",
+                str(seed), "--fleet-replica-log", log_path]
+
+    t0 = time.perf_counter()
+    out = fleet_process_phase(prompts, spawn_argv)
+    res = out["results"]
+    mid = len(res) // 2
+    ttft = sorted(r["ttft_s"] for r in res)
+    lat = sorted(r["latency_s"] for r in res)
+    tokens = sum(len(r["token_ids"]) - r["prefills"] for r in res)
+    spawns = ", ".join(f"{rid} {kind} {dt:.2f} s"
+                       for rid, kind, dt in out["spawn_s"])
+    c = out["crash"]
+    log(f"  [{gpu_line()}] process fleet: spawns (cold) {spawns}; "
+        f"{len(res)} requests with replica-1 SIGKILLed mid-load: each "
+        f"answered once, {c['extra_attempts']} repeated attempts, "
+        f"{c['resubmits']} resubmits, {c['duplicates']} duplicates "
+        f"suppressed; death noted {out['lag_s']:.3f} s after the exit "
+        f"(probe interval {FLEET_PROBE_MS / 1e3:.3f} s, longest sweep "
+        f"{out['sweep_s']:.3f} s); TTFT p50 {ttft[mid]:.4f} s, latency p50 "
+        f"{lat[mid]:.4f} s, {tokens / out['wall_s']:.1f} decode tokens/s "
+        f"over the {out['wall_s']:.3f} s wall; card memory used with two "
+        f"children {out['memory_used']}; SIGTERM drained both children "
+        f"(43) and serve_fleet returned {out['rc']} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 # ---------------------------------------------------------------------------
@@ -2496,6 +3138,12 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the weights, prompts and inputs")
+    parser.add_argument("--fleet-replica", action="store_true",
+                        help="serve the Llama-3-8B-width net from --seed "
+                             "until SIGTERM: a child of phase 4c's process "
+                             "fleet")
+    parser.add_argument("--fleet-replica-log", metavar="PATH",
+                        help="with --fleet-replica: where its stderr goes")
     parser.add_argument("--bert-step-seeds", type=int, nargs="+",
                         metavar="SEED",
                         help="run only the build and the BERT-base step "
@@ -2508,6 +3156,8 @@ def main():
               "card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.fleet_replica:
+        return fleet_replica_main(args)
     from mxnet_tpu_torch import _kernels
 
     t_all = time.perf_counter()
@@ -2549,10 +3199,13 @@ def main():
     log(f"  kernel phase took {time.perf_counter() - t0:.1f} s")
 
     # the kernel's launches on each path, each counted from zero over the
-    # path's run; this slice's main path is serving over HTTP (4b)
+    # path's run; this slice's main path is the serving fleet (4c)
     t0 = time.perf_counter()
     log("== serving: Llama-3-8B widths and depth (32 layers)")
     launches = serving_phase(args.seed)
+    log("== serving 4c (3): a process fleet of two children at Llama-3-8B "
+        "widths and depth")
+    fleet_process_run(args.seed)
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     log(f"  serving phase took {t1 - t0:.1f} s")
@@ -2575,7 +3228,7 @@ def main():
     for path, n in launches.items():
         check(n > 0, f"flash_attn_fwd never ran on the {path} path")
         row["by_path"][path]["launches"] = n
-    row["launches"] = launches["serve_http"]
+    row["launches"] = launches["serve_fleet"]
 
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(gpu_line())

@@ -36,9 +36,19 @@ Wired vars:
   ``MXNET_SERVING_PREFILL_BUCKETS``, ``MXNET_SERVING_QUEUE``,
   ``MXNET_SERVING_KV_PAGES``, ``MXNET_SERVING_PAGE_SIZE``,
   ``MXNET_SERVING_DEADLINE_MS``: the serving engine's grids and bounds.
+- ``MXNET_FLEET_REPLICAS``: serving-fleet replica count behind the router
+  (default 2; ``serving.fleet.serve_fleet``).
+- ``MXNET_FLEET_HEDGE_MS``: floor in ms of the hedged-duplicate delay
+  (default 50; the delay is max(this, the observed p99 dispatch latency)).
+- ``MXNET_FLEET_RETRY_BUDGET``: per-request transient-retry budget of a
+  router-to-replica dispatch (default 2).
+- ``MXNET_FLEET_PROBE_INTERVAL_MS``: the router's health-probe period in
+  ms (default 250, at least 10).
+- ``MXNET_FLEET_EJECT_THRESHOLD``: consecutive dispatch/probe failures
+  before the circuit breaker ejects a replica (default 3).
 
 The knobs of planes not ported yet (planner, graph, guard, ZeRO, compile
-cache, tuning, fleet, data path), and those of the lifecycle's watchdog
+cache, tuning, data path), and those of the lifecycle's watchdog
 (``MXNET_WATCHDOG_TIMEOUT_S``) and multi-process stop agreement
 (``MXNET_STOP_SYNC_EVERY``), wait for their code.
 """
@@ -55,6 +65,8 @@ __all__ = ["get_str", "get_int", "get_bool", "get_float",
            "flight_recorder_cap", "flight_dir", "telemetry_agg_dir",
            "launcher_rank", "launcher_world", "goodput_slo",
            "goodput_slo_windows", "trace_requests", "trace_keep_slowest",
+           "fleet_replicas", "fleet_hedge_ms", "fleet_retry_budget",
+           "fleet_probe_interval_ms", "fleet_eject_threshold",
            "describe", "apply_env"]
 
 
@@ -216,6 +228,36 @@ def trace_keep_slowest():
     return max(1, get_int("MXNET_TRACE_KEEP_SLOWEST", 16))
 
 
+def fleet_replicas():
+    """Serving-fleet replica count behind the router
+    (MXNET_FLEET_REPLICAS, default 2; serving/fleet)."""
+    return max(1, get_int("MXNET_FLEET_REPLICAS", 2))
+
+
+def fleet_hedge_ms():
+    """Hedged-duplicate delay floor in ms (MXNET_FLEET_HEDGE_MS,
+    default 50; the router hedges at max(floor, observed p99))."""
+    return max(0, get_int("MXNET_FLEET_HEDGE_MS", 50))
+
+
+def fleet_retry_budget():
+    """Per-request transient-retry budget for router-to-replica dispatch
+    (MXNET_FLEET_RETRY_BUDGET, default 2)."""
+    return max(0, get_int("MXNET_FLEET_RETRY_BUDGET", 2))
+
+
+def fleet_probe_interval_ms():
+    """Router health-probe period in ms (MXNET_FLEET_PROBE_INTERVAL_MS,
+    default 250)."""
+    return max(10, get_int("MXNET_FLEET_PROBE_INTERVAL_MS", 250))
+
+
+def fleet_eject_threshold():
+    """Consecutive dispatch/probe failures before the circuit breaker
+    ejects a replica (MXNET_FLEET_EJECT_THRESHOLD, default 3)."""
+    return max(1, get_int("MXNET_FLEET_EJECT_THRESHOLD", 3))
+
+
 _WIRED = (
     ("MXNET_SEED", "global RNG seed at import (random.seed)"),
     ("MXNET_FAULT_SPEC", "deterministic fault injection spec "
@@ -257,6 +299,16 @@ _WIRED = (
     ("MXNET_SERVING_PAGE_SIZE", "tokens per KV-cache page (default 16)"),
     ("MXNET_SERVING_DEADLINE_MS", "default per-request serving deadline in "
      "ms (default 0 = none)"),
+    ("MXNET_FLEET_REPLICAS", "serving-fleet replica count behind the router "
+     "(default 2; serving/fleet)"),
+    ("MXNET_FLEET_HEDGE_MS", "hedged-duplicate delay floor in ms (default "
+     "50; effective delay = max(floor, observed p99))"),
+    ("MXNET_FLEET_RETRY_BUDGET", "per-request transient-retry budget for "
+     "router-to-replica dispatch (default 2)"),
+    ("MXNET_FLEET_PROBE_INTERVAL_MS", "router health-probe period in ms "
+     "(default 250)"),
+    ("MXNET_FLEET_EJECT_THRESHOLD", "consecutive failures before the "
+     "circuit breaker ejects a replica (default 3)"),
     ("MXNET_NUM_WORKERS", "launcher world size (alias DMLC_NUM_WORKER; "
      "default 1)"),
     ("MXNET_WORKER_ID", "launcher rank (alias DMLC_WORKER_ID)"),

@@ -12,6 +12,14 @@ path yet.  The seams the port's code calls today:
 ``serving.decode_step``     serving-engine batched decode step, checked
                             BEFORE any KV/sequence mutation (the loop
                             absorbs the failure and retries the step)
+``router.dispatch``         fleet router -> replica send (transport funnel;
+                            retried under the fleet's retry budget, then
+                            failed over to another replica)
+``router.health_probe``     fleet health probe (a trip counts as a failed
+                            probe in the replica's health record)
+``fleet.spawn``             fleet manager replica spawn (retried)
+``replica.crash``           a local replica's request path: a trip takes
+                            the replica down mid-request
 ==========================  =================================================
 
 Arming faults:
@@ -245,9 +253,12 @@ def backoff_delay(attempt, base_ms):
 
 def _sleep_backoff(seam, attempt, base_ms, logger, exc):
     delay = backoff_delay(attempt, base_ms)
+    # the repr, not the exception: a handler that keeps records would keep
+    # its traceback, and through it the frames' objects (a fleet replica
+    # and its engine)
     (logger or _LOGGER).warning(
-        "%s: transient failure (%r), retry %d in %.3fs",
-        seam, exc, attempt + 1, delay)
+        "%s: transient failure (%s), retry %d in %.3fs",
+        seam, repr(exc), attempt + 1, delay)
     if delay > 0:
         time.sleep(delay)
 

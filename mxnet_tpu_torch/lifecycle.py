@@ -13,10 +13,14 @@ configured ``MXNET_GRACE_PERIOD_S`` arms a deadline at the stop request:
 if the process has not finished when it expires, it dumps the flight
 recorder and force-exits with :data:`EXIT_FORCED`.
 
+Alerts are logged and recorded in the flight ring, never stops: the
+goodput-SLO breach (observers subscribe with
+``register_goodput_breach_hook``; the serving fleet's autoscaler is the
+one in the package) and the fleet's queue-SLO breach.
+
 Not ported yet: ``check_stop``'s cross-rank agreement (it needs the
-port's collectives), the stall ``Watchdog``, the training-state capture,
-``elastic_resharder``, and the goodput-breach hooks and the fleet
-queue-SLO note (their caller is the fleet router).
+port's collectives), the stall ``Watchdog``, the training-state capture
+and ``elastic_resharder``.
 """
 from __future__ import annotations
 
@@ -32,7 +36,9 @@ from . import telemetry
 __all__ = ["GracefulExit", "EXIT_PREEMPTED", "EXIT_FORCED", "EXIT_STALLED",
            "request_stop", "stop_requested", "stop_reason",
            "install_signal_handlers", "uninstall_signal_handlers",
-           "cancel_grace_deadline", "note_goodput_slo_breach", "reset"]
+           "cancel_grace_deadline", "note_goodput_slo_breach",
+           "register_goodput_breach_hook", "unregister_goodput_breach_hook",
+           "note_fleet_queue_slo_breach", "reset"]
 
 _LOGGER = logging.getLogger(__name__)
 # REENTRANT: the signal handler runs ON the main thread between bytecodes,
@@ -218,8 +224,9 @@ def reset():
 def note_goodput_slo_breach(ratio, slo, windows):
     """The goodput-SLO alert (``telemetry`` calls it when the productive
     ratio stayed below ``MXNET_GOODPUT_SLO`` for
-    ``MXNET_GOODPUT_SLO_WINDOWS`` consecutive windows): logged and
-    recorded in the flight ring.  An operator page, not a stop."""
+    ``MXNET_GOODPUT_SLO_WINDOWS`` consecutive windows): logged, recorded
+    in the flight ring, and handed to every registered breach hook (one
+    that raises is logged and skipped).  An operator page, not a stop."""
     _LOGGER.warning(
         "goodput SLO breach: productive ratio %.3f below SLO %.3f for "
         "%d consecutive windows (mxnet_goodput_slo_breaches_total "
@@ -227,3 +234,41 @@ def note_goodput_slo_breach(ratio, slo, windows):
     _flight.record_event("lifecycle", event="goodput_slo_breach",
                          ratio=float(ratio), slo=float(slo),
                          windows=int(windows))
+    for hook in list(_GOODPUT_HOOKS):
+        try:
+            hook(ratio, slo, windows)
+        except Exception:   # an observer must not break the alert path
+            _LOGGER.exception("goodput-breach hook %r failed", hook)
+
+
+# breach observers (the fleet autoscaler wires scale-up here); hooks run
+# on the alerting thread and must be cheap
+_GOODPUT_HOOKS: list = []
+
+
+def register_goodput_breach_hook(fn):
+    """Subscribe ``fn(ratio, slo, windows)`` to goodput-SLO breach alerts
+    (idempotent); returns ``fn``."""
+    if fn not in _GOODPUT_HOOKS:
+        _GOODPUT_HOOKS.append(fn)
+    return fn
+
+
+def unregister_goodput_breach_hook(fn):
+    """Remove a breach hook (idempotent)."""
+    if fn in _GOODPUT_HOOKS:
+        _GOODPUT_HOOKS.remove(fn)
+
+
+def note_fleet_queue_slo_breach(depth, threshold, shed):
+    """The fleet-wide queue-SLO breach (the router's deadline-aware
+    shedding tripped): logged and recorded in the flight ring, as the
+    goodput breach, not a stop.  ``shed`` counts the requests answered 429
+    in this episode."""
+    _LOGGER.warning(
+        "fleet queue SLO breach: fleet-wide depth %d above threshold %d "
+        "— shedding with Retry-After (%d shed this episode)",
+        depth, threshold, shed)
+    _flight.record_event("lifecycle", event="fleet_queue_slo_breach",
+                         depth=int(depth), threshold=int(threshold),
+                         shed=int(shed))

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -148,14 +149,18 @@ def _flash_fwd_cuda(q, k, v, causal, sm_scale):
     if err:
         raise MXNetError(f"flash_attn_fwd launch failed: CUDA error {err} "
                          f"({lib.mxt_cuda_error_string(err).decode()})")
-    _flash_fwd_cuda.launches += 1
-    _flash_fwd_cuda.launches_by_len[lq] = \
-        _flash_fwd_cuda.launches_by_len.get(lq, 0) + 1
+    with _COUNT_LOCK:
+        _flash_fwd_cuda.launches += 1
+        _flash_fwd_cuda.launches_by_len[lq] = \
+            _flash_fwd_cuda.launches_by_len.get(lq, 0) + 1
     return o, lse
 
 
 # launches in all, and by query length (the prefill bucket on the serving
-# path); a run sets both to zero before the part it counts
+# path); a run sets both to zero before the part it counts.  Engine loops
+# of several replicas launch from their own threads: the lock keeps the
+# read-modify-write of the counts whole
+_COUNT_LOCK = threading.Lock()
 _flash_fwd_cuda.launches = 0
 _flash_fwd_cuda.launches_by_len = {}
 

@@ -31,8 +31,13 @@ lifecycle stop poll, ``stats()``, the HTTP routes mounted beside
 ``/metrics`` and :func:`serve`.  A SIGTERM (or ``close(drain=True)``)
 stops admission, lets in-flight sequences finish, rejects queued work with
 a clean error, and :func:`serve` returns ``lifecycle.EXIT_PREEMPTED``.
-The reference's FLOP accounting (the introspection plane) and
-``join_replica`` are not ported yet.
+
+Replica handoff: :meth:`ServingEngine.join_replica` builds a second engine
+on a running donor's weights (the same tensors on the same card, no copy)
+with a KV pool of its own; the serving fleet (``serving/fleet``) puts a
+router in front of such replicas.  Closing an engine frees its KV pool at
+once and leaves the weights to whoever else holds them.  The reference's
+FLOP accounting (the introspection plane) is not ported yet.
 """
 from __future__ import annotations
 
@@ -105,7 +110,7 @@ _G_TOKS_CHIP = _telemetry.gauge(
     "mxnet_tokens_per_s_per_chip",
     "generated tokens/s per device over the trailing window (the "
     "serving half of online utilization accounting)")
-# observed by the replica handoff (join_replica), which is not ported yet
+# observed by the replica handoff (join_replica)
 _H_JOIN = _telemetry.histogram(
     "mxnet_serving_join_to_first_token_seconds",
     "replica handoff: wall time from joining (params donated by a "
@@ -114,6 +119,20 @@ _C_STEP_FAIL = _telemetry.counter(
     "mxnet_serving_step_failures_total",
     "engine-loop steps that raised and were absorbed (incl. injected "
     "serving.decode_step faults) — the loop retries, state untorn")
+
+
+# one engine loop at a time runs a step on a device: PyTorch releases the
+# GIL around every op, so two replicas' loops in one process would hand it
+# back and forth at each of a step's hundreds of launches, and decode far
+# slower in all than taking turns (PERF.md, the serving fleet).  A loop
+# holds its device's turn for a whole step.
+_TURNS: dict = {}
+_TURNS_LOCK = threading.Lock()
+
+
+def _device_turn(device):
+    with _TURNS_LOCK:
+        return _TURNS.setdefault(str(device), threading.Lock())
 
 
 def _draw_seed(seed, step):
@@ -144,7 +163,9 @@ class ServingEngine:
     ``device=None`` means the first CUDA card; the net must live on the
     engine's device.  Bucket grids default from the ``MXNET_SERVING_*``
     knobs (``env.py``); ``trace_requests`` defaults from
-    ``MXNET_TRACE_REQUESTS``.  ``name`` labels the engine in ``stats()``."""
+    ``MXNET_TRACE_REQUESTS``.  ``name`` labels the engine in ``stats()``.
+    ``params_from`` (a running engine) donates its weights instead of
+    ``serving_params(net)``: see :meth:`join_replica`."""
 
     # consecutive step failures before the loop stops retrying and fails
     # the in-flight work (~2.5 s at the 0.05 s per-failure backoff)
@@ -153,7 +174,7 @@ class ServingEngine:
     def __init__(self, net, *, batch_buckets=None, prefill_buckets=None,
                  kv_pages=None, page_size=None, queue_bound=None,
                  max_batch=None, deadline_ms=None, name=None,
-                 trace_requests=None, device=None):
+                 trace_requests=None, device=None, params_from=None):
         if not isinstance(net, LlamaForCausalLM):
             raise MXNetError("ServingEngine serves the model-zoo llama "
                              f"family, got {type(net).__name__}")
@@ -167,7 +188,24 @@ class ServingEngine:
                              f"on {self._device}: move the net first")
         self._cfg = cfg
         self._name = name or "llama"
-        self._params = dict(serving_params(net))
+        # replica handoff (join_replica): the donor's frozen params ARE
+        # this engine's weights, the same tensors, never read again from
+        # the net; the join-to-first-token clock starts here
+        self._join_t0 = None
+        if params_from is None:
+            self._params = dict(serving_params(net))
+        else:
+            if params_from._device != self._device:
+                raise MXNetError(
+                    f"join_replica: the donor serves on "
+                    f"{params_from._device}, this engine on {self._device}; "
+                    "donating weights across devices needs the multi-GPU "
+                    "plane, which is not ported yet")
+            if vars(params_from._cfg) != vars(cfg):
+                raise MXNetError("join_replica: the donor serves another "
+                                 "model configuration than this net's")
+            self._params = dict(params_from._params)
+            self._join_t0 = time.monotonic()
         self._batch_buckets = list(batch_buckets) if batch_buckets else \
             parse_buckets(_env.serving_batch_buckets(), "batch bucket")
         self._prefill_buckets = list(prefill_buckets) if prefill_buckets \
@@ -185,6 +223,7 @@ class ServingEngine:
         self._kv = PagedKVCache(cfg.num_layers, cfg.num_kv_heads,
                                 cfg.head_dim, pages, self._page_size,
                                 dtype=net.dtype, device=self._device)
+        self._turn = _device_turn(self._device)
         # longest context a sequence can reach: the model's window and the
         # pool minus scratch both cap it
         self._ctx_cap = min(cfg.max_seq_len, (pages - 1) * self._page_size)
@@ -289,15 +328,36 @@ class ServingEngine:
                          + gumbel).argmax()
         return toks
 
+    # -- replica handoff ---------------------------------------------------
+    @classmethod
+    def join_replica(cls, net, donor, **kw):
+        """A new engine whose frozen params are DONATED by the running
+        ``donor``: the same tensors on the same card (no copy, no second
+        ``serving_params(net)``), with a KV pool of its own.  ``net``
+        gives the configuration and must be the donor's model; ``kw`` go
+        to the constructor.  The donor keeps serving throughout (served
+        params are never written).  The join-to-first-token clock
+        (``mxnet_serving_join_to_first_token_seconds``) starts here and
+        stops at this replica's first generated token.
+
+        ``device=None`` resolves as for any engine; a device other than
+        the donor's raises MXNetError (cross-device transfer, and the
+        reference's ``plan=``, wait for the multi-GPU plane; its
+        ``compile_cache=`` waits for CUDA-graph capture)."""
+        return cls(net, params_from=donor, **kw)
+
     # -- lifecycle ---------------------------------------------------------
     def start(self):
         """Build the kernels (on the card), warm up, and start the loop
-        thread."""
+        thread.  A closed engine does not start again."""
         if self._thread is not None:
             return self
+        if self._stop_evt.is_set():
+            raise MXNetError("serving engine is closed; build a new one")
         if self._device.type == "cuda":
             _kernels.build_all()
-        self._warmup()
+        with self._turn:
+            self._warmup()
         self._warm = True
         self._thread = threading.Thread(target=self._run_loop,
                                         name="mxnet-serving-engine",
@@ -323,7 +383,9 @@ class ServingEngine:
     def close(self, drain=True, timeout=60):
         """Stop the loop: with ``drain`` in-flight sequences finish and
         queued requests get a clean shutdown error; without, everything
-        resolves with the shutdown error immediately."""
+        resolves with the shutdown error immediately.  Then the KV pool
+        is released, whoever still holds this engine (the weights stay
+        with the net and the engines that share them)."""
         self._drain = bool(drain)
         self._stop_evt.set()
         t = self._thread
@@ -336,6 +398,7 @@ class ServingEngine:
                     "close(drain=False) to abort in-flight work)")
             self._thread = None
         self.unmount_http()
+        self._kv.release()
 
     def running(self):
         t = self._thread
@@ -411,7 +474,8 @@ class ServingEngine:
                     if not self._active:
                         break
                 try:
-                    did_work = self._step()
+                    with self._turn:
+                        did_work = self._step()
                     consec_fail = 0
                 except Exception as e:
                     # a step must never kill the loop thread: the fault
@@ -572,6 +636,10 @@ class ServingEngine:
             _H_TTFT.observe(req.first_token_t - req.submitted)
             with self._lock:
                 self._ttfts.append(req.first_token_t - req.submitted)
+            if self._join_t0 is not None:
+                # the handoff's clock: join -> this replica's first token
+                _H_JOIN.observe(req.first_token_t - self._join_t0)
+                self._join_t0 = None
         req.tokens.append(tok)
         _C_TOKENS.labels(kind="generated").inc()
         if self._is_finished(req, tok, L):

@@ -15,7 +15,8 @@ routes writes of padded batch rows and padded prompt positions there, so
 the step never branches on row validity; gathers of real rows see only
 their own pages, and positions past a row's length are masked with the
 flash-attention ``NEG_INF`` convention, whose softmax weight is exactly
-0.0.  The pools are torch tensors on the engine's device, written in place.
+0.0.  The pools are torch tensors on the engine's device, written in place;
+``release()`` drops them (a closed engine gives its pool back at once).
 
 Host-side state (page tables, the free list) is plain Python guarded by one
 lock; it is touched a handful of times per step, never per token.
@@ -58,6 +59,7 @@ class PagedKVCache:
                  self.page_size, self.head_dim)
         self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        self._nbytes = 2 * self.k_pool.numel() * self.k_pool.element_size()
         self._lock = threading.Lock()
         self._free = list(range(self.pages - 1, 0, -1))  # pop() -> page 1 first
         self._tables: dict = {}                          # seq_id -> [page,...]
@@ -74,8 +76,14 @@ class PagedKVCache:
             return (self.pages - 1) - len(self._free)
 
     def nbytes(self):
-        """Device bytes held by both pools."""
-        return 2 * self.k_pool.numel() * self.k_pool.element_size()
+        """Device bytes of both pools (their size, also after release)."""
+        return self._nbytes
+
+    def release(self):
+        """Drop the device pools (idempotent): the pool is unusable after,
+        and its memory goes back to the allocator as soon as no step
+        holds a view of it."""
+        self.k_pool = self.v_pool = None
 
     # -- allocation --------------------------------------------------------
     def alloc(self, seq_id, n_tokens):

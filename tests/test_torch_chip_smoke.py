@@ -28,9 +28,17 @@ The new entry points raise without a card unless asked for the CPU.
 Serving over HTTP (phase 4b): the client's checks pass a correct port
 and fail a route that drops a token and a drain that serves the queued
 request instead of rejecting it.
+
+The serving fleet (phase 4c): the local-mode checks pass a correct port
+and fail a ``join_replica`` that copies the weights, a router that
+delivers a completion twice, a request lost after the crash and a replica
+that is never replaced; the process-mode checks pass a fleet of CPU
+children serving llama_tiny.
 """
 import contextlib
 import json
+import os
+import sys
 import time
 
 import numpy as np
@@ -183,6 +191,142 @@ def test_http_phase_checks_catch_planted_faults(fault, monkeypatch):
             run()
     assert not lifecycle.stop_requested()
     from mxnet_tpu_torch import telemetry
+    assert telemetry._HTTP_SERVER is None
+
+
+# -- phase 4c: the serving fleet ------------------------------------------------
+FLEET_KW = dict(batch_buckets=[1, 2, 4], prefill_buckets=[32, 64],
+                kv_pages=64, page_size=8, max_batch=4)
+
+
+def _fleet_prompts(vocab, n=8):
+    r = np.random.RandomState(1)
+    return [r.randint(0, vocab, (int(m),)).astype(np.int32)
+            for m in r.randint(20, 62, n)]
+
+
+def _slow_decode(monkeypatch, seconds):
+    """Each decode step takes ``seconds`` more: requests stay in flight
+    long enough to be caught there."""
+    decode = ServingEngine._decode_body
+
+    def slow(self, *args):
+        time.sleep(seconds)
+        return decode(self, *args)
+
+    monkeypatch.setattr(ServingEngine, "_decode_body", slow)
+
+
+def _plant_fleet_fault(monkeypatch, fault):
+    from mxnet_tpu_torch.serving.fleet import (FairShareQueue, FleetManager,
+                                               IdempotencyLedger, Router)
+
+    if fault == "copy_join":
+        join = ServingEngine.join_replica.__func__
+
+        def copying(cls, net, donor, **kw):
+            eng = join(cls, net, donor, **kw)
+            eng._params = {k: v.clone() for k, v in eng._params.items()}
+            return eng
+        monkeypatch.setattr(ServingEngine, "join_replica",
+                            classmethod(copying))
+    elif fault == "duplicate":
+        attempt = Router._attempt
+
+        def twice(self, req, replica, kind):
+            attempt(self, req, replica, kind)
+            attempt(self, req, replica, kind)
+        monkeypatch.setattr(IdempotencyLedger, "claim", lambda self, rid: True)
+        monkeypatch.setattr(Router, "_attempt", twice)
+    elif fault == "lost":
+        monkeypatch.setattr(FairShareQueue, "requeue",
+                            lambda self, req, tenant="default": None)
+        monkeypatch.setattr(chip_smoke, "FLEET_DEADLINE_MS", 8_000)
+    elif fault == "never_replaced":
+        monkeypatch.setattr(FleetManager, "on_replica_dead",
+                            lambda self, r: self.router.remove_replica(r))
+        monkeypatch.setattr(chip_smoke, "FLEET_WAIT", 5)
+
+
+@pytest.mark.parametrize("fault", [None, "copy_join", "duplicate", "lost",
+                                   "never_replaced"])
+def test_fleet_local_checks_catch_planted_faults(fault, monkeypatch):
+    """Phase 4c (1) and (2) on llama_tiny in fp32 on the CPU, the rows held
+    by the fp32 check, lifecycle.request_stop for the SIGTERM."""
+    from mxnet_tpu_torch import lifecycle, telemetry
+
+    net = port_llama.init_random_(port_llama.llama_tiny(device="cpu"), 0)
+    prompts = _fleet_prompts(net.config.vocab_size)
+    temps = [0.8 if i in (1, 5) else 0.0 for i in range(len(prompts))]
+    monkeypatch.setattr(chip_smoke, "MAX_NEW", 6)
+    monkeypatch.setattr(chip_smoke, "N_REQUESTS", len(prompts))
+    monkeypatch.setattr(chip_smoke, "HTTP_TIMEOUT", 120)
+    _slow_decode(monkeypatch, 0.05)
+    _plant_fleet_fault(monkeypatch, fault)
+
+    def run():
+        return chip_smoke.fleet_local_phase(
+            net, FLEET_KW, prompts, temps, port_fa._flash_fwd_cuda,
+            lambda idx, res, rows: chip_smoke.check_fp32_run(
+                port_llama, port_fa, net, [prompts[i] for i in idx],
+                [temps[i] for i in idx], res, rows),
+            stop=lambda: lifecycle.request_stop("test stop"),
+            install_signals=False, device="cpu")
+
+    if fault is None:
+        out = run()
+        assert out["rc"] == lifecycle.EXIT_PREEMPTED
+        assert [len(r["token_ids"]) for r in out["results"]] == [6] * 8
+        assert out["launches"] == 0          # no kernel on the CPU
+        assert out["crash"]["dead"] in ("replica-1", "replica-2")
+        assert len(out["spawn_s"]) == 3 and len(out["join_s"]) == 2
+    else:
+        with pytest.raises(SystemExit, match="CHECK FAILED"):
+            run()
+    assert not lifecycle.stop_requested()
+    assert telemetry._HTTP_SERVER is None
+
+
+FLEET_CHILD = r'''
+import os, sys, time
+fd = os.open(sys.argv[1], os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+os.dup2(fd, 2)
+from mxnet_tpu_torch.gluon.model_zoo.language import llama
+from mxnet_tpu_torch.serving import ServingEngine, serve
+decode = ServingEngine._decode_body
+def slow(self, *args):
+    time.sleep(0.05)
+    return decode(self, *args)
+ServingEngine._decode_body = slow
+net = llama.init_random_(llama.llama_tiny(device="cpu"), 0)
+sys.exit(serve(net, port=0, device="cpu", batch_buckets=[1, 2, 4],
+               prefill_buckets=[32, 64], kv_pages=64, page_size=8,
+               max_batch=4))
+'''
+
+
+def test_fleet_process_checks_pass_cpu_children(monkeypatch):
+    """Phase 4c (3) with two CPU children serving llama_tiny (the card's
+    children serve the Llama-3-8B-width net): the SIGKILL, exactly-once
+    answers, the death noted within a probe interval, a replacement that
+    serves, and a drain after which every child exited 43."""
+    from mxnet_tpu_torch import lifecycle, telemetry
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.setattr(chip_smoke, "HTTP_TIMEOUT", 120)
+    monkeypatch.setenv("PYTHONPATH", repo)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    prompts = _fleet_prompts(512)
+    out = chip_smoke.fleet_process_phase(
+        prompts, lambda rid, log: [sys.executable, "-c", FLEET_CHILD, log],
+        stop=lambda: lifecycle.request_stop("test stop"),
+        install_signals=False, n_tokens=6)
+    assert out["rc"] == lifecycle.EXIT_PREEMPTED
+    assert [k for _, k, _ in out["spawn_s"]] == ["initial", "initial",
+                                                 "replacement"]
+    assert len(out["results"]) == len(prompts)
+    assert out["crash"]["extra_attempts"] + out["crash"]["resubmits"] > 0
+    assert not lifecycle.stop_requested()
     assert telemetry._HTTP_SERVER is None
 
 
