@@ -100,10 +100,26 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    backward apart, falling loss); (e) bench.py's llama_proxy_train
    configuration timed the same way, and the attention at its shape beside
    SDPA's forward and backward;
-8. the kernels line (its times and launches at the main path's shape,
+8. the mx.nd op table: (a) every op definition of the tensor and nn
+   families (ops/tensor.py, ops/nn.py) on the card at a shape one of the
+   port's models carries, against the CPU on the same seeded inputs (fp32,
+   linalg fp64, TF32 off): each output on the card with the CPU's dtype
+   and shape, within OP_TOL, and each float input's gradient under a
+   seeded head; the op's call reads nothing back to the host, and a
+   definition the phase leaves out fails the run; (b) the "medium" PTB
+   LSTM language model (Zaremba et al. 2014) through mx.nd (Embedding ->
+   RNN -> FullyConnected -> SoftmaxOutput): one step at dropout 0 on the
+   card in fp32 against the CPU's fp64 step, three planted faults that
+   must fail it, then 2 warm-up and 20 timed steps at dropout 0.5
+   (tokens/s, ms/step, peak memory, a profiled pass), and the two LSTM
+   layers beside torch.nn.LSTM (cuDNN) with the same weights; (c)
+   benchmark/opperf.py's DEFAULT_SUITE through the port's invoke (eager
+   and device ms, bound).  flash_attn_fwd launches none of it.
+   ``--op-table`` runs only the build and this phase;
+9. the kernels line (its times and launches at the main path's shape,
    the serving fleet, 4c;
-   each path's shape, times and launches under ``by_path``), then the
-   device line.
+   each path's shape, times and launches under ``by_path``, the op table
+   with none), then the device line.
 """
 from __future__ import annotations
 
@@ -3133,6 +3149,985 @@ def llama_phase(seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the mx.nd op table (the tensor and nn families)
+# ---------------------------------------------------------------------------
+# (a) every op definition of ops/tensor.py and ops/nn.py on the card at a
+# shape one of the port's models carries, against the CPU on the same
+# seeded inputs (fp32, TF32 off): each output on the card, with the CPU's
+# dtype and shape, within OP_TOL of it (relative to the larger of 1 and the
+# CPU output's largest magnitude), and so each float input's gradient
+# under the same seeded head.  linalg runs in fp64.
+OP_TOL = 1e-4
+OP_SHAPES = {
+    "hidden": (64, 128, 768),     # BERT-base hidden state, bench_bert batch
+    "logits": (8, 128256),        # Llama-3-8B logits, serving's batch bucket
+    "scores": ((768, 128, 64), (768, 64, 128)),   # BERT attention scores
+    "ffn": (8192, 768, 3072),     # BERT FFN: (8192, 768) x (768, 3072)
+    "spd": (64, 256),             # linalg: 64 SPD 256 x 256, fp64
+    "nhwc": (32, 56, 56, 256),    # ResNet-50 stage 1, NHWC, batch 32
+    "ids": (2048, 32000, 1024),   # 2048 ids into the proxy's 32000-row table
+    "tnc": (128, 64, 768),        # Sequence*, masked_softmax: TNC, ragged
+    "nchw": (32, 256, 56, 56),    # Group/InstanceNorm, LRN, L2Normalization
+    "up": (8, 256, 64, 64),       # Deconvolution, UpSampling, resize: x2
+    "loss": (2048, 32000),        # SoftmaxOutput, the regression outputs
+    "ctc": (100, 32, 29, 20),     # CTC: T, batch, alphabet, max label len
+    "stn": (32, 3, 224, 224),     # SpatialTransformer
+    "rnn": (35, 20, 650, 2),      # the LM's LSTM: T, batch, width, layers
+    "eye": 4096,
+}
+
+
+def _u(g, shape, lo=-1.0, hi=1.0, dtype=torch.float32):
+    """Uniform on [lo, hi), drawn on the generator's device (the inputs of
+    a phase 8 call are made on the card, then copied to the CPU)."""
+    return torch.rand(shape, generator=g, dtype=dtype, device=g.device) * \
+        (hi - lo) + lo
+
+
+def _away(g, shape, lo=0.25, hi=1.0):
+    """Magnitudes in [lo, hi], random signs: away from kinks at 0."""
+    sign = torch.randint(0, 2, shape, generator=g,
+                         device=g.device).float() * 2 - 1
+    return _u(g, shape, lo, hi) * sign
+
+
+def _ints(g, shape, lo, hi):
+    return torch.randint(lo, hi, shape, generator=g, device=g.device).float()
+
+
+def _distinct(g, shape):
+    """Distinct, well-separated values (no ties for sort and top-k)."""
+    return torch.randperm(math.prod(shape), generator=g,
+                          device=g.device).reshape(shape).float() * 0.25 + 0.1
+
+
+def _spd(g, b, n):
+    m = _u(g, (b, n, n), dtype=torch.float64)
+    return m @ m.transpose(-1, -2) / n + torch.eye(n, dtype=torch.float64,
+                                                   device=g.device)
+
+
+class OpCase:
+    """One op call of phase 8 (a): ``make(g)`` gives its CPU inputs;
+    ``grad`` the inputs whose gradient is compared (None: every float
+    input of a differentiable op); ``head_out`` the output the head
+    gradient enters; ``compare`` "value", "svd" (singular vectors up to
+    sign), "permutation" (shuffle) or "dropout"."""
+
+    def __init__(self, label, name, make, attrs=None, grad=None, head_out=0,
+                 compare="value", creation=False):
+        self.label, self.name, self.make = label, name, make
+        self.attrs = dict(attrs or {})
+        self.grad, self.head_out = grad, head_out
+        self.compare, self.creation = compare, creation
+
+
+def op_cases(S):
+    """Phase 8 (a)'s calls at the shapes ``S`` (OP_SHAPES), at least one
+    for each op definition of the two families."""
+    H, L, X, NC = S["hidden"], S["logits"], S["nhwc"], S["nchw"]
+    n_ids, rows, width = S["ids"]
+    cases = []
+
+    def add(name, make, attrs=None, label=None, **kw):
+        cases.append(OpCase(label or name, name, make, attrs, **kw))
+
+    def unary(names, gen):
+        for n in names:
+            add(n, lambda g: [gen(g)])
+
+    unary(["sin", "cos", "tanh", "arctan", "arcsinh", "sigmoid",
+           "log_sigmoid", "softsign", "gelu", "erf", "negative", "identity",
+           "square", "hard_sigmoid", "degrees", "radians", "sinh", "cosh",
+           "expm1", "smooth_l1", "stop_gradient"], lambda g: _u(g, H))
+    unary(["abs", "relu", "sign", "cbrt", "rcbrt"], lambda g: _away(g, H))
+    unary(["exp"], lambda g: _u(g, H, -1.5, 1.0))
+    unary(["tan"], lambda g: _u(g, H, -0.9, 0.9))
+    unary(["arcsin", "arccos"], lambda g: _u(g, H, -0.8, 0.8))
+    unary(["arctanh", "erfinv"], lambda g: _u(g, H, -0.7, 0.7))
+    unary(["arccosh"], lambda g: _u(g, H, 1.3, 2.5))
+    unary(["log", "log10", "log1p", "log2", "sqrt", "rsqrt", "reciprocal",
+           "gamma", "gammaln", "digamma"], lambda g: _u(g, H, 0.3, 1.6))
+    unary(["ceil", "floor", "round", "rint", "fix", "trunc", "logical_not",
+           "isnan", "isinf", "isfinite", "zeros_like", "ones_like",
+           "argmax_channel"], lambda g: _u(g, H, -2.0, 2.0))
+    add("clip", lambda g: [_away(g, H)], {"a_min": -0.8, "a_max": 0.8})
+    add("cast", lambda g: [_u(g, H)], {"dtype": "bfloat16"})
+    add("amp_multicast", lambda g: [_u(g, H).to(torch.bfloat16)],
+        {"num_outputs": 1})
+    for act in ("relu", "sigmoid", "tanh", "softrelu", "softsign"):
+        add("Activation", lambda g: [_away(g, H)], {"act_type": act},
+            label=f"Activation {act}")
+    for act in ("leaky", "elu", "selu", "gelu", "rrelu"):
+        add("LeakyReLU", lambda g: [_away(g, H)], {"act_type": act},
+            label=f"LeakyReLU {act}")
+    add("LeakyReLU", lambda g: [_away(g, H), _u(g, (H[1],), 0.1, 0.3)],
+        {"act_type": "prelu"}, label="LeakyReLU prelu")
+
+    # binary, broadcasting the last axis, and the scalar forms
+    row = (1, 1, H[2])
+    for n in ("broadcast_add", "broadcast_sub", "broadcast_mul",
+              "broadcast_maximum", "broadcast_minimum", "broadcast_hypot",
+              "arctan2"):
+        add(n, lambda g: [_away(g, H), _away(g, row)])
+    for n in ("broadcast_div", "broadcast_mod"):
+        add(n, lambda g: [_u(g, H), _u(g, row, 0.5, 1.5)])
+    add("broadcast_power", lambda g: [_u(g, H, 0.3, 1.6),
+                                      _u(g, row, 0.3, 1.6)])
+    for n in ("broadcast_equal", "broadcast_not_equal", "broadcast_greater",
+              "broadcast_greater_equal", "broadcast_lesser",
+              "broadcast_lesser_equal", "broadcast_logical_and",
+              "broadcast_logical_or", "broadcast_logical_xor"):
+        add(n, lambda g: [_ints(g, H, -1, 2), _ints(g, row, -1, 2)])
+    for n in ("add", "sub", "mul", "div", "mod", "maximum", "minimum"):
+        add(f"broadcast_{n}_scalar", lambda g: [_away(g, H)],
+            {"scalar": 0.7})
+    add("broadcast_power_scalar", lambda g: [_u(g, H, 0.3, 1.6)],
+        {"scalar": 1.3})
+    for n in ("equal", "not_equal", "greater", "greater_equal", "lesser",
+              "lesser_equal"):
+        add(f"broadcast_{n}_scalar", lambda g: [_ints(g, H, -1, 2)],
+            {"scalar": 0.0})
+    add("where", lambda g: [_ints(g, H, 0, 2), _u(g, H), _u(g, H)],
+        grad=[1, 2])
+    for n in ("add_n", "maximum_n"):
+        add(n, lambda g: [_away(g, H), _away(g, H), _away(g, H)])
+
+    # reductions and ordering at the logits
+    for n in ("sum", "mean", "nansum", "norm"):
+        add(n, lambda g: [_u(g, L)], {"axis": 1})
+    for n in ("max", "min"):
+        add(n, lambda g: [_distinct(g, L)], {"axis": 1})
+    for n in ("prod", "nanprod"):
+        add(n, lambda g: [_u(g, L, 0.5, 1.5)], {"axis": 0})
+    add("moments", lambda g: [_u(g, L)], {"axes": (1,)})
+    for n in ("argmax", "argmin", "argsort", "sort"):
+        add(n, lambda g: [_distinct(g, L)], {"axis": -1})
+    for typ in ("indices", "value", "both", "mask"):
+        add("topk", lambda g: [_distinct(g, L)], {"k": 50, "ret_typ": typ},
+            label=f"topk {typ}")
+    add("histogram", lambda g: [_u(g, L, 0.0, 1.0)],
+        {"bin_cnt": 10, "range": (0.0, 1.0)})
+    add("histogram", lambda g: [_u(g, L)], {"bin_cnt": 10},
+        label="histogram (data range)")
+    add("multi_sum_sq", lambda g: [_u(g, L), _u(g, H)], {"num_arrays": 2})
+    add("softmax", lambda g: [_u(g, L, -4.0, 4.0)])
+    add("log_softmax", lambda g: [_u(g, L, -4.0, 4.0)])
+    add("softmin", lambda g: [_u(g, L, -4.0, 4.0)])
+
+    # products
+    (qk, kv), (fm, fk, fn) = S["scores"], S["ffn"]
+    add("batch_dot", lambda g: [_u(g, qk), _u(g, kv)])
+    add("dot", lambda g: [_u(g, (fm, fk)), _u(g, (fk, fn))])
+    add("matmul", lambda g: [_u(g, (fm, fk)), _u(g, (fk, fn))])
+    add("linalg_gemm2", lambda g: [_u(g, (fm, fk)), _u(g, (fn, fk))],
+        {"transpose_b": True, "alpha": 0.5})
+    add("linalg_gemm", lambda g: [_u(g, (fm, fk)), _u(g, (fk, fn)),
+                                  _u(g, (fm, fn))], {"beta": 0.5})
+    add("FullyConnected", lambda g: [_u(g, (fm, fk)), _u(g, (fn, fk)),
+                                     _u(g, (fn,))], {"num_hidden": fn})
+    add("khatri_rao", lambda g: [_u(g, (qk[1], qk[2])),
+                                 _u(g, (qk[2], qk[2]))])
+
+    # linalg, fp64
+    b, s = S["spd"]
+    add("linalg_potrf", lambda g: [_spd(g, b, s)])
+    add("linalg_trsm", lambda g: [torch.linalg.cholesky(_spd(g, b, s)),
+                                  _u(g, (b, s, s), dtype=torch.float64)],
+        {"alpha": 0.5})
+    add("linalg_sumlogdiag", lambda g: [_spd(g, b, s)])
+    add("linalg_syrk", lambda g: [_u(g, (b, s, s), dtype=torch.float64)])
+    add("linalg_det", lambda g: [_spd(g, b, s)])
+    add("linalg_inverse", lambda g: [_spd(g, b, s)])
+    add("linalg_svd", lambda g: [_u(g, (b, s, s // 4), dtype=torch.float64)],
+        head_out=1, compare="svd")
+
+    # shape ops at ResNet-50's stage 1, NHWC
+    n_, h_, w_, c_ = X
+    add("reshape", lambda g: [_u(g, X)], {"shape": (n_, h_ * w_, c_)})
+    add("flatten", lambda g: [_u(g, X)])
+    add("transpose", lambda g: [_u(g, X)], {"axes": (0, 3, 1, 2)})
+    add("swapaxes", lambda g: [_u(g, X)], {"dim1": 1, "dim2": 2})
+    add("expand_dims", lambda g: [_u(g, X)], {"axis": 3})
+    add("squeeze", lambda g: [_u(g, (n_, h_, w_, 1, c_))], {"axis": 3})
+    add("tile", lambda g: [_u(g, X)], {"reps": (1, 1, 1, 2)})
+    add("repeat", lambda g: [_u(g, X)], {"repeats": 2, "axis": 2})
+    add("broadcast_to", lambda g: [_u(g, (n_, h_, w_, 1))],
+        {"shape": X})
+    add("broadcast_axis", lambda g: [_u(g, (n_, h_, w_, 1))],
+        {"axis": 3, "size": c_})
+    add("broadcast_like", lambda g: [_u(g, (1, h_, w_, c_)), _u(g, X)],
+        grad=[0])
+    add("slice", lambda g: [_u(g, X)],
+        {"begin": (0, 8, 8, 0), "end": (n_, h_ - 8, w_ - 8, c_ // 2)})
+    add("slice", lambda g: [_u(g, X)], {"begin": (None, None, None, None),
+                                        "end": (None, None, None, None),
+                                        "step": (1, -1, 2, 1)},
+        label="slice (negative step)")
+    add("slice_axis", lambda g: [_u(g, X)],
+        {"axis": 3, "begin": 0, "end": c_ // 2})
+    add("slice_like", lambda g: [_u(g, X), _u(g, (n_, h_ // 2, w_ // 2,
+                                                   c_))], grad=[0])
+    add("reverse", lambda g: [_u(g, X)], {"axis": 3})
+    add("pad", lambda g: [_u(g, X)], {"mode": "constant", "pad_width": (
+        0, 0, 1, 1, 1, 1, 0, 0), "constant_value": 0.5})
+    for mode in ("edge", "reflect"):
+        add("pad", lambda g: [_u(g, NC)], {"mode": mode, "pad_width": (
+            0, 0, 0, 0, 1, 1, 1, 1)}, label=f"pad {mode}")
+    add("space_to_depth", lambda g: [_u(g, NC)], {"block_size": 2})
+    add("depth_to_space", lambda g: [_u(g, NC)], {"block_size": 2})
+    add("concat", lambda g: [_u(g, X), _u(g, X)], {"dim": 3})
+    add("stack", lambda g: [_u(g, X), _u(g, X)], {"axis": 3})
+    add("split", lambda g: [_u(g, X)], {"num_outputs": 4, "axis": 3})
+    add("diag", lambda g: [_u(g, X)], {"k": 1})
+    region = (slice(None), slice(8, h_ - 8), slice(None, None, 2),
+              slice(0, c_ // 2))
+    add("_slice_key", lambda g: [_u(g, X)], {"key": region})
+    add("_scatter_set_key", lambda g: [_u(g, X), _u(g, (
+        n_, h_ - 16, (w_ + 1) // 2, c_ // 2))], {"key": region})
+
+    # indexing: 2048 ids into the proxy's table
+    def table(g):
+        return _u(g, (rows, width))
+
+    def ids(g):
+        return _ints(g, (n_ids,), 0, rows)
+
+    def distinct_ids(g):
+        return torch.randperm(rows, generator=g,
+                              device=g.device)[:n_ids].float()
+
+    add("take", lambda g: [table(g), ids(g)], grad=[0])
+    add("Embedding", lambda g: [ids(g), table(g)],
+        {"input_dim": rows, "output_dim": width}, grad=[1])
+    add("one_hot", lambda g: [ids(g)], {"depth": rows})
+    LS = S["loss"]
+    add("pick", lambda g: [_u(g, LS), _ints(g, (LS[0],), 0, LS[1])],
+        {"axis": 1}, grad=[0])
+    add("batch_take", lambda g: [_u(g, LS), _ints(g, (LS[0],), 0, LS[1])],
+        grad=[0])
+    add("gather_nd", lambda g: [table(g), ids(g)[None]], grad=[0])
+    add("scatter_nd", lambda g: [_u(g, (n_ids, width)),
+                                 distinct_ids(g)[None]],
+        {"shape": (rows, width)})
+    add("_contrib_index_copy", lambda g: [table(g), distinct_ids(g),
+                                          _u(g, (n_ids, width))],
+        grad=[0, 2])
+    add("_contrib_index_array", lambda g: [_u(g, H)])
+    add("where_index", lambda g: [(_u(g, H, 0.0, 1.0) > 0.9).float()])
+    add("boolean_mask", lambda g: [_u(g, (n_ids, width)),
+                                   _ints(g, (n_ids,), 0, 2)])
+    add("ravel_multi_index", lambda g: [torch.stack([
+        _ints(g, (n_ids,), 0, n_ids), _ints(g, (n_ids,), 0, width)])],
+        {"shape": (n_ids, width)})
+    add("unravel_index", lambda g: [_ints(g, (n_ids,), 0, n_ids * width)],
+        {"shape": (n_ids, width)})
+    add("shuffle", lambda g: [torch.cat([
+        torch.arange(n_ids, dtype=torch.float32, device=g.device)[:, None],
+        _u(g, (n_ids, width - 1))], dim=1)], compare="permutation")
+
+    # sequences: TNC with ragged lengths
+    T_, N_, C_ = S["tnc"]
+
+    def lengths(g):
+        return _ints(g, (N_,), 1, T_ + 1)
+
+    for n in ("sequence_mask", "sequence_last", "sequence_reverse"):
+        add(n, lambda g: [_u(g, S["tnc"]), lengths(g)],
+            {"use_sequence_length": True}, grad=[0])
+
+    def ragged_mask(g):
+        steps = torch.arange(T_, dtype=torch.float32,
+                             device=g.device)[:, None, None]
+        return (steps < lengths(g)[None, :, None]).float()
+
+    add("masked_softmax", lambda g: [_u(g, S["tnc"]), ragged_mask(g)],
+        {"axis": 0}, grad=[0])
+
+    # creation, on the card
+    for name, attrs in (("zeros", {"shape": H}), ("ones", {"shape": H}),
+                        ("full", {"shape": H, "val": 1.5}),
+                        ("arange", {"start": 0, "stop": L[1], "step": 1.0}),
+                        ("linspace", {"start": -1, "stop": 1, "num": L[1]}),
+                        ("eye", {"N": S["eye"], "M": S["eye"], "k": 1})):
+        add(name, lambda g: [], attrs, creation=True)
+
+    # nn layers
+    add("Convolution", lambda g: [_u(g, X), _u(g, (64, 1, 1, c_), -0.1,
+                                                   0.1)],
+        {"kernel": (1, 1), "num_filter": 64, "no_bias": True,
+         "layout": "NHWC"})
+    U_ = S["up"]
+    add("Deconvolution", lambda g: [_u(g, U_), _u(g, (U_[1], U_[1] // 2, 2,
+                                                      2), -0.1, 0.1)],
+        {"kernel": (2, 2), "stride": (2, 2), "num_filter": U_[1] // 2})
+    add("UpSampling", lambda g: [_u(g, U_)], {"scale": 2,
+                                              "sample_type": "nearest"})
+    add("UpSampling", lambda g: [_u(g, U_)], {"scale": 2,
+                                              "sample_type": "bilinear"},
+        label="UpSampling bilinear")
+    add("BilinearResize2D", lambda g: [_u(g, U_)],
+        {"height": 2 * U_[2], "width": 2 * U_[3]})
+    add("Pooling", lambda g: [_u(g, NC)], {"kernel": (3, 3), "stride": (2, 2),
+                                           "pad": (1, 1), "pool_type": "max"})
+    ch = (NC[1],)
+    add("BatchNorm", lambda g: [_u(g, NC), _u(g, ch, 0.5, 1.5), _u(g, ch),
+                                torch.zeros(ch, device=g.device),
+                                torch.ones(ch, device=g.device)],
+        {"fix_gamma": False, "training": True}, grad=[0, 1, 2])
+    add("LayerNorm", lambda g: [_u(g, H), _u(g, (H[2],), 0.5, 1.5),
+                                _u(g, (H[2],))])
+    add("GroupNorm", lambda g: [_u(g, NC), _u(g, ch, 0.5, 1.5), _u(g, ch)],
+        {"num_groups": NC[1] // 8})
+    add("InstanceNorm", lambda g: [_u(g, NC), _u(g, ch, 0.5, 1.5),
+                                   _u(g, ch)])
+    add("L2Normalization", lambda g: [_u(g, NC)])
+    add("LRN", lambda g: [_u(g, NC)], {"nsize": 5})
+    add("Dropout", lambda g: [_u(g, H, 0.5, 1.0)],
+        {"p": 0.5, "training": True}, compare="dropout")
+
+    # the loss layers
+    add("SoftmaxOutput", lambda g: [_u(g, LS, -4.0, 4.0),
+                                    _ints(g, (LS[0],), -1, LS[1])],
+        {"use_ignore": True, "normalization": "valid"}, grad=[0])
+    for n in ("LinearRegressionOutput", "MAERegressionOutput",
+              "LogisticRegressionOutput"):
+        add(n, lambda g: [_u(g, LS), _u(g, LS, 0.0, 1.0)], grad=[0])
+    add("MakeLoss", lambda g: [_u(g, LS)], {"normalization": "batch"})
+    T_c, B_c, A_c, S_c = S["ctc"]
+
+    def ctc_labels(g):
+        lab = _ints(g, (B_c, S_c), 1, A_c)
+        keep = torch.arange(S_c, device=g.device)[None] < _ints(
+            g, (B_c, 1), S_c // 2, S_c + 1)
+        return lab * keep
+
+    add("CTCLoss", lambda g: [_u(g, (T_c, B_c, A_c), -2.0, 2.0),
+                              ctc_labels(g)], grad=[0])
+    add("CTCLoss", lambda g: [
+        _u(g, (T_c, B_c, A_c), -2.0, 2.0), ctc_labels(g),
+        _ints(g, (B_c,), T_c // 2, T_c + 1), _ints(g, (B_c,), 1, S_c // 2)],
+        {"use_data_lengths": True, "use_label_lengths": True}, grad=[0],
+        label="CTCLoss (lengths)")
+
+    # the fused RNN at the LM's widths
+    from mxnet_tpu_torch.ops.nn import rnn_param_size
+
+    T_r, N_r, C_r, L_r = S["rnn"]
+    add("RNN", lambda g: [
+        _u(g, (T_r, N_r, C_r)),
+        _u(g, (rnn_param_size("lstm", C_r, C_r, L_r),), -0.05, 0.05),
+        _u(g, (L_r, N_r, C_r)), _u(g, (L_r, N_r, C_r))],
+        {"state_size": C_r, "num_layers": L_r, "mode": "lstm",
+         "state_outputs": True})
+
+    # the spatial transformer family
+    ST = S["stn"]
+    theta = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+
+    def loc(g):
+        return torch.tensor(theta, dtype=torch.float64, device=g.device) + \
+            _u(g, (ST[0], 6), -0.1, 0.1, dtype=torch.float64)
+
+    add("GridGenerator", lambda g: [loc(g)],
+        {"transform_type": "affine", "target_shape": ST[2:]})
+    add("GridGenerator", lambda g: [_u(g, (ST[0], 2) + ST[2:], -2.0, 2.0)],
+        {"transform_type": "warp"}, label="GridGenerator warp")
+    add("BilinearSampler", lambda g: [_u(g, ST), _u(g, (ST[0], 2) + ST[2:],
+                                                    -1.1, 1.1)])
+    # the affine grid's matmul rounds differently on the card, and in fp32
+    # one ulp of a position (up to 223) moves it across a pixel edge, where
+    # the sampler's derivative jumps: loc's gradient differs by ~1e-2
+    # between devices in fp32, so this call runs in fp64
+    add("SpatialTransformer", lambda g: [_u(g, ST, dtype=torch.float64),
+                                         loc(g)],
+        {"target_shape": ST[2:], "transform_type": "affine",
+         "sampler_type": "bilinear"})
+    return cases
+
+
+def op_table_definitions():
+    """The canonical names of every op the port's ops/tensor.py and
+    ops/nn.py register."""
+    from mxnet_tpu_torch.ops.registry import OP_TABLE
+
+    return {od.name for od in OP_TABLE.values()
+            if od.fn.__module__.endswith((".ops.tensor", ".ops.nn"))}
+
+
+def check_op_coverage(cases):
+    missing = sorted(op_table_definitions() - {c.name for c in cases})
+    check(not missing, f"phase 8 covers no call of {missing}")
+
+
+_HOST_READS = ("cpu", "item", "tolist", "numpy", "__array__")
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Fail any tensor read back to the host (``.cpu()``, ``.item()``,
+    ``.tolist()``, ``.numpy()``) inside the block: an op on the card keeps
+    its result there (a data-dependent size synchronises inside
+    ``nonzero``, which reads nothing back through these)."""
+    saved = {name: getattr(torch.Tensor, name) for name in _HOST_READS}
+
+    def refuse(self, *args, **kwargs):
+        raise SystemExit("CHECK FAILED: an op read a tensor back to the "
+                         "host")
+
+    for name in saved:
+        setattr(torch.Tensor, name, refuse)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
+
+
+def run_op_case(case, inputs, device, head):
+    """The case's outputs and gradients (on ``device``) with ``inputs``
+    copied there, through ``invoke`` under ``autograd.record()``;
+    ``head(shape, dtype)`` gives the head gradient.  The call itself runs
+    under no_host_reads, and every output must lie on ``device``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ndarray.ndarray import invoke
+    from mxnet_tpu_torch.ops.registry import OP_TABLE
+
+    ctx = mx.Context.from_device(torch.device(device))
+    nds = [mx.nd.array(t, ctx=ctx, dtype=t.dtype) for t in inputs]
+    sel = case.grad
+    if sel is None:
+        sel = [i for i, t in enumerate(inputs) if t.is_floating_point()] \
+            if OP_TABLE[case.name].differentiable else []
+    for i in sel:
+        nds[i].attach_grad()
+    kw = {"ctx": ctx} if case.creation else {}
+    with autograd.record(), no_host_reads():
+        out = invoke(case.name, nds, dict(case.attrs), **kw)
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    for o in outs:
+        check(o._data.device.type == torch.device(device).type,
+              f"{case.label}: an output lies on {o._data.device}, not "
+              f"{device}")
+    grads = []
+    if sel:
+        top = outs[case.head_out]._data
+        outs[case.head_out].backward(mx.nd.array(
+            head(top.shape, top.dtype), ctx=ctx, dtype=top.dtype))
+        grads = [nds[i].grad._data for i in sel]
+    return [o._data.detach() for o in outs], grads
+
+
+def op_deviation(cand, ref):
+    """Max |cand - ref| over max(1, max |ref|), NaN where ref has NaN; inf
+    for another dtype or shape, or a differing integer or bool."""
+    if cand.dtype != ref.dtype or cand.shape != ref.shape:
+        return math.inf
+    if not (ref.is_floating_point() or ref.is_complex()):
+        return 0.0 if torch.equal(cand, ref) else math.inf
+    nan = torch.isnan(ref)
+    if not torch.equal(torch.isnan(cand), nan):
+        return math.inf
+    if bool(nan.all()):
+        return 0.0
+    c = cand.double().masked_fill(nan, 0.0)
+    r = ref.double().masked_fill(nan, 0.0)
+    scale = max(1.0, r.abs().max().item())
+    return (c - r).abs().max().item() / scale
+
+
+def _svd_aligned(cand, ref):
+    u, s, vt = cand
+    sign = torch.sign((u * ref[0]).sum(dim=-2, keepdim=True))
+    return [u * sign, s, vt * sign.transpose(-1, -2)]
+
+
+def check_op_case(case, seed, device, dtype=None, fault=None):
+    """Hold ``case`` on ``device`` to the CPU (module docstring, phase 8
+    (a)): the inputs and the head gradient are drawn on ``device`` from
+    ``seed`` and copied to the CPU; ``dtype`` recasts the float32 inputs
+    (fp64 for the CPU tests); ``fault`` a context manager planted around
+    the candidate's call only.  Returns the worst deviation, computed on
+    ``device``."""
+    inputs = case.make(torch.Generator(device=device).manual_seed(seed))
+    if dtype is not None:
+        inputs = [t.to(dtype) if t.dtype == torch.float32 else t
+                  for t in inputs]
+    heads = {}
+
+    def head(shape, dt):
+        if (shape, dt) not in heads:
+            g = torch.Generator(device=device).manual_seed(seed + 1)
+            draw = dt if dt == torch.float64 else torch.float32
+            heads[shape, dt] = torch.randn(shape, generator=g, dtype=draw,
+                                           device=device).to(dt)
+        return heads[shape, dt]
+
+    with fault or contextlib.nullcontext():
+        outs, grads = run_op_case(case, inputs, device, head)
+    ref_outs, ref_grads = run_op_case(case, [t.cpu() for t in inputs],
+                                      "cpu", head)
+    ref_outs = [r.to(device) for r in ref_outs]
+    ref_grads = [r.to(device) for r in ref_grads]
+    check(len(outs) == len(ref_outs), f"{case.label}: {len(outs)} outputs, "
+                                      f"the CPU gives {len(ref_outs)}")
+    for o, r in zip(outs, ref_outs):
+        check(o.dtype == r.dtype and o.shape == r.shape,
+              f"{case.label}: {o.dtype} {tuple(o.shape)}, the CPU gives "
+              f"{r.dtype} {tuple(r.shape)}")
+    if case.compare == "permutation":
+        x = inputs[0]
+        perm = outs[0][:, 0].long()
+        check(torch.equal(torch.sort(perm).values,
+                          torch.arange(len(x), device=perm.device))
+              and torch.equal(outs[0], x[perm]),
+              f"{case.label}: not a permutation of the rows")
+        return 0.0
+    if case.compare == "dropout":
+        x, y = inputs[0], outs[0]
+        dropped = (y == 0).double().mean().item()
+        kept = y != 0
+        p = case.attrs["p"]
+        spread = 5 * math.sqrt(p * (1 - p) / y.numel())    # 5 sigma
+        check(abs(dropped - p) < spread and torch.allclose(
+            y[kept], (x / (1 - p)).to(y.dtype)[kept]),
+            f"{case.label}: {dropped:.4f} dropped, p = {p}")
+        return 0.0
+    if case.compare == "svd":
+        outs = _svd_aligned(outs, ref_outs)
+    devs = [op_deviation(o, r) for o, r in zip(outs, ref_outs)]
+    devs += [op_deviation(c, r) for c, r in zip(grads, ref_grads)]
+    worst = max(devs)
+    check(worst <= OP_TOL, f"{case.label}: deviation {worst:.3e} from the "
+                           f"CPU exceeds {OP_TOL:g} (outputs, then "
+                           f"gradients: {[f'{d:.1e}' for d in devs]})")
+    return worst
+
+
+def op_table_checks(seed, device, shapes=OP_SHAPES, dtype=None):
+    """Phase 8 (a): every case of op_cases(shapes), after the coverage
+    check.  Returns {label: worst deviation}."""
+    cases = op_cases(shapes)
+    check_op_coverage(cases)
+    devs, secs = {}, {}
+    for i, c in enumerate(cases):
+        t0 = time.perf_counter()
+        devs[c.label] = check_op_case(c, seed + i, device, dtype)
+        secs[c.label] = time.perf_counter() - t0
+    slow = sorted(secs, key=secs.get, reverse=True)[:12]
+    log("  slowest calls (s, card and CPU): " + ", ".join(
+        f"{label} {secs[label]:.2f}" for label in slow))
+    return devs
+
+
+@contextlib.contextmanager
+def planted_op_fault(fault):
+    """A fault in one op of the table: "argsort_int64" (indices as int64),
+    "topk_flipped" (is_ascend inverted) or "where_index_host" (the
+    coordinates computed through the host)."""
+    from mxnet_tpu_torch.ops.registry import OP_TABLE
+
+    name = {"argsort_int64": "argsort", "topk_flipped": "topk",
+            "where_index_host": "where_index"}[fault]
+    od = OP_TABLE[name]
+    orig = od.fn
+    if fault == "argsort_int64":
+        def faulty(x, **kw):
+            return orig(x, **kw).long()
+    elif fault == "topk_flipped":
+        def faulty(x, is_ascend=False, **kw):
+            return orig(x, is_ascend=not is_ascend, **kw)
+    else:
+        def faulty(x):
+            return torch.nonzero(x.cpu()).to(torch.int32).to(x.device)
+    od.fn = faulty
+    try:
+        yield
+    finally:
+        od.fn = orig
+
+
+# (b) the "medium" PTB LSTM of Zaremba et al. 2014, "Recurrent Neural
+# Network Regularization" (arXiv:1409.2329), as MXNet's word-language-model
+# examples reproduce it: vocabulary 10000, embedding 650, 2 LSTM layers of
+# 650, unrolled 35 steps, batch 20, dropout 0.5 on the non-recurrent
+# connections, weights uniform in [-0.05, 0.05]; random weights and token
+# ids from --seed (no dataset)
+LM_CFG = dict(vocab=10000, embed=650, hidden=650, layers=2, steps=35,
+              batch=20, dropout=0.5)
+LM_LR = 1.0
+LM_WARMUP, LM_TIMED = 2, 20
+LM_BOUND = 1e-3
+LM_NAMES = ("embed_weight", "rnn_parameters", "fc_weight", "fc_bias",
+            "state_h", "state_c")
+LM_KERNEL_GROUPS = (
+    ("gemm", ("gemm", "sm90", "cutlass", "xmma", "ampere", "cublas")),
+    ("softmax", ("softmax",)),
+    ("embedding", ("embedding", "index", "gather", "scatter")),
+    ("reduce", ("reduce",)),
+    ("copies", ("copy", "Memcpy", "Memset", "cat", "fill")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "sigmoid",
+                     "tanh", "bernoulli")))
+
+
+def lm_init(cfg, seed):
+    """The LM's parameters (CPU fp32) and one batch of token ids and
+    next-token labels (T, batch), from ``seed``."""
+    from mxnet_tpu_torch.ops.nn import rnn_param_size
+
+    g = torch.Generator().manual_seed(seed)
+    V, E, H = cfg["vocab"], cfg["embed"], cfg["hidden"]
+    params = {
+        "embed_weight": _u(g, (V, E), -0.05, 0.05),
+        "rnn_parameters": _u(g, (rnn_param_size("lstm", E, H,
+                                                cfg["layers"]),),
+                             -0.05, 0.05),
+        "fc_weight": _u(g, (V, H), -0.05, 0.05),
+        "fc_bias": torch.zeros(V)}
+    tokens = torch.randint(0, V, (cfg["steps"] + 1, cfg["batch"]),
+                           generator=g).float()
+    return params, tokens[:-1], tokens[1:]
+
+
+def lm_step(params, ids, labels, states, cfg, p_drop, lr):
+    """One SGD step of the LM through mx.nd on the arrays' context: Embedding
+    -> Dropout -> RNN (lstm, state_outputs) -> Dropout -> FullyConnected ->
+    SoftmaxOutput (its gradient, the mean cross entropy's: grad_scale
+    1 / tokens under normalization "null"), then w -= lr * grad.
+    ``params`` (NDArrays, updated in place), ``states`` [h, c]; returns
+    (probabilities, [h, c] detached)."""
+    from mxnet_tpu_torch import autograd, nd
+
+    H = cfg["hidden"]
+    n_tok = cfg["steps"] * cfg["batch"]
+    for v in params.values():
+        v.attach_grad()
+    with autograd.record():
+        x = nd.Embedding(ids, params["embed_weight"],
+                         input_dim=cfg["vocab"], output_dim=cfg["embed"])
+        x = nd.Dropout(x, p=p_drop, training=True)
+        out, h, c = nd.RNN(x, params["rnn_parameters"], *states,
+                           state_size=H, num_layers=cfg["layers"],
+                           mode="lstm", p=p_drop, training=True,
+                           state_outputs=True)
+        out = nd.Dropout(out, p=p_drop, training=True)
+        logits = nd.FullyConnected(out.reshape((-1, H)),
+                                   params["fc_weight"], params["fc_bias"],
+                                   num_hidden=cfg["vocab"])
+        prob = nd.SoftmaxOutput(logits, labels.reshape((-1,)),
+                                grad_scale=1.0 / n_tok,
+                                normalization="null")
+    prob.backward()
+    for v in params.values():
+        v -= lr * v.grad
+    return prob, [h.detach(), c.detach()]
+
+
+def lm_loss(prob, labels):
+    """Mean cross entropy of the step's probabilities."""
+    from mxnet_tpu_torch import nd
+
+    return -nd.log(nd.pick(prob, labels.reshape((-1,)), axis=1)).mean()
+
+
+def lm_step_result(cfg, seed, device, dtype):
+    """One step at dropout 0 from zero state: (loss, before, after) over
+    LM_NAMES (the final h and c as tensors whose "before" is zero), all
+    CPU tensors; checks every parameter has a non-zero gradient."""
+    import mxnet_tpu_torch as mx
+
+    params, ids, labels = lm_init(cfg, seed)
+    ctx = mx.Context.from_device(torch.device(device))
+    p = {k: mx.nd.array(v, ctx=ctx, dtype=dtype) for k, v in params.items()}
+    shape = (cfg["layers"], cfg["batch"], cfg["hidden"])
+    states = [mx.nd.zeros(shape, ctx=ctx, dtype=dtype) for _ in range(2)]
+    ids_nd = mx.nd.array(ids, ctx=ctx)
+    labels_nd = mx.nd.array(labels, ctx=ctx)
+    prob, (h, c) = lm_step(p, ids_nd, labels_nd, states, cfg, 0.0, LM_LR)
+    for k, v in p.items():
+        check(bool((v.grad._data != 0).any()),
+              f"LM step on {device}: {k} has a zero gradient")
+    loss = lm_loss(prob, labels_nd).asscalar().item()
+    before = [params[k].to(dtype) for k in LM_NAMES[:4]] + \
+        [torch.zeros(shape, dtype=dtype)] * 2
+    after = [p[k]._data.cpu() for k in LM_NAMES[:4]] + \
+        [h._data.cpu(), c._data.cpu()]
+    return loss, before, after
+
+
+@contextlib.contextmanager
+def planted_lm_fault(fault):
+    """A fault in the LM's path: "gates_if" (the i and f gate blocks of
+    the flat layout swapped), "first_h" (state_outputs' h taken from the
+    first step) or "null_batch" (SoftmaxOutput divides by the batch under
+    normalization "null")."""
+    from mxnet_tpu_torch.ops import nn as nn_mod
+    from mxnet_tpu_torch.ops.registry import OP_TABLE
+
+    if fault == "gates_if":
+        target, attr = nn_mod, "_rnn_cell"
+        orig = nn_mod._rnn_cell
+
+        def swap(t, dim):
+            i, f, rest = t.split([t.shape[dim] // 4] * 2 + [
+                t.shape[dim] // 2], dim=dim)
+            return torch.cat([f, i, rest], dim=dim)
+
+        def faulty(mode, i2h_t, h, c, wh, bh, clip):
+            return orig(mode, swap(i2h_t, -1), h, c, swap(wh, 0),
+                        swap(bh, 0), clip)
+    elif fault == "first_h":
+        target, attr = nn_mod, "_rnn_direction"
+        orig = nn_mod._rnn_direction
+
+        def faulty(*args):
+            hs, h, c = orig(*args)
+            return hs, hs[0], c
+    else:
+        target, attr = OP_TABLE["SoftmaxOutput"], "fn"
+        orig = target.fn
+
+        def faulty(data, label, normalization="null", **kw):
+            return orig(data, label, normalization="batch"
+                        if normalization == "null" else normalization, **kw)
+    setattr(target, attr, faulty)
+    try:
+        yield
+    finally:
+        setattr(target, attr, orig)
+
+
+def lm_step_check(cfg, seed, device, dtype, ref=None, fault=None):
+    """Hold the step on ``device`` in ``dtype`` to the CPU's fp64 step
+    (``ref``, computed if None) with compare_steps; returns (ratio, ref)."""
+    if ref is None:
+        ref = lm_step_result(cfg, seed, "cpu", torch.float64)
+    planted = planted_lm_fault(fault) if fault else contextlib.nullcontext()
+    with planted:
+        cand = lm_step_result(cfg, seed, device, dtype)
+    ratio, where = compare_steps(cand, ref, LM_NAMES)
+    return ratio, where, ref
+
+
+def lm_timing(cfg, seed):
+    """LM_WARMUP + LM_TIMED steps at dropout cfg["dropout"] on the card,
+    the state carried from step to step: tokens/s, ms/step, peak memory,
+    falling loss, and a profiled pass by kernel group."""
+    import mxnet_tpu_torch as mx
+
+    params, ids, labels = lm_init(cfg, seed)
+    ctx = mx.gpu(0)
+    p = {k: mx.nd.array(v, ctx=ctx) for k, v in params.items()}
+    shape = (cfg["layers"], cfg["batch"], cfg["hidden"])
+    states = [mx.nd.zeros(shape, ctx=ctx) for _ in range(2)]
+    ids_nd, labels_nd = mx.nd.array(ids, ctx=ctx), mx.nd.array(labels,
+                                                               ctx=ctx)
+    mx.random.seed(seed)
+
+    def steps(n):
+        nonlocal states
+        prob = None
+        for _ in range(n):
+            prob, states = lm_step(p, ids_nd, labels_nd, states, cfg,
+                                   cfg["dropout"], LM_LR)
+        return prob
+
+    loss0 = lm_loss(steps(LM_WARMUP), labels_nd).asscalar().item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prob = steps(LM_TIMED)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / LM_TIMED * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = lm_loss(prob, labels_nd).asscalar().item()
+    tokens = cfg["steps"] * cfg["batch"]
+    check(math.isfinite(loss) and loss < loss0,
+          f"the LM's loss did not fall: {loss0:.4f} -> {loss:.4f}")
+    log(f"  [{gpu_line()}] LM step: {ms:.3f} ms, {tokens / ms * 1e3:.0f} "
+        f"tokens/s ({tokens} a step), peak memory {peak:.3f} GiB, loss "
+        f"{loss0:.4f} -> {loss:.4f} over {LM_TIMED} steps")
+    log_device_profile(lambda: steps(3), LM_KERNEL_GROUPS, steps=3,
+                       step_ms=ms)
+    return ms, params
+
+
+def lstm_yardstick(cfg, params, seed):
+    """The LM's two LSTM layers as the port's RNN op and as torch.nn.LSTM
+    (cuDNN) with the same weights on the same input: outputs agree, and
+    each one's forward + backward time (CUDA events).  A yardstick for a
+    later cuDNN route; nothing in the port calls torch.nn.LSTM."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ops.nn import _rnn_param_layout
+
+    E, H, nl = cfg["embed"], cfg["hidden"], cfg["layers"]
+    flat = params["rnn_parameters"].cuda()
+    lstm = torch.nn.LSTM(E, H, nl).cuda()
+    pieces, off = [], 0
+    for _, shp in _rnn_param_layout("lstm", E, H, nl, 1):
+        pieces.append(flat[off:off + math.prod(shp)].reshape(shp))
+        off += math.prod(shp)
+    with torch.no_grad():
+        for layer in range(nl):
+            getattr(lstm, f"weight_ih_l{layer}").copy_(pieces[2 * layer])
+            getattr(lstm, f"weight_hh_l{layer}").copy_(pieces[2 * layer + 1])
+            getattr(lstm, f"bias_ih_l{layer}").copy_(pieces[2 * nl
+                                                            + 2 * layer])
+            getattr(lstm, f"bias_hh_l{layer}").copy_(
+                pieces[2 * nl + 2 * layer + 1])
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((cfg["steps"], cfg["batch"], E), generator=g,
+                   device="cuda") * 2 - 1
+    head = torch.randn((cfg["steps"], cfg["batch"], H), generator=g,
+                       device="cuda")
+    x_nd = mx.nd.array(x, ctx=mx.gpu(0))
+    p_nd = mx.nd.array(flat, ctx=mx.gpu(0))
+    x_nd.attach_grad()
+    p_nd.attach_grad()
+
+    def port():
+        with autograd.record():
+            out = mx.nd.RNN(x_nd, p_nd, state_size=H, num_layers=nl,
+                            mode="lstm")
+        out.backward(mx.nd.array(head, ctx=mx.gpu(0)))
+        return out
+
+    xt = x.clone().requires_grad_(True)
+
+    def cudnn():
+        out, _ = lstm(xt)
+        out.backward(head)
+        return out
+
+    err = (port()._data - cudnn()).abs().max().item()
+    check(err <= OP_TOL, f"the RNN op and torch.nn.LSTM disagree by {err}")
+    port_ms, cudnn_ms = cuda_time_ms(port, iters=10), cuda_time_ms(cudnn,
+                                                                  iters=10)
+    log(f"  [{gpu_line()}] two LSTM layers, T {cfg['steps']}, batch "
+        f"{cfg['batch']}, width {H}, forward + backward: the port's RNN op "
+        f"{port_ms:.3f} ms, torch.nn.LSTM (cuDNN) {cudnn_ms:.3f} ms "
+        f"({port_ms / cudnn_ms:.2f}x); outputs agree to {err:.2e}")
+    return port_ms, cudnn_ms
+
+
+# (c) benchmark/opperf.py's DEFAULT_SUITE (its rows, copied), through the
+# port's invoke at its own shapes: inputs uniform in [0.5, 1.5] as opperf
+# makes them; (op, inputs, attrs, backward, (flops, bytes) of the forward)
+def _gemm(m, k, n, batch=1):
+    return 2 * batch * m * k * n, 4 * batch * (m * k + k * n + m * n)
+
+
+OPPERF_SUITE = [
+    ("exp", [(1024, 1024)], {}, True, (2**20, 8 * 2**20)),
+    ("sqrt", [(1024, 1024)], {}, True, (2**20, 8 * 2**20)),
+    ("elemwise_add", [(1024, 1024), (1024, 1024)], {}, True,
+     (2**20, 12 * 2**20)),
+    ("broadcast_mul", [(1024, 1024), (1, 1024)], {}, True,
+     (2**20, 8 * 2**20 + 4096)),
+    ("sum", [(1024, 1024)], {"axis": 1}, True, (2**20, 4 * 2**20 + 4096)),
+    ("dot", [(512, 512), (512, 512)], {}, True, _gemm(512, 512, 512)),
+    ("batch_dot", [(8, 256, 256), (8, 256, 256)], {}, True,
+     _gemm(256, 256, 256, 8)),
+    ("FullyConnected", [(128, 512), (256, 512), (256,)], {"num_hidden": 256},
+     True, (2 * 128 * 512 * 256, 4 * (128 * 512 + 256 * 512 + 256
+                                      + 128 * 256))),
+    ("Convolution", [(8, 32, 56, 56), (64, 32, 3, 3)],
+     {"kernel": (3, 3), "pad": (1, 1), "num_filter": 64, "no_bias": True},
+     True, (2 * 8 * 64 * 56 * 56 * 32 * 9,
+            4 * (8 * 32 * 56 * 56 + 64 * 32 * 9 + 8 * 64 * 56 * 56))),
+    ("Pooling", [(8, 32, 56, 56)],
+     {"kernel": (2, 2), "stride": (2, 2), "pool_type": "max"}, False,
+     (8 * 32 * 56 * 56, 4 * 8 * 32 * (56 * 56 + 28 * 28))),
+    ("softmax", [(128, 1024)], {}, True, (5 * 128 * 1024, 8 * 128 * 1024)),
+    ("topk", [(128, 1024)], {"k": 8}, False,
+     (128 * 1024, 4 * (128 * 1024 + 128 * 8))),
+]
+
+
+def opperf_rows(seed):
+    """Each row: the eager ms per call (host included), the device ms (a
+    replayed CUDA graph of the calls) and the bound, forward; and the
+    eager forward + backward ms where opperf runs the backward."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ndarray.ndarray import invoke
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for op, shapes, attrs, backward, (flops, nbytes) in OPPERF_SUITE:
+        args = [mx.nd.array(torch.rand(s, generator=g, device="cuda") + 0.5,
+                            ctx=mx.gpu(0)) for s in shapes]
+
+        def fwd():
+            return invoke(op, args, dict(attrs))
+
+        eager = cuda_time_ms(fwd)
+        device = graph_time_ms(fwd)
+        bound = max(flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES)
+        bound_by = "operations" if flops / PEAK_FLOPS[torch.float32] > \
+            nbytes / PEAK_BYTES else "bytes"
+        row = {"op": op, "eager_ms": eager, "device_ms": device,
+               "bound_ms": bound * 1e3, "bound_by": bound_by}
+        if backward:
+            for a in args:
+                a.attach_grad()
+
+            def both():
+                with autograd.record():
+                    out = invoke(op, args, dict(attrs))
+                    out = out[0] if isinstance(out, list) else out
+                out.backward()
+
+            row["eager_fwd_bwd_ms"] = cuda_time_ms(both)
+        log(f"  [{gpu_line()}] {op:15s} eager {eager:.4f} ms, device "
+            f"{device:.4f} ms, bound {bound * 1e3:.4f} ms ({bound_by})"
+            + (f", eager forward + backward {row['eager_fwd_bwd_ms']:.4f} "
+               f"ms" if backward else ""))
+        rows.append(row)
+    return rows
+
+
+def op_table_phase(seed):
+    """Phase 8: (a), (b) and (c); returns flash_attn_fwd's launches over
+    the phase (the op table launches none)."""
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+
+    fa_mod._flash_fwd_cuda.launches = 0
+    log(f"== op table 1: every op definition of the tensor and nn families "
+        f"on the card against the CPU, fp32 (linalg fp64), TF32 off, "
+        f"tolerance {OP_TOL:g}")
+    t0 = time.perf_counter()
+    devs = op_table_checks(seed, "cuda")
+    worst = max(devs, key=devs.get)
+    log(f"  {len(devs)} calls, {len(op_table_definitions())} definitions "
+        f"in {time.perf_counter() - t0:.1f} s; worst deviation "
+        f"{devs[worst]:.3e} ({worst})")
+    for label in sorted(devs, key=devs.get, reverse=True)[:10]:
+        log(f"    {devs[label]:.3e}  {label}")
+
+    cfg = LM_CFG
+    log(f"== op table 2: the medium PTB LSTM LM (Zaremba et al. 2014) "
+        f"through mx.nd: {cfg}, SGD {LM_LR}; one step at dropout 0 on the "
+        f"card in fp32 against the CPU's fp64 step, bound {LM_BOUND:g}")
+    ratio, where, ref = lm_step_check(cfg, seed, "cuda", torch.float32)
+    log(f"  fp32 step: worst deviation {ratio:.3e} of the update ({where})")
+    check(ratio <= LM_BOUND, f"the LM step deviates {ratio:.3e} at {where}")
+    for fault in ("gates_if", "first_h", "null_batch"):
+        r, w, _ = lm_step_check(cfg, seed, "cuda", torch.float32, ref=ref,
+                                fault=fault)
+        log(f"  planted {fault}: deviation {r:.3e} ({w})")
+        check(r > LM_BOUND, f"the LM check passed planted fault {fault}")
+    ms, params = lm_timing(cfg, seed)
+    lstm_yardstick(cfg, params, seed)
+
+    log("== op table 3: benchmark/opperf.py's DEFAULT_SUITE through the "
+        "port's invoke, fp32")
+    opperf_rows(seed)
+    return fa_mod._flash_fwd_cuda.launches
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3144,6 +4139,9 @@ def main():
                              "fleet")
     parser.add_argument("--fleet-replica-log", metavar="PATH",
                         help="with --fleet-replica: where its stderr goes")
+    parser.add_argument("--op-table", action="store_true",
+                        help="run only the build and phase 8, the mx.nd "
+                             "op table")
     parser.add_argument("--bert-step-seeds", type=int, nargs="+",
                         metavar="SEED",
                         help="run only the build and the BERT-base step "
@@ -3191,6 +4189,13 @@ def main():
                 f"{seed}: {r:.3f}" for seed, r in ratios.items()))
         return 0
 
+    if args.op_table:
+        log("== the mx.nd op table (phase 8 alone)")
+        n = op_table_phase(args.seed)
+        check(n == 0, f"flash_attn_fwd launched {n} times on the op table")
+        log(f"== done in {time.perf_counter() - t_all:.1f} s")
+        return 0
+
     log("== kernels vs plain versions")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
@@ -3224,10 +4229,22 @@ def main():
 
     log("== Llama training: Llama-3-8B widths")
     launches.update(llama_phase(args.seed))
-    log(f"  llama phase took {time.perf_counter() - t3:.1f} s")
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    log(f"  llama phase took {t4 - t3:.1f} s")
+
+    log("== the mx.nd op table: the tensor and nn families, the LSTM LM")
+    n_op_table = op_table_phase(args.seed)
+    check(n_op_table == 0, f"flash_attn_fwd launched {n_op_table} times on "
+                           f"the op table")
+    log(f"  op table phase took {time.perf_counter() - t4:.1f} s")
     for path, n in launches.items():
         check(n > 0, f"flash_attn_fwd never ran on the {path} path")
         row["by_path"][path]["launches"] = n
+    # the op table path runs plain PyTorch and library calls only
+    row["by_path"]["op_table"] = {
+        "shape": "medium PTB LSTM LM: vocab 10000, 2 x 650, T 35, batch 20",
+        "launches": n_op_table}
     row["launches"] = launches["serve_fleet"]
 
     log(f"== done in {time.perf_counter() - t_all:.1f} s")

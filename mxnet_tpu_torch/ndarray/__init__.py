@@ -1,6 +1,10 @@
 """The ``mx.nd`` namespace: one function per op of the table, generated at
-import (counterpart of ``mxnet_tpu/ndarray/__init__.py``), plus
-``array`` / ``zeros`` / ``ones`` with MXNet's positional signatures."""
+import (counterpart of ``mxnet_tpu/ndarray/__init__.py``), the helpers
+with MXNet's positional signatures (``array``, ``zeros``, ``ones``,
+``full``, ``empty``, ``arange``, ``eye``, ``concat``, ``stack``,
+``add_n``, the ``*_like`` ops, the scalar-tolerant ``maximum`` /
+``minimum`` / ``power`` and ``dot``), and the ``linalg`` and ``contrib``
+namespaces."""
 from __future__ import annotations
 
 import inspect as _inspect
@@ -10,11 +14,14 @@ import numpy as _np
 import torch as _torch
 
 from .. import ops as _ops  # noqa: F401  (populates the table)
+from ..base import MXNetError
 from ..ops.registry import OP_TABLE, list_ops
 from .ndarray import NDArray, array, invoke, waitall
 
-__all__ = ["NDArray", "array", "invoke", "waitall", "zeros", "ones",
-           "list_ops"]
+__all__ = ["NDArray", "array", "invoke", "waitall", "zeros", "ones", "full",
+           "empty", "arange", "eye", "concat", "stack", "add_n",
+           "zeros_like", "ones_like", "maximum", "minimum", "power", "dot",
+           "list_ops", "linalg", "contrib"]
 
 
 def _make_op_func(opname, od):
@@ -56,8 +63,15 @@ for _name in list(OP_TABLE):
         setattr(_mod, _name, _make_op_func(_name, OP_TABLE[_name]))
 
 
+# -- helpers with MXNet's positional signatures ----------------------------
 def _shape_t(shape):
     return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+def _arrays(arrays):
+    if len(arrays) == 1 and isinstance(arrays[0], (list, tuple)):
+        return list(arrays[0])
+    return list(arrays)
 
 
 def zeros(shape, ctx=None, dtype="float32", **kw):
@@ -68,3 +82,99 @@ def zeros(shape, ctx=None, dtype="float32", **kw):
 def ones(shape, ctx=None, dtype="float32", **kw):
     return invoke("ones", [], {"shape": _shape_t(shape), "dtype": dtype},
                   ctx=ctx)
+
+
+def full(shape, val, ctx=None, dtype="float32", **kw):
+    return invoke("full", [], {"shape": _shape_t(shape), "val": val,
+                               "dtype": dtype}, ctx=ctx)
+
+
+def empty(shape, ctx=None, dtype="float32"):
+    return zeros(shape, ctx=ctx, dtype=dtype)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
+    return invoke("arange", [], {"start": start, "stop": stop, "step": step,
+                                 "repeat": repeat, "dtype": dtype}, ctx=ctx)
+
+
+def eye(N, M=0, k=0, ctx=None, dtype="float32"):
+    return invoke("eye", [], {"N": N, "M": M, "k": k, "dtype": dtype},
+                  ctx=ctx)
+
+
+def concat(*arrays, dim=1, **kw):
+    return invoke("concat", _arrays(arrays), {"dim": dim})
+
+
+def stack(*arrays, axis=0, **kw):
+    return invoke("stack", _arrays(arrays), {"axis": axis})
+
+
+def add_n(*arrays, **kw):
+    return invoke("add_n", _arrays(arrays), {})
+
+
+def zeros_like(a, **kw):
+    return invoke("zeros_like", [a], {})
+
+
+def ones_like(a, **kw):
+    return invoke("ones_like", [a], {})
+
+
+_dense_dot = dot   # generated from the op table above
+
+
+def dot(lhs, rhs, transpose_a=False, transpose_b=False, out=None, **kw):
+    """The dense product of the op table.  A sparse operand (the CSR
+    product) waits for the port of ``ndarray/sparse.py`` and raises."""
+    for a in (lhs, rhs):
+        if getattr(a, "stype", "default") != "default":
+            raise MXNetError("dot: sparse storage is not ported yet (it "
+                             "waits for ndarray/sparse.py)")
+    return _dense_dot(lhs, rhs, transpose_a=transpose_a,
+                      transpose_b=transpose_b, out=out, **kw)
+
+
+def _scalar_tolerant(opname, scalar_op):
+    """``opname`` with a Python scalar on either side: the scalar rides as
+    the attribute of ``scalar_op`` in the array's dtype family (an int for
+    an integer array), so it promotes nothing; two scalars give a
+    one-element float32 array."""
+    base_fn = getattr(_mod, opname)
+
+    def fn(lhs, rhs, *args, out=None, ctx=None, **kw):
+        lhs_s = isinstance(lhs, (int, float))
+        rhs_s = isinstance(rhs, (int, float))
+        if lhs_s and rhs_s:
+            res = array(getattr(_np, opname)(
+                _np.float32(lhs), _np.float32(rhs)).reshape(()), ctx=ctx)
+            if out is not None:
+                out._set(res._data.to(out._data.dtype))
+                return out
+            return res
+
+        def coerce(scalar, arr):
+            if _np.issubdtype(_np.dtype(arr.dtype), _np.integer):
+                return int(scalar)
+            return float(scalar)
+
+        if rhs_s:
+            return invoke(scalar_op, [lhs], {"scalar": coerce(rhs, lhs)},
+                          out=out, ctx=ctx)
+        if lhs_s:
+            return invoke(scalar_op, [rhs], {"scalar": coerce(lhs, rhs),
+                                             "reverse": True},
+                          out=out, ctx=ctx)
+        return base_fn(lhs, rhs, *args, out=out, ctx=ctx, **kw)
+
+    fn.__name__ = opname
+    fn.__doc__ = base_fn.__doc__
+    return fn
+
+
+for _n in ("maximum", "minimum", "power"):
+    setattr(_mod, _n, _scalar_tolerant(_n, f"broadcast_{_n}_scalar"))
+
+from . import contrib, linalg  # noqa: E402,F401

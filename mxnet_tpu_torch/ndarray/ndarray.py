@@ -114,6 +114,12 @@ class NDArray:
             raise MXNetError("The current array is not a scalar")
         return self.asnumpy().reshape(())[()]
 
+    def item(self):
+        return self.asscalar()
+
+    def tolist(self):
+        return self.asnumpy().tolist()
+
     # -- autograd ----------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
         """Allocate a gradient buffer and mark this array as a variable (a
@@ -156,6 +162,8 @@ class NDArray:
         if ctx == self.context:
             return self
         return self.copyto(ctx)
+
+    as_in_ctx = as_in_context
 
     def astype(self, dtype, copy=True):
         return invoke("cast", [self], {"dtype": dtype})
@@ -228,6 +236,11 @@ class NDArray:
 
     def __rpow__(self, o):
         return self._binary("broadcast_power", o, reverse=True)
+
+    def __matmul__(self, o):
+        from . import dot as _dot
+
+        return _dot(self, o)
 
     def __neg__(self):
         return invoke("negative", [self], {})
@@ -319,6 +332,100 @@ class NDArray:
     def mean(self, axis=None, keepdims=False):
         return invoke("mean", [self], {"axis": axis, "keepdims": keepdims})
 
+    def reshape_like(self, other):
+        return self.reshape(other.shape)
+
+    def squeeze(self, axis=None):
+        return invoke("squeeze", [self], {"axis": axis})
+
+    def expand_dims(self, axis):
+        return invoke("expand_dims", [self], {"axis": axis})
+
+    def swapaxes(self, dim1, dim2):
+        return invoke("swapaxes", [self], {"dim1": dim1, "dim2": dim2})
+
+    def broadcast_to(self, shape):
+        return invoke("broadcast_to", [self], {"shape": shape})
+
+    def broadcast_like(self, other):
+        return invoke("broadcast_to", [self], {"shape": other.shape})
+
+    def tile(self, reps):
+        return invoke("tile", [self], {"reps": reps})
+
+    def repeat(self, repeats, axis=None):
+        return invoke("repeat", [self], {"repeats": repeats, "axis": axis})
+
+    def pad(self, *a, **kw):
+        return invoke("pad", [self], kw)
+
+    def split(self, num_outputs, axis=1, squeeze_axis=False):
+        return invoke("split", [self], {"num_outputs": num_outputs,
+                                        "axis": axis,
+                                        "squeeze_axis": squeeze_axis})
+
+    def clip(self, a_min=None, a_max=None):
+        return invoke("clip", [self], {"a_min": a_min, "a_max": a_max})
+
+    def softmax(self, axis=-1):
+        return invoke("softmax", [self], {"axis": axis})
+
+    def log_softmax(self, axis=-1):
+        return invoke("log_softmax", [self], {"axis": axis})
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return invoke("norm", [self], {"ord": ord, "axis": axis,
+                                       "keepdims": keepdims})
+
+    def argsort(self, axis=-1, is_ascend=True):
+        return invoke("argsort", [self], {"axis": axis,
+                                          "is_ascend": is_ascend})
+
+    def sort(self, axis=-1, is_ascend=True):
+        return invoke("sort", [self], {"axis": axis, "is_ascend": is_ascend})
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
+        return invoke("topk", [self], {"axis": axis, "k": k,
+                                       "ret_typ": ret_typ,
+                                       "is_ascend": is_ascend})
+
+    def dot(self, other, transpose_a=False, transpose_b=False):
+        from . import dot as _dot
+
+        return _dot(self, other, transpose_a=transpose_a,
+                    transpose_b=transpose_b)
+
+    def one_hot(self, depth, on_value=1.0, off_value=0.0):
+        return invoke("one_hot", [self], {"depth": depth,
+                                          "on_value": on_value,
+                                          "off_value": off_value})
+
+    def take(self, indices, axis=0, mode="clip"):
+        return invoke("take", [self, indices], {"axis": axis, "mode": mode})
+
+
+def _unary_method(op):
+    def method(self):
+        return invoke(op, [self], {})
+
+    method.__name__ = op
+    return method
+
+
+def _reduce_method(op):
+    def method(self, axis=None, keepdims=False):
+        return invoke(op, [self], {"axis": axis, "keepdims": keepdims})
+
+    method.__name__ = op
+    return method
+
+
+for _op in ("abs", "sign", "sqrt", "square", "exp", "log", "relu",
+            "sigmoid", "tanh"):
+    setattr(NDArray, _op, _unary_method(_op))
+for _op in ("nansum", "max", "min", "prod", "argmax", "argmin"):
+    setattr(NDArray, _op, _reduce_method(_op))
+
 
 # --------------------------------------------------------------------------
 # the imperative invoke path (reference: MXImperativeInvokeEx ->
@@ -344,7 +451,10 @@ def invoke(opname, nd_args, attrs, out=None, ctx=None):
                        if isinstance(a, NDArray)), None)
     vals = [a._data if isinstance(a, NDArray) else
             torch.as_tensor(_np.asarray(a), device=device) for a in nd_args]
-    attrs = {k: v for k, v in attrs.items() if v is not None}
+    # None means "not given" except where it is a value (every axis, an
+    # open clip bound), as in the reference
+    attrs = {k: v for k, v in attrs.items()
+             if v is not None or k in ("axis", "a_min", "a_max")}
     if od.creation:
         attrs["device"] = device if device is not None else \
             current_context().device

@@ -25,6 +25,13 @@ step equals the plain one, the bf16 check fails the rope fault, and the
 MoE check holds its step and sees the aux loss move the router.
 The new entry points raise without a card unless asked for the CPU.
 
+The mx.nd op table (phase 8): at tiny shapes, CPU against CPU in fp64,
+(a) passes every op call of the phase and fails an argsort that returns
+int64, a topk with is_ascend flipped and a where_index that goes through
+the host, and the coverage check fails when a definition is left out;
+(b) the LSTM LM's step check passes the port and fails each of its three
+planted faults.
+
 Serving over HTTP (phase 4b): the client's checks pass a correct port
 and fail a route that drops a token and a drain that serves the queued
 request instead of rejecting it.
@@ -685,3 +692,65 @@ def test_llama_loss_is_bench_loss():
     got = chip_smoke.llama_loss(torch.from_numpy(logits),
                                 torch.from_numpy(labels))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the mx.nd op table
+# ---------------------------------------------------------------------------
+TINY_OP_SHAPES = {
+    "hidden": (2, 3, 4), "logits": (2, 64),
+    "scores": ((6, 4, 3), (6, 3, 4)), "ffn": (8, 6, 10), "spd": (2, 8),
+    "nhwc": (2, 20, 20, 8), "ids": (16, 40, 6), "tnc": (6, 3, 4),
+    "nchw": (2, 8, 6, 6), "up": (2, 4, 4, 4), "loss": (8, 12),
+    "ctc": (12, 3, 5, 4), "stn": (2, 3, 5, 6), "rnn": (4, 3, 5, 2),
+    "eye": 8}
+TINY_LM = dict(vocab=30, embed=6, hidden=6, layers=2, steps=5, batch=3,
+               dropout=0.5)
+
+
+def test_op_table_checks_pass_the_port():
+    devs = chip_smoke.op_table_checks(0, "cpu", TINY_OP_SHAPES,
+                                      dtype=torch.float64)
+    assert len(devs) >= len(chip_smoke.op_table_definitions()) == 200
+    assert max(devs.values()) == 0.0
+
+
+@pytest.mark.parametrize("fault,op", [("argsort_int64", "argsort"),
+                                      ("topk_flipped", "topk"),
+                                      ("where_index_host", "where_index")])
+def test_op_table_check_catches_planted_faults(fault, op):
+    cases = [c for c in chip_smoke.op_cases(TINY_OP_SHAPES) if c.name == op]
+    assert cases
+    for i, case in enumerate(cases):
+        with pytest.raises(SystemExit, match="CHECK FAILED"):
+            chip_smoke.check_op_case(case, i, "cpu", torch.float64,
+                                     fault=chip_smoke.planted_op_fault(fault))
+        # the fault is gone again
+        chip_smoke.check_op_case(case, i, "cpu", torch.float64)
+
+
+def test_op_table_coverage_fails_without_an_op():
+    cases = chip_smoke.op_cases(TINY_OP_SHAPES)
+    chip_smoke.check_op_coverage(cases)
+    with pytest.raises(SystemExit, match="linalg_det"):
+        chip_smoke.check_op_coverage(
+            [c for c in cases if c.name != "linalg_det"])
+
+
+@pytest.mark.parametrize("fault", [None, "gates_if", "first_h",
+                                   "null_batch"])
+def test_lm_step_check_catches_planted_faults(fault):
+    ratio, where, _ = chip_smoke.lm_step_check(TINY_LM, 0, "cpu",
+                                               torch.float64, fault=fault)
+    if fault is None:
+        assert ratio == 0.0
+    else:
+        assert ratio > chip_smoke.LM_BOUND, (fault, ratio, where)
+
+
+def test_lm_fp32_step_held_to_the_fp64_step():
+    """The card's check in miniature: the fp32 step (here the CPU's) within
+    LM_BOUND of the fp64 step."""
+    ratio, where, _ = chip_smoke.lm_step_check(TINY_LM, 0, "cpu",
+                                               torch.float32)
+    assert 0.0 < ratio <= chip_smoke.LM_BOUND, (ratio, where)
