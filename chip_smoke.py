@@ -100,13 +100,19 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    backward apart, falling loss); (e) bench.py's llama_proxy_train
    configuration timed the same way, and the attention at its shape beside
    SDPA's forward and backward;
-8. the mx.nd op table: (a) every op definition of the tensor and nn
-   families (ops/tensor.py, ops/nn.py) on the card at a shape one of the
-   port's models carries, against the CPU on the same seeded inputs (fp32,
-   linalg fp64, TF32 off): each output on the card with the CPU's dtype
-   and shape, within OP_TOL, and each float input's gradient under a
-   seeded head; the op's call reads nothing back to the host, and a
-   definition the phase leaves out fails the run; (b) the "medium" PTB
+8. the mx.nd op table: (a) every op definition of the table (all 278:
+   the tensor, nn, LLM, optimizer, random, image, detection,
+   quantization, legacy and fused-subgraph families) on the card at a
+   shape one of the port's models carries, against the CPU on the same
+   seeded inputs (fp32, linalg and the ReLU-fused products fp64, TF32
+   off): each output on the card with the CPU's dtype and shape, within
+   OP_TOL, and each float input's gradient under a seeded head;
+   detections in the reference's convention (the same rows dropped, ids
+   and scores equal), MultiBoxTarget's classes and masks, Proposal's
+   boxes, the matchings and the int8 products' int32 accumulators equal;
+   the samplers by dtype and shape; the op's call reads nothing back to
+   the host, and a definition the phase leaves out fails the run; (b)
+   the "medium" PTB
    LSTM language model (Zaremba et al. 2014) through mx.nd (Embedding ->
    RNN -> FullyConnected -> SoftmaxOutput): one step at dropout 0 on the
    card in fp32 against the CPU's fp64 step, three planted faults that
@@ -114,7 +120,20 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    (tokens/s, ms/step, peak memory, a profiled pass), and the two LSTM
    layers beside torch.nn.LSTM (cuDNN) with the same weights; (c)
    benchmark/opperf.py's DEFAULT_SUITE through the port's invoke (eager
-   and device ms, bound).  flash_attn_fwd launches none of it.
+   and device ms, bound); (d) every sampler on the card at a model's size
+   (random_normal at Llama-3-8B's embedding, sample_multinomial over 8 x
+   128256 probabilities, the others 4M draws) by the KS statistic against
+   scipy's CDF, or its moments and a chi-square, at p 1e-6; the same
+   seed's draws twice, set_state(get_state()) replaying, and a planted
+   scale fault in random_normal that must fail; the random image ops at
+   a fixed factor equal to their closed forms, their factors in range,
+   the flips fair; (e) SSD-300's prior -> target -> detection at batch
+   32, Faster R-CNN's Proposal -> ROIAlign and box_nms's full sweep over
+   8732 rows, card against CPU, in ms a call, and the int8 product's
+   exact routes (torch._int_mm and fp64) at ResNet-50's classifier.  The
+   op table path's count of flash_attn_fwd is set to 0 just before (b)
+   and read just after it, and must be 0; (a)'s check of
+   _contrib_flash_attention launches the kernel outside that window.
    ``--op-table`` runs only the build and this phase;
 9. the kernels line (its times and launches at the main path's shape,
    the serving fleet, 4c;
@@ -3150,9 +3169,9 @@ def llama_phase(seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the mx.nd op table (the tensor and nn families)
+# phase 8: the mx.nd op table
 # ---------------------------------------------------------------------------
-# (a) every op definition of ops/tensor.py and ops/nn.py on the card at a
+# (a) every op definition of the table on the card at a
 # shape one of the port's models carries, against the CPU on the same
 # seeded inputs (fp32, TF32 off): each output on the card, with the CPU's
 # dtype and shape, within OP_TOL of it (relative to the larger of 1 and the
@@ -3175,6 +3194,24 @@ OP_SHAPES = {
     "stn": (32, 3, 224, 224),     # SpatialTransformer
     "rnn": (35, 20, 650, 2),      # the LM's LSTM: T, batch, width, layers
     "eye": 4096,
+    "opt": (30522, 768),          # BERT-base's word embedding (and a bias)
+    "interleaved": (128, 64, 12, 64),   # BERT-base: L, batch, heads, D
+    "rope": (1, 32, 2048, 128),   # Llama-3-8B's q at sequence 2048
+    "swiglu": (2048, 14336),      # Llama-3-8B's FFN gate at 2048 tokens
+    "moe": (1, 256, 512, 4, 1024),   # a four-expert MoE at narrow widths
+    "attn": (8, 12, 128, 64),     # BERT-base attention, fp32
+    "flow": (8, 256, 48, 64, 20),    # FlowNetC: conv3 maps, displacement
+    "image": (32, 224, 256, 160),    # NHWC batch side, resize targets
+    "draws": (4096, 1024),        # the samplers in (a): 4M draws
+    "pdf": (1000, 1000),          # the densities: a million points
+    "qconv": (32, 64, 56, 64),    # ResNet-50 stage 1 3 x 3: N, C, H, O
+    "qfc": (256, 2048, 1000),     # ResNet-50's classifier: batch, in, out
+    # SSD-300 VOC: batch, classes, ground-truth rows, nms_topk, map sides
+    "ssd": (32, 21, 56, 400, (38, 19, 10, 5, 3, 1)),
+    # Faster R-CNN, ResNet-101 C4 of 600 x 1000: batch, map h, w, channels,
+    # post- and pre-NMS proposals
+    "rcnn": (1, 38, 63, 1024, 300, 6000),
+    "dcn": (8, 512, 28),          # DCNv1 at ResNet conv5: batch, C, side
 }
 
 
@@ -3213,14 +3250,17 @@ class OpCase:
     ``grad`` the inputs whose gradient is compared (None: every float
     input of a differentiable op); ``head_out`` the output the head
     gradient enters; ``compare`` "value", "svd" (singular vectors up to
-    sign), "permutation" (shuffle) or "dropout"."""
+    sign), "permutation" (shuffle), "dropout", or one of
+    compare_outputs's; ``extra(*inputs)`` more tensors to hold, computed
+    after the op on the same device (the int8 products' accumulators)."""
 
     def __init__(self, label, name, make, attrs=None, grad=None, head_out=0,
-                 compare="value", creation=False):
+                 compare="value", creation=False, extra=None):
         self.label, self.name, self.make = label, name, make
         self.attrs = dict(attrs or {})
         self.grad, self.head_out = grad, head_out
         self.compare, self.creation = compare, creation
+        self.extra = extra
 
 
 def op_cases(S):
@@ -3544,16 +3584,928 @@ def op_cases(S):
                                          loc(g)],
         {"target_shape": ST[2:], "transform_type": "affine",
          "sampler_type": "bilinear"})
+    other_family_cases(S, add)
     return cases
 
 
-def op_table_definitions():
-    """The canonical names of every op the port's ops/tensor.py and
-    ops/nn.py register."""
+# the families beyond tensor and nn, at the shapes of the models that use
+# them.  GluonCV's SSD-300 VOC anchors: six feature maps, per map the
+# sizes (s_k, sqrt(s_k s_k+1)) / 300 and the ratios below, centres on the
+# map's step / 300
+SSD_SIZES = (30, 60, 111, 162, 213, 264, 315)
+SSD_STEPS = (8, 16, 32, 64, 100, 300)
+SSD_RATIOS = ((1, 2, 0.5),) + ((1, 2, 0.5, 3, 1 / 3),) * 3 + \
+    ((1, 2, 0.5),) * 2
+IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+
+
+def ssd_prior_attrs(maps):
+    """MultiBoxPrior's attributes for each of SSD-300's feature maps."""
+    out = []
+    for i, m in enumerate(maps):
+        s0, s1 = SSD_SIZES[i] / 300, SSD_SIZES[i + 1] / 300
+        step = SSD_STEPS[i] / 300
+        out.append({"sizes": (s0, math.sqrt(s0 * s1)),
+                    "ratios": SSD_RATIOS[i], "steps": (step, step),
+                    "clip": False})
+    return out
+
+
+def ssd_anchors(maps, device):
+    """SSD-300's anchors over feature maps of the given sides: (1, A, 4)
+    (8732 for 38, 19, 10, 5, 3, 1)."""
+    from mxnet_tpu_torch.ops.detection_ops import multibox_prior
+
+    return torch.cat([multibox_prior(torch.empty(1, 1, m, m, device=device),
+                                     **attrs)
+                      for m, attrs in zip(maps, ssd_prior_attrs(maps))], 1)
+
+
+def ssd_labels(g, batch, rows, classes):
+    """(batch, rows, 5) ground truth [class, x1, y1, x2, y2]: a random
+    count of boxes an image (at least two), the rest padding (class -1).
+    The second row repeats the first box with the next class, as a doubly
+    annotated object does, so both claim the same best anchor."""
+    lo = _u(g, (batch, rows, 2), 0.0, 0.7)
+    wh = _u(g, (batch, rows, 2), 0.05, 0.3)
+    cls = _ints(g, (batch, rows, 1), 0, classes - 1)
+    lo[:, 1], wh[:, 1] = lo[:, 0], wh[:, 0]
+    cls[:, 1] = (cls[:, 0] + 1) % (classes - 1)
+    count = _ints(g, (batch, 1, 1), 2, rows + 1)
+    pad = torch.arange(rows, device=g.device)[None, :, None] >= count
+    cls = torch.where(pad, torch.full_like(cls, -1.0), cls)
+    return torch.cat([cls, lo, torch.clamp(lo + wh, max=1.0)], -1)
+
+
+def _softmax(g, shape, dim, scale=1.0):
+    return torch.softmax(torch.randn(shape, generator=g, device=g.device)
+                         * scale, dim)
+
+
+def ssd_loc(g, batch, anchors, sizes=False):
+    """(batch, anchors * 4) box offsets: centre offsets N(0, 0.5); the size
+    offsets 0 unless ``sizes`` (exp(0) is exact on both devices, so the
+    decoded boxes, and NMS's decisions on them, are the same bits)."""
+    loc = torch.randn((batch, anchors, 4), generator=g, device=g.device) \
+        * 0.5
+    if not sizes:
+        loc[..., 2:] = 0.0
+    return loc.reshape(batch, -1)
+
+
+def ssd_detections(g, batch, anchors, classes):
+    """(batch, anchors, 6) rows [class, score, x1, y1, x2, y2], the scores
+    on a grid of 1/256 so that many tie (the sort must keep their order)."""
+    lo = _u(g, (batch, anchors, 2), 0.0, 0.8)
+    wh = _u(g, (batch, anchors, 2), 0.02, 0.3)
+    return torch.cat([_ints(g, (batch, anchors, 1), 0, classes - 1),
+                      _ints(g, (batch, anchors, 1), 1, 257) / 256, lo,
+                      lo + wh], -1)
+
+
+def rpn_inputs(g, n, h, w, sizes=False):
+    """Faster R-CNN's RPN outputs over an (h, w) C4 map, 9 anchors: the
+    (bg, fg) softmax pairs (n, 18, h, w) and the deltas (n, 36, h, w),
+    whose size deltas are 0 unless ``sizes`` (as ssd_loc's)."""
+    probs = _softmax(g, (n, 2, 9, h, w), 1, 2.0).reshape(n, 18, h, w)
+    deltas = torch.randn((n, 9, 4, h, w), generator=g, device=g.device) * 0.1
+    if not sizes:
+        deltas[:, :, 2:] = 0.0
+    info = torch.tensor([[16.0 * h - 8, 16.0 * w - 8, 1.0]] * n,
+                        device=g.device)
+    return [probs, deltas.reshape(n, 36, h, w), info]
+
+
+def proposal_rois(g, count, h, w):
+    """``count`` proposals (batch 0) inside an (16h, 16w) image."""
+    lo = torch.stack([_u(g, (count,), 0, 16.0 * w * 0.8),
+                      _u(g, (count,), 0, 16.0 * h * 0.8)], 1)
+    wh = _u(g, (count, 2), 16.0, 16.0 * min(h, w) * 0.5)
+    hi = torch.minimum(lo + wh, torch.tensor([16.0 * w - 1, 16.0 * h - 1],
+                                             device=g.device))
+    return torch.cat([torch.zeros(count, 1, device=g.device), lo, hi], 1)
+
+
+def _int8(g, shape, lo=-127, hi=127):
+    return torch.randint(lo, hi, shape, generator=g, device=g.device,
+                         dtype=torch.int8)
+
+
+def _opt_inputs(name, g, shape):
+    """(weight, grad, states...) of an update op; the states that must be
+    positive are."""
+    def u(lo=-1.0, hi=1.0):
+        return _u(g, shape, lo, hi)
+
+    states = {"sgd_update": [], "signsgd_update": [],
+              "sgd_mom_update": [u()], "nag_mom_update": [u()],
+              "signum_update": [u()], "adam_update": [u(), u(0.0, 1.0)],
+              "adagrad_update": [u(0.0, 1.0)],
+              "adadelta_update": [u(0.0, 1.0), u(0.0, 1.0)],
+              "rmsprop_update": [u(0.0, 1.0)],
+              "rmspropalex_update": [u(0.5, 1.0), torch.zeros(
+                  shape, device=g.device), torch.zeros(shape,
+                                                       device=g.device)],
+              "ftrl_update": [u(), u(0.0, 1.0)],
+              "ftml_update": [u(0.0, 1.0), u(0.0, 1.0), u()],
+              "lamb_update_phase1": [u(), u(0.0, 1.0)]}[name]
+    return [u(), u() * 0.1] + states
+
+
+OPT_ATTRS = {
+    "sgd_update": {"lr": 0.1, "wd": 1e-4},
+    "sgd_mom_update": {"lr": 0.1, "momentum": 0.9, "wd": 1e-4},
+    "nag_mom_update": {"lr": 0.1, "momentum": 0.9, "clip_gradient": 0.05},
+    "adam_update": {"lr": 1e-3, "wd": 0.01},
+    "adagrad_update": {"lr": 0.1},
+    "adadelta_update": {"rho": 0.9},
+    "rmsprop_update": {"lr": 1e-3, "clip_weights": 0.9},
+    "rmspropalex_update": {"lr": 1e-3},
+    "ftrl_update": {"lr": 0.1, "lamda1": 0.01},
+    "ftml_update": {"lr": 0.0025, "t": 3},
+    "signsgd_update": {"lr": 0.01},
+    "signum_update": {"lr": 0.01, "wd_lh": 1e-4},
+    "lamb_update_phase1": {"t": 3, "wd": 0.01}}
+
+
+def int32_dense_acc(x, weight_q, wscale, act_range, *bias):
+    """The int32 accumulator of quantized_fully_connected, through the
+    op's own int8 product."""
+    from mxnet_tpu_torch.ops import quantization_ops as q
+
+    xq = q._quantize(x, q._symmetric_scale(act_range[0], act_range[1]))
+    return [q.int8_matmul(xq, weight_q)]
+
+
+def int32_conv_acc(x, weight_q, wscale, act_range, *bias):
+    """The int32 accumulator of quantized_conv (3 x 3, pad 1)."""
+    from mxnet_tpu_torch.ops import quantization_ops as q
+
+    xq = q._quantize(x, q._symmetric_scale(act_range[0], act_range[1]))
+    return [q.int8_conv(xq, weight_q, (1, 1), (1, 1), (1, 1), 1)]
+
+
+def other_family_cases(S, add):
+    """Phase 8 (a)'s calls of every family beyond tensor and nn."""
+    # the optimizer updates over BERT-base's word embedding and a bias
+    rows, width = S["opt"]
+    inner = S["ffn"][2]
+    for name, attrs in OPT_ATTRS.items():
+        for label, shape in (("", (rows, width)), (" bias", (width,))):
+            add(name, lambda g, n=name, s=shape: _opt_inputs(n, g, s), attrs,
+                label=name + label)
+    for label, shape in (("", (rows, width)), (" bias", (width,))):
+        add("lamb_update_phase2", lambda g, s=shape: [
+            _u(g, s), _u(g, s), _u(g, (1,), 0.5, 2.0),
+            _u(g, (1,), 0.5, 2.0)], {"lr": 0.01, "lower_bound": 0.1,
+                                     "upper_bound": 10.0},
+            label="lamb_update_phase2" + label)
+    layer = [(width, width), (width,)] * 4 + [(inner, width), (inner,),
+                                              (width, inner), (width,)]
+    add("multi_sgd_update", lambda g: [t for s in layer
+                                       for t in (_u(g, s), _u(g, s) * 0.1)],
+        {"lrs": (0.1,) * len(layer), "wds": (1e-4,) * len(layer),
+         "num_weights": len(layer), "clip_gradient": 0.05},
+        label="multi_sgd_update (one BERT layer's 12 tensors)")
+
+    # GluonNLP's interleaved attention at BERT-base
+    L_, B_, heads, d_ = S["interleaved"]
+    e_ = heads * d_
+    att = (B_ * heads, L_, L_)
+    add("_contrib_interleaved_matmul_selfatt_qk",
+        lambda g: [_u(g, (L_, B_, 3 * e_))], {"heads": heads})
+    add("_contrib_interleaved_matmul_selfatt_valatt",
+        lambda g: [_u(g, (L_, B_, 3 * e_)), _softmax(g, att, -1)],
+        {"heads": heads})
+    add("_contrib_interleaved_matmul_encdec_qk",
+        lambda g: [_u(g, (L_, B_, e_)), _u(g, (L_, B_, 2 * e_))],
+        {"heads": heads})
+    add("_contrib_interleaved_matmul_encdec_valatt",
+        lambda g: [_u(g, (L_, B_, 2 * e_)), _softmax(g, att, -1)],
+        {"heads": heads})
+
+    # the LLM blocks and the kernel-backed attention
+    H = S["hidden"]
+    add("rms_norm", lambda g: [_u(g, H), _u(g, (H[2],), 0.5, 1.5)])
+    add("rope", lambda g: [_u(g, S["rope"])])
+    add("swiglu", lambda g: [_u(g, S["swiglu"]), _u(g, S["swiglu"])])
+    mb, ml, mh, me, mi = S["moe"]
+    add("_contrib_moe_swiglu", lambda g: [
+        _u(g, (mb, ml, mh)), _u(g, (mh, me), -0.1, 0.1),
+        _u(g, (me, mh, mi), -0.05, 0.05), _u(g, (me, mh, mi), -0.05, 0.05),
+        _u(g, (me, mi, mh), -0.05, 0.05)], {"capacity_factor": 4.0},
+        grad=[0, 2, 3, 4])
+    qkv = S["attn"]
+    add("_contrib_flash_attention", lambda g: [_u(g, qkv), _u(g, qkv),
+                                               _u(g, qkv)],
+        {"causal": True})
+
+    # the fused subgraph ops, with ReLU: in fp32 the products round
+    # differently on the card, and a pre-activation within that of 0 takes
+    # the other side of the kink (the gradient differs by ~5e-3 at BERT's
+    # FFN), so these run in fp64
+    fm, fk, fn = S["ffn"]
+    f64 = torch.float64
+    add("_sg_fused_dense_act", lambda g: [
+        _u(g, (fm, fk), dtype=f64), _u(g, (fn, fk), -0.05, 0.05, dtype=f64),
+        _u(g, (fn,), dtype=f64)], {"num_hidden": fn, "act_type": "relu"})
+    n_, h_, w_, c_ = S["nhwc"]
+    add("_sg_fused_conv_act", lambda g: [
+        _u(g, S["nhwc"], dtype=f64),
+        _u(g, (64, 3, 3, c_), -0.05, 0.05, dtype=f64),
+        _u(g, (64,), dtype=f64)],
+        {"kernel": (3, 3), "pad": (1, 1), "num_filter": 64,
+         "layout": "NHWC", "act_type": "relu"})
+
+    # legacy: FlowNetC's correlation, an SVM head over the LM's batch
+    fl_n, fl_c, fl_h, fl_w, fl_d = S["flow"]
+    add("Correlation", lambda g: [_u(g, (fl_n, fl_c, fl_h, fl_w)),
+                                  _u(g, (fl_n, fl_c, fl_h, fl_w))],
+        {"kernel_size": 1, "max_displacement": fl_d, "stride1": 1,
+         "stride2": 2, "pad_size": fl_d})
+    LS = S["loss"]
+    add("SVMOutput", lambda g: [_u(g, LS), _ints(g, (LS[0],), 0, LS[1])],
+        {"margin": 1.0}, grad=[0])
+
+    # the image ops on an NHWC batch
+    ib, isz, up, down = S["image"]
+    IM = (ib, isz, isz, 3)
+    add("image_to_tensor", lambda g: [torch.randint(
+        0, 256, IM, generator=g, device=g.device, dtype=torch.uint8)])
+    add("image_normalize", lambda g: [_u(g, (ib, 3, isz, isz), 0.0, 1.0)],
+        {"mean": IMAGENET_MEAN, "std": IMAGENET_STD})
+    for interp, mode in enumerate(("nearest", "bilinear", "bicubic")):
+        for size in (up, down):
+            add("image_resize", lambda g: [_u(g, IM, 0.0, 1.0)],
+                {"size": size, "interp": interp},
+                label=f"image_resize {mode} to {size}")
+    # halving: each output centre falls on a source pixel's edge, an
+    # integer quotient that a reciprocal product floors one pixel short
+    add("image_resize", lambda g: [_u(g, IM, 0.0, 1.0)],
+        {"size": isz // 2, "interp": 0},
+        label=f"image_resize nearest to {isz // 2}")
+    add("image_crop", lambda g: [_u(g, IM, 0.0, 1.0)],
+        {"x0": isz // 8, "y0": isz // 16, "width": isz // 2,
+         "height": isz // 2})
+    for name in ("image_flip_left_right", "image_flip_top_bottom"):
+        add(name, lambda g: [_u(g, IM, 0.0, 1.0)])
+    for name in ("image_random_flip_left_right",
+                 "image_random_flip_top_bottom"):
+        add(name, lambda g: [_u(g, IM, 0.0, 1.0)], compare="flip")
+    # the random colour ops at a fixed factor are deterministic
+    for name, attrs in (("image_random_brightness", (1.2, 1.2)),
+                        ("image_random_contrast", (0.8, 0.8)),
+                        ("image_random_saturation", (1.3, 1.3)),
+                        ("image_random_hue", (0.1, 0.1))):
+        add(name, lambda g: [_u(g, IM, 0.0, 1.0)],
+            {"min_factor": attrs[0], "max_factor": attrs[1]})
+    add("image_random_lighting", lambda g: [_u(g, IM, 0.0, 1.0)],
+        {"alpha_std": 0.0})
+    add("image_random_color_jitter", lambda g: [_u(g, IM, 0.0, 1.0)])
+
+    # the samplers: dtype and shape here, the distributions in (d)
+    for name, attrs in (("random_uniform", {"low": -1.0, "high": 2.0}),
+                        ("random_normal", {"loc": 0.0, "scale": 0.02}),
+                        ("random_gamma", {"alpha": 2.0, "beta": 0.5}),
+                        ("random_exponential", {"lam": 2.0}),
+                        ("random_poisson", {"lam": 3.0}),
+                        ("random_negative_binomial", {"k": 3, "p": 0.4}),
+                        ("random_randint", {"low": 0, "high": 1000}),
+                        ("bernoulli", {"prob": 0.3})):
+        add(name, lambda g: [], dict(attrs, shape=S["draws"]),
+            creation=True, compare="sampler")
+    add("sample_multinomial", lambda g: [_softmax(g, S["logits"], -1, 4.0)],
+        {"shape": 4}, compare="sampler")
+    for name in ("sample_uniform_like", "sample_normal_like"):
+        add(name, lambda g: [_u(g, S["draws"])], compare="sampler")
+
+    # the densities at a million points
+    pr, pc = S["pdf"]
+
+    def pos(g, shape, lo=0.5, hi=2.0):
+        return _u(g, shape, lo, hi)
+
+    add("_random_pdf_uniform", lambda g: [_u(g, (pr, pc), -0.1, 1.1),
+                                          _u(g, (pr,), -0.2, 0.0),
+                                          _u(g, (pr,), 0.9, 1.2)],
+        grad=[1, 2])
+    add("_random_pdf_normal", lambda g: [_u(g, (pr, pc), -3.0, 3.0),
+                                         _u(g, (pr,)), pos(g, (pr,))])
+    add("_random_pdf_gamma", lambda g: [pos(g, (pr, pc), 0.1, 5.0),
+                                        pos(g, (pr,), 0.5, 4.0),
+                                        pos(g, (pr,))])
+    add("_random_pdf_exponential", lambda g: [pos(g, (pr, pc), 0.0, 4.0),
+                                              pos(g, (pr,))])
+    add("_random_pdf_poisson", lambda g: [_ints(g, (pr, pc), 0, 12),
+                                          pos(g, (pr,), 0.5, 6.0)],
+        grad=[1])
+    add("_random_pdf_negative_binomial", lambda g: [
+        _ints(g, (pr, pc), 0, 12), pos(g, (pr,), 1.0, 5.0),
+        _u(g, (pr,), 0.2, 0.8)], grad=[1, 2])
+    add("_random_pdf_generalized_negative_binomial", lambda g: [
+        _ints(g, (pr, pc), 0, 12), pos(g, (pr,), 0.5, 5.0),
+        pos(g, (pr,), 0.2, 1.5)], grad=[1, 2])
+    add("_random_pdf_dirichlet", lambda g: [
+        _softmax(g, (pr, pc // 4, 4), -1), pos(g, (pr, 4))])
+
+    # quantization at ResNet-50's stage 1 and its classifier
+    qn, qc, qh, qo = S["qconv"]
+    QX = (qn, qc, qh, qh)
+    add("_contrib_quantize_v2", lambda g: [_u(g, QX)],
+        {"min_calib_range": -1.0, "max_calib_range": 1.0})
+    add("_contrib_quantize_v2", lambda g: [_u(g, QX, -2.0, 1.5)],
+        label="_contrib_quantize_v2 (data range)")
+    add("_contrib_quantize", lambda g: [_u(g, QX), torch.tensor(
+        [-1.0], device=g.device), torch.tensor([1.0], device=g.device)])
+    add("_contrib_dequantize", lambda g: [_int8(g, QX), torch.tensor(
+        [-1.0], device=g.device), torch.tensor([1.0], device=g.device)])
+    add("_contrib_requantize", lambda g: [
+        torch.randint(-2 ** 20, 2 ** 20, QX, generator=g, device=g.device,
+                      dtype=torch.int32),
+        torch.tensor([-50.0], device=g.device),
+        torch.tensor([50.0], device=g.device)],
+        {"min_calib_range": -0.01, "max_calib_range": 0.01})
+    add("_contrib_quantized_conv", lambda g: [
+        _u(g, QX), _int8(g, (qo, qc, 3, 3)), _u(g, (qo,), 1e-3, 1e-2),
+        torch.tensor([-1.0, 1.0], device=g.device), _u(g, (qo,), -0.1, 0.1)],
+        {"kernel": (3, 3), "pad": (1, 1), "num_filter": qo},
+        compare="exact", extra=int32_conv_acc)
+    fb, fi, fo = S["qfc"]
+    add("_contrib_quantized_fully_connected", lambda g: [
+        _u(g, (fb, fi)), _int8(g, (fo, fi)), _u(g, (fo,), 1e-3, 1e-2),
+        torch.tensor([-1.0, 1.0], device=g.device), _u(g, (fo,), -0.1, 0.1)],
+        {"num_hidden": fo}, compare="exact", extra=int32_dense_acc)
+    # activations near the range's end and large weights of one sign: the
+    # int32 sums pass 2^24, where an fp32 product would round
+    add("_contrib_quantized_fully_connected", lambda g: [
+        _u(g, (fb, fi), 0.7, 1.0), _int8(g, (fo, fi), 64, 127),
+        _u(g, (fo,), 1e-3, 1e-2), torch.tensor([-1.0, 1.0], device=g.device)],
+        {"num_hidden": fo, "no_bias": True}, compare="exact",
+        extra=int32_dense_acc,
+        label="_contrib_quantized_fully_connected (sums past 2^24)")
+
+    # SSD-300 VOC: its anchors, targets and detections at batch 32
+    sb, scls, srows, stopk, maps = S["ssd"]
+    na = sum(m * m * (len(r) + 1) for m, r in zip(maps, SSD_RATIOS))
+    for m, attrs in zip(maps[:1], ssd_prior_attrs(maps)):
+        add("_contrib_MultiBoxPrior", lambda g, m=m: [
+            torch.empty(1, 1, m, m, device=g.device)], attrs)
+
+    def anchors(g):
+        return ssd_anchors(maps, g.device)
+
+    add("_contrib_box_iou", lambda g: [
+        ssd_labels(g, sb, srows, scls)[..., 1:], anchors(g)[0]])
+    add("_contrib_MultiBoxTarget", lambda g: [
+        anchors(g), ssd_labels(g, sb, srows, scls),
+        _softmax(g, (sb, scls, na), 1)],
+        {"overlap_threshold": 0.5, "negative_mining_ratio": 3,
+         "negative_mining_thresh": 0.5}, compare="targets")
+    add("_contrib_MultiBoxDetection", lambda g: [
+        _softmax(g, (sb, scls, na), 1, 2.0), ssd_loc(g, sb, na), anchors(g)],
+        {"threshold": 0.01, "nms_threshold": 0.45, "nms_topk": stopk},
+        compare="detections")
+    add("_contrib_MultiBoxDetection", lambda g: [
+        _softmax(g, (sb, scls, na), 1, 2.0), ssd_loc(g, sb, na, sizes=True),
+        anchors(g)], {"threshold": 0.01, "nms_threshold": 1.0,
+                      "nms_topk": stopk}, compare="detections",
+        label="_contrib_MultiBoxDetection (size offsets, NMS off)")
+    add("_contrib_box_nms", lambda g: [ssd_detections(g, sb, na, scls)],
+        {"overlap_thresh": 0.45, "topk": stopk, "id_index": 0},
+        compare="detections")
+    add("_contrib_bipartite_matching", lambda g: [
+        _u(g, (sb, srows, na), 0.0, 1.0)], {"threshold": 0.5},
+        compare="exact")
+
+    # Faster R-CNN (ResNet-101 C4, 600 x 1000): proposals and ROI pooling
+    rn, rh, rw, rc, post, pre = S["rcnn"]
+    attrs = {"scales": (8, 16, 32), "ratios": (0.5, 1, 2),
+             "feature_stride": 16, "rpn_pre_nms_top_n": pre,
+             "rpn_post_nms_top_n": post, "threshold": 0.7,
+             "rpn_min_size": 16}
+    add("_contrib_Proposal", lambda g: rpn_inputs(g, rn, rh, rw),
+        dict(attrs, output_score=True), compare="exact")
+    add("_contrib_Proposal", lambda g: rpn_inputs(g, rn, rh, rw, True),
+        dict(attrs, threshold=1.0),
+        label="_contrib_Proposal (size deltas, NMS off)")
+    add("_contrib_ROIAlign", lambda g: [_u(g, (rn, rc, rh, rw)),
+                                        proposal_rois(g, post, rh, rw)],
+        {"pooled_size": (14, 14), "spatial_scale": 1 / 16,
+         "sample_ratio": 2}, grad=[0])
+    add("ROIPooling", lambda g: [_u(g, (rn, rc, rh, rw)),
+                                 proposal_rois(g, post, rh, rw)],
+        {"pooled_size": (7, 7), "spatial_scale": 1 / 16}, grad=[0])
+    ps = 7
+    add("_contrib_PSROIPooling", lambda g: [
+        _u(g, (rn, scls * ps * ps, rh, rw)), proposal_rois(g, post, rh, rw)],
+        {"output_dim": scls, "pooled_size": ps, "spatial_scale": 1 / 16},
+        grad=[0])
+
+    # DCNv1 at a ResNet conv5 3 x 3
+    dn, dc, ds = S["dcn"]
+    add("_contrib_DeformableConvolution", lambda g: [
+        _u(g, (dn, dc, ds, ds)), _u(g, (dn, 18, ds, ds), -2.0, 2.0),
+        _u(g, (dc, dc, 3, 3), -0.02, 0.02), _u(g, (dc,), -0.1, 0.1)],
+        {"kernel": (3, 3), "pad": (1, 1), "num_filter": dc})
+
+
+def detection_deviation(cand, ref, id_col=0, score_col=1):
+    """Detections in the reference's convention: the same rows dropped
+    (score -1), every kept row's id and score equal, the boxes' deviation
+    as op_deviation's (inf on any other difference)."""
+    drop_c, drop_r = cand[..., score_col] == -1, ref[..., score_col] == -1
+    if not torch.equal(drop_c, drop_r):
+        return math.inf
+    keep = ~drop_r
+    for col in (id_col, score_col):
+        if not torch.equal(cand[..., col][keep], ref[..., col][keep]):
+            return math.inf
+    return op_deviation(cand[..., 2:], ref[..., 2:])
+
+
+def _flip_axis(case):
+    return 2 if case.name.endswith("left_right") else 1
+
+
+def flip_grad_deviations(case, x, out, ref_out, grads, ref_grads, head):
+    """A random flip's gradient on each device is the head gradient through
+    the same choice as its output (the devices draw their coins apart)."""
+    devs = []
+    for o, gs in ((out, grads), (ref_out, ref_grads)):
+        h = head(o.shape, o.dtype)
+        took = torch.equal(o, torch.flip(x.to(o.device), (_flip_axis(case),)))
+        want = torch.flip(h, (_flip_axis(case),)) if took else h
+        devs += [op_deviation(g, want.to(g.device)) for g in gs]
+    return devs
+
+
+def compare_outputs(case, inputs, outs, ref_outs):
+    """The deviations of a case's outputs by its ``compare`` mode (None:
+    a mode that op_deviation covers)."""
+    if case.compare == "sampler":
+        return [0.0]
+    if case.compare == "flip":
+        x, axis = inputs[0], _flip_axis(case)
+        ok = all(torch.equal(o, x.to(o.device)) or torch.equal(
+            o, torch.flip(x.to(o.device), (axis,)))
+            for o in (outs[0], ref_outs[0]))
+        return [0.0 if ok else math.inf]
+    if case.compare == "exact":
+        return [0.0 if torch.equal(o, r) else math.inf
+                for o, r in zip(outs, ref_outs)]
+    if case.compare == "detections":
+        return [detection_deviation(outs[0], ref_outs[0])]
+    if case.compare == "targets":
+        return [op_deviation(outs[0], ref_outs[0])] + [
+            0.0 if torch.equal(o, r) else math.inf
+            for o, r in zip(outs[1:], ref_outs[1:])]
+    return None
+
+
+# (d) the samplers and the random image ops on the card.  A continuous
+# sampler is held by the one-sample Kolmogorov-Smirnov statistic against
+# scipy's CDF: the sample is sorted on the card and its empirical CDF read
+# at scipy's quantiles of KS_GRID evenly spaced probabilities, which is
+# within 1 / KS_GRID below the statistic over every point; a discrete one
+# by its mean and variance (within SE_BOUND standard errors) and a
+# chi-square over its bins (every bin expecting >= 5 draws, the rest
+# lumped).  Each bound is a p-value of P_BOUND for the seeded sample.
+KS_GRID = 100_000
+P_BOUND = 1e-6
+SE_BOUND = 6.0
+SAMPLER_SIZES = {"embed": (128256, 4096),   # Llama-3-8B's embedding
+                 "vocab": (8, 128256),      # serving's batch of logits
+                 "draws": 4_000_000, "multinomial_draws": 32768,
+                 "image": (32, 224, 224, 3), "image_draws": 64}
+
+
+def ks_bound(n):
+    return math.sqrt(-math.log(P_BOUND / 2) / (2 * n))
+
+
+def ks_statistic(x, ppf):
+    """sup |F_n - F| at scipy's quantiles (see above), on x's device."""
+    import numpy as np
+
+    p = np.arange(1, KS_GRID) / KS_GRID
+    xs = torch.sort(x.reshape(-1).float()).values
+    q = torch.tensor(ppf(p), dtype=torch.float32, device=x.device)
+    pt = torch.tensor(p, dtype=torch.float64, device=x.device)
+    n = xs.numel()
+    below = torch.searchsorted(xs, q).double() / n
+    upto = torch.searchsorted(xs, q, right=True).double() / n
+    return max((below - pt).abs().max().item(),
+               (upto - pt).abs().max().item())
+
+
+def _moment_chi2(x, probs, mean, var, m4, lo=0):
+    """(mean and variance deviations in standard errors, chi-square, its
+    bound) of integer draws ``x`` against a law with these moments and the
+    probabilities ``probs`` (numpy) of lo, lo + 1, ..."""
+    import numpy as np
+    from scipy import stats
+
+    n = x.numel()
+    xd = x.reshape(-1).double()
+    mean_se = abs(xd.mean().item() - mean) / math.sqrt(var / n)
+    var_se = abs(xd.var(unbiased=False).item() - var) / math.sqrt(
+        max(m4 - var ** 2, 1e-300) / n)
+    v = len(probs)
+    counts = torch.bincount((xd - lo).long().clamp(0, v),
+                            minlength=v + 1)[:v].cpu().numpy()
+    keep = probs * n >= 5
+    obs = np.append(counts[keep], n - counts[keep].sum()).astype(float)
+    exp = np.append(probs[keep], 1 - probs[keep].sum()) * n
+    if exp[-1] < 5:        # the tail lumped into the last kept bin
+        obs = np.append(obs[:-2], obs[-2] + obs[-1])
+        exp = np.append(exp[:-2], exp[-2] + exp[-1])
+    chi2 = float(((obs - exp) ** 2 / exp).sum())
+    return mean_se, var_se, chi2, stats.chi2.ppf(1 - P_BOUND, len(obs) - 1)
+
+
+def discrete_check(x, dist, lo, hi):
+    """_moment_chi2 of integer draws ``x`` against scipy's ``dist`` on
+    [lo, hi)."""
+    import numpy as np
+
+    mean, var = dist.mean(), dist.var()
+    m4 = dist.expect(lambda k: (k - mean) ** 4)
+    return _moment_chi2(x, dist.pmf(np.arange(lo, hi)), mean, var, m4, lo)
+
+
+def multinomial_check(draws, probs):
+    """_moment_chi2 of each row of ``draws`` against its row of
+    ``probs``: the worst row's mean and variance deviations, and the
+    chi-square of the row worst against its bound, with that bound."""
+    import numpy as np
+
+    p = probs.double().cpu().numpy()
+    k = np.arange(p.shape[1], dtype=np.float64)
+    rows = []
+    for r in range(p.shape[0]):
+        mean = float((p[r] * k).sum())
+        var = float((p[r] * (k - mean) ** 2).sum())
+        m4 = float((p[r] * (k - mean) ** 4).sum())
+        rows.append(_moment_chi2(draws[r], p[r], mean, var, m4))
+    chi2, bound = max(((c, b) for _, _, c, b in rows),
+                      key=lambda cb: cb[0] / cb[1])
+    return (max(m for m, _, _, _ in rows), max(v for _, v, _, _ in rows),
+            chi2, bound)
+
+
+def distribution_check(label, x, dist, continuous):
+    """Draws ``x`` held to scipy's ``dist``: a continuous law by the KS
+    statistic, a discrete one by its moments and chi-square.  Returns
+    (statistic, bound)."""
+    if continuous:
+        ks = ks_statistic(x, dist.ppf)
+        bound = ks_bound(x.numel()) - 1.0 / KS_GRID
+        check(ks < bound, f"{label}: KS statistic {ks:.3e} >= "
+                          f"{bound:.3e} over {x.numel()} draws")
+        return ks, bound
+    lo = int(dist.support()[0])
+    hi = int(min(dist.support()[1], dist.ppf(1 - 1e-12))) + 2
+    mse, vse, chi2, bound = discrete_check(x, dist, lo, hi)
+    check(mse < SE_BOUND and vse < SE_BOUND and chi2 < bound,
+          f"{label}: mean {mse:.2f} SE, variance {vse:.2f} SE, "
+          f"chi-square {chi2:.1f} (bound {bound:.1f})")
+    return chi2, bound
+
+
+@contextlib.contextmanager
+def planted_sampler_fault(fault="normal_scale"):
+    """random_normal drawing at 1.05 times its scale."""
     from mxnet_tpu_torch.ops.registry import OP_TABLE
 
-    return {od.name for od in OP_TABLE.values()
-            if od.fn.__module__.endswith((".ops.tensor", ".ops.nn"))}
+    od = OP_TABLE["random_normal"]
+    orig = od.fn
+
+    def faulty(loc=0.0, scale=1.0, **kw):
+        return orig(loc=loc, scale=scale * 1.05, **kw)
+
+    od.fn = faulty
+    try:
+        yield
+    finally:
+        od.fn = orig
+
+
+def _sampler_draws(device, sizes):
+    """{label: (draw, scipy distribution, continuous?)} for (d)."""
+    from scipy import stats
+
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.Context.from_device(torch.device(device))
+    nd = mx.nd.random
+    n = sizes["draws"]
+    like = mx.nd.zeros((n,), ctx=ctx)
+    return {
+        "random_normal (Llama-3-8B embedding, N(0, 0.02))": (
+            lambda: nd.normal(0.0, 0.02, shape=sizes["embed"], ctx=ctx),
+            stats.norm(0.0, 0.02), True),
+        "random_uniform": (lambda: nd.uniform(-1.0, 2.0, shape=(n,),
+                                              ctx=ctx),
+                           stats.uniform(-1.0, 3.0), True),
+        "random_gamma": (lambda: nd.gamma(2.5, 0.7, shape=(n,), ctx=ctx),
+                         stats.gamma(2.5, scale=0.7), True),
+        "random_gamma (shape < 1)": (
+            lambda: nd.gamma(0.3, 2.0, shape=(n,), ctx=ctx),
+            stats.gamma(0.3, scale=2.0), True),
+        "random_exponential": (lambda: nd.exponential(2.0, shape=(n,),
+                                                      ctx=ctx),
+                               stats.expon(scale=2.0), True),
+        "sample_uniform_like": (lambda: nd.uniform(like, 4.0),
+                                stats.uniform(0.0, 4.0), True),
+        "sample_normal_like": (lambda: mx.nd.sample_normal_like(
+            like, loc=3.0, scale=0.5), stats.norm(3.0, 0.5), True),
+        "random_poisson": (lambda: nd.poisson(3.5, shape=(n,), ctx=ctx),
+                           stats.poisson(3.5), False),
+        "random_negative_binomial": (
+            lambda: nd.negative_binomial(3, 0.4, shape=(n,), ctx=ctx),
+            stats.nbinom(3, 0.4), False),
+        "random_randint": (lambda: nd.randint(-3, 997, shape=(n,), ctx=ctx),
+                           stats.randint(-3, 997), False),
+        "bernoulli": (lambda: nd.bernoulli(0.3, shape=(n,), ctx=ctx),
+                      stats.bernoulli(0.3), False),
+    }
+
+
+def sampler_checks(seed, device, sizes=SAMPLER_SIZES, only=None):
+    """(d): every sampler at its size on ``device``, by distribution;
+    sample_multinomial over serving's probabilities; the seed and
+    get_state / set_state replays (``only``: just the samplers whose label
+    starts so).  Returns {label: (statistic, bound)} and the seconds each
+    took."""
+    import mxnet_tpu_torch as mx
+
+    draws = _sampler_draws(device, sizes)
+    stats_, secs = {}, {}
+    for i, (label, (draw, dist, continuous)) in enumerate(draws.items()):
+        if only is not None and not label.startswith(only):
+            continue
+        t0 = time.perf_counter()
+        mx.random.seed(seed + i)
+        x = draw()._data
+        check(x.device.type == torch.device(device).type,
+              f"{label} drew on {x.device}")
+        stats_[label] = distribution_check(label, x, dist, continuous)
+        del x
+        secs[label] = time.perf_counter() - t0
+    if only is not None:
+        return stats_, secs
+    # serving's sampling: 8 rows of Llama-3's vocabulary
+    t0 = time.perf_counter()
+    ctx = mx.Context.from_device(torch.device(device))
+    g = torch.Generator(device=device).manual_seed(seed)
+    probs = _softmax(g, sizes["vocab"], -1, 4.0)
+    mx.random.seed(seed)
+    out = mx.nd.random.multinomial(mx.nd.array(probs, ctx=ctx),
+                                   shape=sizes["multinomial_draws"])._data
+    check(out.dtype == torch.int32 and tuple(out.shape) == (
+        sizes["vocab"][0], sizes["multinomial_draws"]),
+        f"sample_multinomial gave {out.dtype} {tuple(out.shape)}")
+    mse, vse, chi2, bound = multinomial_check(out, probs)
+    stats_["sample_multinomial (8 x 128256)"] = (chi2, bound)
+    check(mse < SE_BOUND and vse < SE_BOUND and chi2 < bound,
+          f"sample_multinomial: mean {mse:.2f} SE, variance {vse:.2f} SE, "
+          f"chi-square {chi2:.1f} (bound {bound:.1f})")
+    secs["sample_multinomial (8 x 128256)"] = time.perf_counter() - t0
+    replay_checks(seed, device)
+    return stats_, secs
+
+
+def _replay_draws(ctx):
+    import mxnet_tpu_torch as mx
+
+    nd = mx.nd.random
+    return [nd.normal(shape=(1 << 20,), ctx=ctx)._data,
+            nd.gamma(2.0, shape=(1 << 16,), ctx=ctx)._data,
+            nd.poisson(3.0, shape=(1 << 16,), ctx=ctx)._data,
+            nd.randint(0, 1000, shape=(1 << 16,), ctx=ctx)._data]
+
+
+def replay_checks(seed, device):
+    """The same seed gives the same draws twice, another seed others, and
+    set_state(get_state()) replays what follows the snapshot."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.Context.from_device(torch.device(device))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    mx.random.seed(seed)
+    first = _replay_draws(ctx)
+    mx.random.seed(seed)
+    check(same(_replay_draws(ctx), first), "a seed did not fix the draws")
+    mx.random.seed(seed + 1)
+    check(not same(_replay_draws(ctx), first), "two seeds drew the same")
+    state = json.loads(json.dumps(mx.random.get_state()))
+    after = _replay_draws(ctx)
+    mx.random.set_state(state)
+    check(same(_replay_draws(ctx), after),
+          "set_state(get_state()) did not replay the draws")
+
+
+def image_factor_checks(seed, device, sizes=SAMPLER_SIZES):
+    """(d) for the random image ops: at min factor = max factor each is its
+    closed form; over a range, each draw's factor (solved from the output)
+    lies in it; a random flip flips about half the time."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.Context.from_device(torch.device(device))
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = _u(g, sizes["image"], 0.0, 1.0)
+    xn = mx.nd.array(x, ctx=ctx)
+    gray = (x * torch.tensor([0.299, 0.587, 0.114],
+                             device=x.device)).sum(-1, keepdim=True)
+    mean = x.mean()
+    closed = {"image_random_brightness": lambda f: x * f,
+              "image_random_contrast": lambda f: x * f + mean * (1 - f),
+              "image_random_saturation": lambda f: x * f + gray * (1 - f)}
+    mx.random.seed(seed)
+    worst = 0.0
+    for name, form in closed.items():
+        y = mx.nd.invoke(name, [xn], {"min_factor": 1.25,
+                                      "max_factor": 1.25})._data
+        worst = max(worst, op_deviation(y, form(1.25)))
+        lo, hi = 0.6, 1.4
+        for _ in range(sizes["image_draws"] // 4):
+            y = mx.nd.invoke(name, [xn], {"min_factor": lo,
+                                          "max_factor": hi})._data
+            base = {"image_random_brightness": torch.zeros_like(x),
+                    "image_random_contrast": mean.expand(x.shape),
+                    "image_random_saturation": gray.expand(x.shape)}[name]
+            # y - base = f (x - base): the least-squares f
+            d = (x - base).reshape(-1).double()
+            f = ((y - base).reshape(-1).double() @ d / (d @ d)).item()
+            check(lo - 1e-5 <= f < hi + 1e-5, f"{name}: factor {f:.6f} "
+                                              f"outside [{lo}, {hi})")
+            worst = max(worst, op_deviation(y, form(f)))
+    check(worst <= OP_TOL, f"the random colour ops deviate {worst:.3e} "
+                           f"from their closed forms")
+    y = mx.nd.invoke("image_random_lighting", [xn], {"alpha_std": 0.0})
+    check(torch.equal(y._data, x), "random_lighting at alpha_std 0 moved "
+                                   "the image")
+    flips = 0
+    n = sizes["image_draws"]
+    for _ in range(n):
+        y = mx.nd.invoke("image_random_flip_left_right", [xn], {})._data
+        flipped = torch.equal(y, torch.flip(x, (2,)))
+        check(flipped or torch.equal(y, x), "random_flip_left_right is "
+                                            "neither x nor its flip")
+        flips += flipped
+    spread = 5 * math.sqrt(n / 4)
+    check(abs(flips - n / 2) < spread, f"{flips} flips in {n} draws")
+    return worst, flips / n
+
+
+# (e) the two detection chains, end to end at (a)'s sizes, card against CPU
+CHAIN_REPEATS = 5
+NMS_CPU_IMAGES = 2
+
+
+def _time_call(fn, device, repeats):
+    """(the last result, ms per call): on the card one warm-up call, then
+    the mean of ``repeats`` calls, each synchronised."""
+    if device == "cuda":
+        fn()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / repeats
+
+
+def ssd_chain(nd, maps, data, topk):
+    """SSD-300's prior -> target -> detection through mx.nd.contrib."""
+    ctx = data["labels"].context
+    anchors = nd.concat(*[nd.contrib.MultiBoxPrior(
+        nd.zeros((1, 1, m, m), ctx=ctx), **attrs)
+        for m, attrs in zip(maps, ssd_prior_attrs(maps))], dim=1)
+    target = nd.contrib.MultiBoxTarget(
+        anchors, data["labels"], data["cls_pred"], overlap_threshold=0.5,
+        negative_mining_ratio=3, negative_mining_thresh=0.5)
+    det = nd.contrib.MultiBoxDetection(
+        data["cls_prob"], data["loc_pred"], anchors, threshold=0.01,
+        nms_threshold=0.45, nms_topk=topk)
+    return [anchors] + list(target) + [det]
+
+
+def rcnn_chain(nd, data, post, pre):
+    """Faster R-CNN's Proposal -> ROIAlign through mx.nd.contrib."""
+    rois = nd.contrib.Proposal(
+        data["cls_prob"], data["bbox_pred"], data["im_info"],
+        scales=(8, 16, 32), ratios=(0.5, 1, 2), feature_stride=16,
+        rpn_pre_nms_top_n=pre, rpn_post_nms_top_n=post, threshold=0.7,
+        rpn_min_size=16)
+    pooled = nd.contrib.ROIAlign(data["feat"], rois, pooled_size=(14, 14),
+                                 spatial_scale=1 / 16, sample_ratio=2)
+    return [rois, pooled]
+
+
+def detection_chains(seed, shapes=OP_SHAPES, device="cuda",
+                     repeats=CHAIN_REPEATS):
+    """(e): each chain on ``device`` and on the CPU from the same inputs,
+    ms per call on each, the outputs held to each other (targets: classes
+    and masks equal; detections: detection_deviation; the rest within
+    OP_TOL); then box_nms's full sweep (no topk) over the SSD batch, on
+    the CPU over its first NMS_CPU_IMAGES images only (the sweep takes
+    ~1.1 s an image there).  Returns {label: (device ms, CPU ms,
+    deviation)}."""
+    import mxnet_tpu_torch as mx
+
+    nd = mx.nd
+    sb, scls, srows, stopk, maps = shapes["ssd"]
+    rn, rh, rw, rc, post, pre = shapes["rcnn"]
+    na = sum(m * m * (len(r) + 1) for m, r in zip(maps, SSD_RATIOS))
+    g = torch.Generator(device=device).manual_seed(seed)
+    ssd_in = {"labels": ssd_labels(g, sb, srows, scls),
+              "cls_pred": _softmax(g, (sb, scls, na), 1),
+              "cls_prob": _softmax(g, (sb, scls, na), 1, 2.0),
+              "loc_pred": ssd_loc(g, sb, na)}
+    probs, deltas, info = rpn_inputs(g, rn, rh, rw)
+    rcnn_in = {"cls_prob": probs, "bbox_pred": deltas, "im_info": info,
+               "feat": _u(g, (rn, rc, rh, rw))}
+    nms_in = ssd_detections(g, sb, na, scls)
+    out = {}
+
+    def on(dev, tensors):
+        ctx = mx.Context.from_device(torch.device(dev))
+        return {k: nd.array(v, ctx=ctx, dtype=v.dtype)
+                for k, v in tensors.items()}
+
+    def run(label, fn, tensors, compare, cpu_images=None):
+        res, ms = {}, {}
+        for dev in (device, "cpu"):
+            data = on(dev, tensors if dev == device else {
+                k: v[:cpu_images] for k, v in tensors.items()})
+            with no_host_reads():
+                outs, ms[dev] = _time_call(lambda: fn(data), dev,
+                                           repeats if dev != "cpu" else 1)
+            res[dev] = [o._data for o in outs]
+        ref = [r.to(device) for r in res["cpu"]]
+        dev_ = max(compare(i, c[:cpu_images], r) for i, (c, r) in enumerate(
+            zip(res[device], ref)))
+        out[label] = (ms[device], ms["cpu"], dev_)
+        check(dev_ <= OP_TOL, f"{label}: the card's outputs deviate "
+                              f"{dev_:.3e} from the CPU's")
+
+    def ssd_compare(i, c, r):
+        if i in (2, 3):                       # the target mask and classes
+            return 0.0 if torch.equal(c, r) else math.inf
+        if i == 4:
+            return detection_deviation(c, r)
+        return op_deviation(c, r)
+
+    run(f"SSD-300 prior -> target -> detection, batch {sb}",
+        lambda d: ssd_chain(nd, maps, d, stopk), ssd_in, ssd_compare)
+    run(f"Faster R-CNN Proposal ({pre} -> {post}) -> ROIAlign 14 x 14",
+        lambda d: rcnn_chain(nd, d, post, pre), rcnn_in,
+        lambda i, c, r: (0.0 if torch.equal(c, r) else math.inf) if i == 0
+        else op_deviation(c, r))
+    run(f"box_nms full sweep ({na} rows), batch {sb} (the CPU: "
+        f"{min(sb, NMS_CPU_IMAGES)})",
+        lambda d: [nd.contrib.box_nms(d["rows"], overlap_thresh=0.45,
+                                      id_index=0)],
+        {"rows": nms_in}, lambda i, c, r: detection_deviation(c, r),
+        cpu_images=NMS_CPU_IMAGES)
+    return out
+
+
+def int8_route_times(seed, shape=(256, 2048, 1000)):
+    """(e): the int8 product's exact routes on the card at ResNet-50's
+    classifier (M, K) x (N, K): the port's torch._int_mm on the weight's
+    transposed view, _int_mm on a row-major copy of the transpose, and
+    the fp64 product, held equal.  Returns {route: ms per call}."""
+    from mxnet_tpu_torch.ops import quantization_ops as q
+
+    m, k, n = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=g, device="cuda",
+                      dtype=torch.int8)
+    routes = {"torch._int_mm on the weight's transposed view":
+              q.int8_matmul_int_mm,
+              "torch._int_mm on a row-major copy of the transpose":
+              lambda a, b: torch._int_mm(a, b.t().contiguous()),
+              "fp64": q.int8_matmul_fp64}
+    outs = {r: fn(a, b) for r, fn in routes.items()}
+    check(all(torch.equal(o, outs["fp64"]) for o in outs.values()),
+          "the int8 product's routes disagree")
+    return {r: cuda_time_ms(lambda fn=fn: fn(a, b), iters=200, warmup=10)
+            for r, fn in routes.items()}
+
+
+def op_table_definitions():
+    """The canonical name of every op definition in the port's table."""
+    from mxnet_tpu_torch.ops.registry import OP_TABLE
+
+    return {od.name for od in OP_TABLE.values()}
 
 
 def check_op_coverage(cases):
@@ -3617,7 +4569,11 @@ def run_op_case(case, inputs, device, head):
         outs[case.head_out].backward(mx.nd.array(
             head(top.shape, top.dtype), ctx=ctx, dtype=top.dtype))
         grads = [nds[i].grad._data for i in sel]
-    return [o._data.detach() for o in outs], grads
+    outs = [o._data.detach() for o in outs]
+    if case.extra is not None:
+        with no_host_reads():
+            outs += case.extra(*[n._data.detach() for n in nds])
+    return outs, grads
 
 
 def op_deviation(cand, ref):
@@ -3697,8 +4653,14 @@ def check_op_case(case, seed, device, dtype=None, fault=None):
         return 0.0
     if case.compare == "svd":
         outs = _svd_aligned(outs, ref_outs)
-    devs = [op_deviation(o, r) for o, r in zip(outs, ref_outs)]
-    devs += [op_deviation(c, r) for c, r in zip(grads, ref_grads)]
+    devs = compare_outputs(case, inputs, outs, ref_outs)
+    if devs is None:
+        devs = [op_deviation(o, r) for o, r in zip(outs, ref_outs)]
+    if case.compare == "flip":
+        devs += flip_grad_deviations(case, inputs[0], outs[0], ref_outs[0],
+                                     grads, ref_grads, head)
+    else:
+        devs += [op_deviation(c, r) for c, r in zip(grads, ref_grads)]
     worst = max(devs)
     check(worst <= OP_TOL, f"{case.label}: deviation {worst:.3e} from the "
                            f"CPU exceeds {OP_TOL:g} (outputs, then "
@@ -3709,12 +4671,21 @@ def check_op_case(case, seed, device, dtype=None, fault=None):
 def op_table_checks(seed, device, shapes=OP_SHAPES, dtype=None):
     """Phase 8 (a): every case of op_cases(shapes), after the coverage
     check.  Returns {label: worst deviation}."""
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+
     cases = op_cases(shapes)
     check_op_coverage(cases)
     devs, secs = {}, {}
+    counter = fa_mod._flash_fwd_cuda
     for i, c in enumerate(cases):
         t0 = time.perf_counter()
+        before = counter.launches
         devs[c.label] = check_op_case(c, seed + i, device, dtype)
+        if c.name == "_contrib_flash_attention":
+            # the kernel held against the CPU's plain version: comparison
+            # launches, outside the op table path's count (op table 2)
+            log(f"  {c.label}: {counter.launches - before} comparison "
+                f"launches of flash_attn_fwd")
         secs[c.label] = time.perf_counter() - t0
     slow = sorted(secs, key=secs.get, reverse=True)[:12]
     log("  slowest calls (s, card and CPU): " + ", ".join(
@@ -3747,6 +4718,72 @@ def planted_op_fault(fault):
         yield
     finally:
         od.fn = orig
+
+
+@contextlib.contextmanager
+def planted_family_fault(fault):
+    """A fault in the families beyond tensor and nn: "nms_unstable" (the
+    score sort breaks ties by the higher index), "target_first_write"
+    (MultiBoxTarget's shared anchor keeps the first row), "int8_fp32" (the
+    int8 products accumulate in fp32) or "resize_interpolate" (bicubic
+    resize by F.interpolate)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import detection_ops, image_ops
+    from mxnet_tpu_torch.ops import quantization_ops
+
+    saved = []
+
+    def swap(mod, attr, fn):
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, fn)
+
+    if fault == "nms_unstable":
+        def order(key, descending=False):
+            n = key.shape[-1]
+            flipped = torch.sort(torch.flip(key, (-1,)), dim=-1,
+                                 descending=descending, stable=True)[1]
+            return n - 1 - flipped
+        swap(detection_ops, "_stable_order", order)
+    elif fault == "target_first_write":
+        def first(safe, na):
+            nb, m = safe.shape
+            rows = torch.arange(m, device=safe.device).expand(nb, m)
+            out = torch.full((nb, na + 1), m, dtype=torch.int64,
+                             device=safe.device)
+            out = out.scatter_reduce(1, safe, rows, reduce="amin")[:, :na]
+            return torch.where(out == m, torch.zeros_like(out), out)
+        swap(detection_ops, "force_match_rows", first)
+    elif fault == "int8_fp32":
+        def matmul(a, b):
+            return torch.matmul(a.float(), b.float().t()).to(torch.int32)
+
+        def conv(x, w, stride, padding, dilation, groups):
+            return F.conv2d(x.float(), w.float(), stride=stride,
+                            padding=padding, dilation=dilation,
+                            groups=groups).to(torch.int32)
+        swap(quantization_ops, "int8_matmul", matmul)
+        swap(quantization_ops, "int8_conv", conv)
+    elif fault == "resize_interpolate":
+        orig = image_ops.resize_axes
+
+        def resize(x, out_sizes, method):
+            if method != "bicubic":
+                return orig(x, out_sizes, method)
+            (_, h), (_, w) = sorted(out_sizes.items())
+            x4 = x if x.dim() == 4 else x[None]
+            y = F.interpolate(x4.permute(0, 3, 1, 2), size=(h, w),
+                              mode="bicubic", align_corners=False)
+            y = y.permute(0, 2, 3, 1)
+            return y if x.dim() == 4 else y[0]
+        swap(image_ops, "resize_axes", resize)
+    else:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in reversed(saved):
+            setattr(mod, attr, fn)
 
 
 # (b) the "medium" PTB LSTM of Zaremba et al. 2014, "Recurrent Neural
@@ -4091,14 +5128,14 @@ def opperf_rows(seed):
 
 
 def op_table_phase(seed):
-    """Phase 8: (a), (b) and (c); returns flash_attn_fwd's launches over
-    the phase (the op table launches none)."""
+    """Phase 8: (a) to (e); returns flash_attn_fwd's launches over the op
+    table path's run, the LSTM LM of (b), counted from 0 just before it
+    (the LM launches none; (a)'s comparison launches fall outside it)."""
     from mxnet_tpu_torch.ops import flash_attention as fa_mod
 
-    fa_mod._flash_fwd_cuda.launches = 0
-    log(f"== op table 1: every op definition of the tensor and nn families "
-        f"on the card against the CPU, fp32 (linalg fp64), TF32 off, "
-        f"tolerance {OP_TOL:g}")
+    log(f"== op table 1: every op definition of the table on the card "
+        f"against the CPU, fp32 (linalg fp64), TF32 off, tolerance "
+        f"{OP_TOL:g}")
     t0 = time.perf_counter()
     devs = op_table_checks(seed, "cuda")
     worst = max(devs, key=devs.get)
@@ -4112,6 +5149,8 @@ def op_table_phase(seed):
     log(f"== op table 2: the medium PTB LSTM LM (Zaremba et al. 2014) "
         f"through mx.nd: {cfg}, SGD {LM_LR}; one step at dropout 0 on the "
         f"card in fp32 against the CPU's fp64 step, bound {LM_BOUND:g}")
+    fa_mod._flash_fwd_cuda.launches = 0          # counts of (b) only
+    fa_mod._flash_fwd_cuda.launches_by_len = {}
     ratio, where, ref = lm_step_check(cfg, seed, "cuda", torch.float32)
     log(f"  fp32 step: worst deviation {ratio:.3e} of the update ({where})")
     check(ratio <= LM_BOUND, f"the LM step deviates {ratio:.3e} at {where}")
@@ -4122,11 +5161,41 @@ def op_table_phase(seed):
         check(r > LM_BOUND, f"the LM check passed planted fault {fault}")
     ms, params = lm_timing(cfg, seed)
     lstm_yardstick(cfg, params, seed)
+    launches = fa_mod._flash_fwd_cuda.launches
 
     log("== op table 3: benchmark/opperf.py's DEFAULT_SUITE through the "
         "port's invoke, fp32")
     opperf_rows(seed)
-    return fa_mod._flash_fwd_cuda.launches
+
+    log(f"== op table 4: the samplers on the card by distribution (KS "
+        f"against scipy's CDF, moments and chi-square; p {P_BOUND:g}), "
+        f"seed and state replay, a planted fault")
+    t1 = time.perf_counter()
+    stats_, secs = sampler_checks(seed, "cuda")
+    for label, (stat, bound) in stats_.items():
+        log(f"  {label}: {stat:.4g} (bound {bound:.4g}), {secs[label]:.2f} s")
+    try:
+        with planted_sampler_fault():
+            sampler_checks(seed, "cuda", only="random_normal")
+    except SystemExit as e:
+        log(f"  planted random_normal scale x1.05: fails ({e})")
+    else:
+        check(False, "the sampler check passed random_normal at 1.05 times "
+                     "its scale")
+    worst, share = image_factor_checks(seed, "cuda")
+    log(f"  random image ops: closed forms within {worst:.3e}, factors in "
+        f"their ranges, {share:.3f} of the flips flipped; "
+        f"{time.perf_counter() - t1:.1f} s")
+
+    log("== op table 5: the detection chains end to end, card against CPU")
+    for label, (ms, cpu_ms, dev) in detection_chains(seed).items():
+        log(f"  [{gpu_line()}] {label}: {ms:.2f} ms a call on the card, "
+            f"{cpu_ms:.1f} ms on the CPU; deviation {dev:.3e}")
+    times = int8_route_times(seed)
+    log(f"  [{gpu_line()}] the int8 product at ResNet-50's classifier "
+        f"(256, 2048) x (1000, 2048), equal on every route: " + ", ".join(
+            f"{route} {ms:.4f} ms" for route, ms in times.items()))
+    return launches
 
 
 def main():
@@ -4233,7 +5302,8 @@ def main():
     t4 = time.perf_counter()
     log(f"  llama phase took {t4 - t3:.1f} s")
 
-    log("== the mx.nd op table: the tensor and nn families, the LSTM LM")
+    log("== the mx.nd op table: every definition, the LSTM LM, the "
+        "samplers, the detection chains")
     n_op_table = op_table_phase(args.seed)
     check(n_op_table == 0, f"flash_attn_fwd launched {n_op_table} times on "
                            f"the op table")

@@ -3,8 +3,8 @@ import (counterpart of ``mxnet_tpu/ndarray/__init__.py``), the helpers
 with MXNet's positional signatures (``array``, ``zeros``, ``ones``,
 ``full``, ``empty``, ``arange``, ``eye``, ``concat``, ``stack``,
 ``add_n``, the ``*_like`` ops, the scalar-tolerant ``maximum`` /
-``minimum`` / ``power`` and ``dot``), and the ``linalg`` and ``contrib``
-namespaces."""
+``minimum`` / ``power`` and ``dot``), and the ``linalg``, ``contrib``,
+``image`` and ``random`` namespaces."""
 from __future__ import annotations
 
 import inspect as _inspect
@@ -21,7 +21,7 @@ from .ndarray import NDArray, array, invoke, waitall
 __all__ = ["NDArray", "array", "invoke", "waitall", "zeros", "ones", "full",
            "empty", "arange", "eye", "concat", "stack", "add_n",
            "zeros_like", "ones_like", "maximum", "minimum", "power", "dot",
-           "list_ops", "linalg", "contrib"]
+           "list_ops", "linalg", "contrib", "image", "random"]
 
 
 def _make_op_func(opname, od):
@@ -177,4 +177,4 @@ def _scalar_tolerant(opname, scalar_op):
 for _n in ("maximum", "minimum", "power"):
     setattr(_mod, _n, _scalar_tolerant(_n, f"broadcast_{_n}_scalar"))
 
-from . import contrib, linalg  # noqa: E402,F401
+from . import contrib, image, linalg, random  # noqa: E402,F401

@@ -1,17 +1,81 @@
-"""LLM building-block ops (counterpart of ``mxnet_tpu/ops/attention_ops.py``
-``rms_norm`` / ``rope`` / ``swiglu`` / ``moe_swiglu``), registered in the op
-table so Gluon blocks reach them as ``F.rms_norm`` ... and ``nd.rms_norm``
-... exist.  Plain PyTorch, with the reference's cast points: fp32 inside,
-the input dtype outside.  None is on the AMP lists, so under a bf16
-``TrainStep`` each runs in the dtype it receives."""
+"""Transformer ops (counterpart of ``mxnet_tpu/ops/attention_ops.py``): the
+interleaved-matmul attention ops of GluonNLP's BERT (``(L, B, 3 * H * D)``
+projections, the reference's layout, through batched ``torch.matmul``) and
+the LLM building blocks ``rms_norm`` / ``rope`` / ``swiglu`` /
+``moe_swiglu``, registered in the op table so Gluon blocks reach them as
+``F.rms_norm`` ... and ``nd.rms_norm`` ... exist.  Plain PyTorch; the
+LLM blocks keep the reference's cast points (fp32 inside, the input dtype
+outside).  None is on the AMP lists, so under a bf16 ``TrainStep`` each
+runs in the dtype it receives."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from .registry import register
 
-__all__ = ["rms_norm", "rope", "swiglu", "moe_swiglu"]
+__all__ = ["rms_norm", "rope", "swiglu", "moe_swiglu",
+           "interleaved_matmul_selfatt_qk", "interleaved_matmul_selfatt_valatt",
+           "interleaved_matmul_encdec_qk", "interleaved_matmul_encdec_valatt"]
+
+
+# --------------------------------------------------------------------------
+# interleaved-matmul attention: qkv (L, B, 3 * H * D) holds, for each head,
+# its q, k and v rows side by side (kv: k and v)
+# --------------------------------------------------------------------------
+def _split_interleaved(qkv, heads, n):
+    """The ``n`` parts of each head as (B * H, L, D) tensors."""
+    L, B, E = qkv.shape
+    d = E // (n * heads)
+    x = qkv.reshape(L, B, heads, n, d)
+    return [x[:, :, :, i, :].permute(1, 2, 0, 3).reshape(B * heads, L, d)
+            for i in range(n)]
+
+
+def _merge_heads(out, heads):
+    """(B * H, L, D) -> (L, B, H * D)."""
+    bh, L, d = out.shape
+    return out.reshape(bh // heads, heads, L, d).permute(2, 0, 1, 3) \
+        .reshape(L, bh // heads, heads * d)
+
+
+@register("_contrib_interleaved_matmul_selfatt_qk",
+          aliases=("interleaved_matmul_selfatt_qk",))
+def interleaved_matmul_selfatt_qk(qkv, heads=1):
+    """(L, B, 3HD) -> the scores (B * H, L, L), scaled by 1/sqrt(D)."""
+    q, k, _ = _split_interleaved(qkv, heads, 3)
+    return torch.matmul(q, k.transpose(1, 2)) / math.sqrt(q.shape[-1])
+
+
+@register("_contrib_interleaved_matmul_selfatt_valatt",
+          aliases=("interleaved_matmul_selfatt_valatt",))
+def interleaved_matmul_selfatt_valatt(qkv, att, heads=1):
+    """att (B * H, L, L) times the v of qkv -> (L, B, H * D)."""
+    v = _split_interleaved(qkv, heads, 3)[2]
+    return _merge_heads(torch.matmul(att, v), heads)
+
+
+@register("_contrib_interleaved_matmul_encdec_qk",
+          aliases=("interleaved_matmul_encdec_qk",))
+def interleaved_matmul_encdec_qk(q, kv, heads=1):
+    """q (Lq, B, HD) against the k of kv (Lk, B, 2HD) -> (B * H, Lq, Lk),
+    scaled by 1/sqrt(D)."""
+    Lq, B, E = q.shape
+    d = E // heads
+    qt = q.reshape(Lq, B, heads, d).permute(1, 2, 0, 3).reshape(
+        B * heads, Lq, d)
+    k = _split_interleaved(kv, heads, 2)[0]
+    return torch.matmul(qt, k.transpose(1, 2)) / math.sqrt(d)
+
+
+@register("_contrib_interleaved_matmul_encdec_valatt",
+          aliases=("interleaved_matmul_encdec_valatt",))
+def interleaved_matmul_encdec_valatt(kv, att, heads=1):
+    """att (B * H, Lq, Lk) times the v of kv (Lk, B, 2HD) -> (Lq, B, HD)."""
+    v = _split_interleaved(kv, heads, 2)[1]
+    return _merge_heads(torch.matmul(att, v), heads)
 
 
 @register("rms_norm")
@@ -34,8 +98,11 @@ def rope(x, positions=None, base=10000.0, scale=1.0):
         positions = torch.arange(l, device=x.device)
     positions = torch.as_tensor(positions, device=x.device).float() * scale
     half = d // 2
-    freqs = base ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=x.device) / half)
+    # the frequencies rounded from fp64: fp32 pow differs by ulps between
+    # the card and the CPU, and an angle of position 2047 multiplies that
+    # into ~1e-4
+    freqs = (base ** (-torch.arange(0, half, dtype=torch.float64,
+                                    device=x.device) / half)).float()
     angles = positions[..., None] * freqs                  # (..., L, d/2)
     if angles.dim() == 2:        # (L, d/2): shared across batch and heads
         angles = angles[None, None]

@@ -1,14 +1,19 @@
-"""Random state (counterpart of ``mxnet_tpu/random.py``): ``seed()`` and one
-explicit ``torch.Generator`` per device.  The port's random draws (the
-initializers) take their generator from :func:`generator`; nothing on the
-path uses torch's global generator."""
+"""Random state (counterpart of ``mxnet_tpu/random.py``): ``seed()``, one
+explicit ``torch.Generator`` per device, ``get_state`` / ``set_state`` over
+them, and the ``uniform`` / ``normal`` / ``randint`` helpers.  Every random
+draw of the port (the samplers, the initializers, dropout, the random image
+ops) takes its generator from :func:`generator`; nothing uses torch's
+global generator.  The streams are torch's (Philox on the card), not the
+reference's threefry keys: a seed fixes the draws of each package, not the
+same draws in both."""
 from __future__ import annotations
 
 import threading
 
 import torch
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "get_state", "set_state", "uniform",
+           "normal", "randint"]
 
 
 class _RngState(threading.local):
@@ -47,3 +52,54 @@ def generator(device):
         gen.manual_seed(_S.seed)
         _S.generators[key] = gen
     return gen
+
+
+def get_state():
+    """A JSON-able snapshot of this thread's random state: the seed and
+    each created generator's state bytes, by device.  With
+    :func:`set_state` the draws that follow replay bit for bit on the same
+    devices (a checkpoint's resume)."""
+    return {"seed": _S.seed,
+            "generators": {str(dev): gen.get_state().tolist()
+                           for dev, gen in _S.generators.items()}}
+
+
+def set_state(state):
+    """Restore a :func:`get_state` snapshot (None: back to the unseeded
+    default, seed 0)."""
+    _S.generators.clear()
+    if state is None:
+        _S.seed = 0
+        return
+    _S.seed = int(state["seed"])
+    for dev, words in state["generators"].items():
+        gen = torch.Generator(device=_key(dev))
+        gen.set_state(torch.tensor(words, dtype=torch.uint8))
+        _S.generators[_key(dev)] = gen
+
+
+def uniform(low=0, high=1, shape=None, dtype="float32", ctx=None, out=None):
+    from .ndarray import ndarray as _nd
+
+    return _nd.invoke("random_uniform", [], {"low": low, "high": high,
+                                             "shape": shape or (1,),
+                                             "dtype": dtype},
+                      out=out, ctx=ctx)
+
+
+def normal(loc=0, scale=1, shape=None, dtype="float32", ctx=None, out=None):
+    from .ndarray import ndarray as _nd
+
+    return _nd.invoke("random_normal", [], {"loc": loc, "scale": scale,
+                                            "shape": shape or (1,),
+                                            "dtype": dtype},
+                      out=out, ctx=ctx)
+
+
+def randint(low, high, shape=None, dtype="int32", ctx=None, out=None):
+    from .ndarray import ndarray as _nd
+
+    return _nd.invoke("random_randint", [], {"low": low, "high": high,
+                                             "shape": shape or (1,),
+                                             "dtype": dtype},
+                      out=out, ctx=ctx)

@@ -26,11 +26,16 @@ MoE check holds its step and sees the aux loss move the router.
 The new entry points raise without a card unless asked for the CPU.
 
 The mx.nd op table (phase 8): at tiny shapes, CPU against CPU in fp64,
-(a) passes every op call of the phase and fails an argsort that returns
-int64, a topk with is_ascend flipped and a where_index that goes through
-the host, and the coverage check fails when a definition is left out;
-(b) the LSTM LM's step check passes the port and fails each of its three
-planted faults.
+(a) passes every op call of the phase (all 278 definitions) and fails an
+argsort that returns int64, a topk with is_ascend flipped, a where_index
+that goes through the host, a box_nms whose sort breaks ties the other
+way, a MultiBoxTarget whose shared anchor keeps the first row, int8
+products accumulated in fp32 and a bicubic resize by F.interpolate, and
+the coverage check fails when a definition is left out; (b) the LSTM
+LM's step check passes the port and fails each of its three planted
+faults; (d) the sampler checks pass the port and fail a random_normal
+drawing at 1.05 times its scale, and the random image ops meet their
+closed forms; (e) the detection chains agree CPU against CPU.
 
 Serving over HTTP (phase 4b): the client's checks pass a correct port
 and fail a route that drops a token and a drain that serves the queued
@@ -703,7 +708,15 @@ TINY_OP_SHAPES = {
     "nhwc": (2, 20, 20, 8), "ids": (16, 40, 6), "tnc": (6, 3, 4),
     "nchw": (2, 8, 6, 6), "up": (2, 4, 4, 4), "loss": (8, 12),
     "ctc": (12, 3, 5, 4), "stn": (2, 3, 5, 6), "rnn": (4, 3, 5, 2),
-    "eye": 8}
+    "eye": 8, "opt": (6, 4), "interleaved": (4, 2, 2, 3),
+    "rope": (1, 2, 4, 4), "swiglu": (3, 5), "moe": (1, 4, 6, 2, 4),
+    "attn": (1, 2, 4, 4), "flow": (1, 3, 6, 7, 2), "image": (2, 8, 11, 5),
+    "draws": (4, 5), "pdf": (3, 8), "qconv": (2, 3, 5, 4),
+    "qfc": (4, 2048, 8), "ssd": (2, 5, 4, 6, (4, 2, 1)),
+    "rcnn": (1, 3, 4, 5, 6, 20), "dcn": (1, 3, 5)}
+TINY_SAMPLERS = {"embed": (500, 400), "vocab": (2, 50), "draws": 200_000,
+                 "multinomial_draws": 4000, "image": (2, 6, 7, 3),
+                 "image_draws": 40}
 TINY_LM = dict(vocab=30, embed=6, hidden=6, layers=2, steps=5, batch=3,
                dropout=0.5)
 
@@ -711,7 +724,7 @@ TINY_LM = dict(vocab=30, embed=6, hidden=6, layers=2, steps=5, batch=3,
 def test_op_table_checks_pass_the_port():
     devs = chip_smoke.op_table_checks(0, "cpu", TINY_OP_SHAPES,
                                       dtype=torch.float64)
-    assert len(devs) >= len(chip_smoke.op_table_definitions()) == 200
+    assert len(devs) >= len(chip_smoke.op_table_definitions()) == 278
     assert max(devs.values()) == 0.0
 
 
@@ -754,3 +767,54 @@ def test_lm_fp32_step_held_to_the_fp64_step():
     ratio, where, _ = chip_smoke.lm_step_check(TINY_LM, 0, "cpu",
                                                torch.float32)
     assert 0.0 < ratio <= chip_smoke.LM_BOUND, (ratio, where)
+
+
+@pytest.mark.parametrize("fault,label", [
+    ("nms_unstable", "_contrib_box_nms"),
+    ("target_first_write", "_contrib_MultiBoxTarget"),
+    ("int8_fp32", "_contrib_quantized_fully_connected (sums past 2^24)"),
+    ("resize_interpolate", "image_resize bicubic to 11"),
+    ("resize_interpolate", "image_resize bicubic to 5")])
+def test_op_table_check_catches_planted_family_faults(fault, label):
+    """Phase 8 (a) fails a box_nms whose sort breaks ties the other way, a
+    MultiBoxTarget whose shared anchor keeps the first row, int8 products
+    accumulated in fp32 and a bicubic resize by F.interpolate."""
+    cases = [c for c in chip_smoke.op_cases(TINY_OP_SHAPES)
+             if c.label == label]
+    assert len(cases) == 1
+    with pytest.raises(SystemExit, match="CHECK FAILED"):
+        chip_smoke.check_op_case(cases[0], 0, "cpu", torch.float64,
+                                 fault=chip_smoke.planted_family_fault(fault))
+    chip_smoke.check_op_case(cases[0], 0, "cpu", torch.float64)
+
+
+@pytest.mark.parametrize("name", ["_contrib_box_nms", "random_normal",
+                                  "_contrib_quantized_conv",
+                                  "image_random_hue", "lamb_update_phase2"])
+def test_op_table_coverage_fails_without_a_new_definition(name):
+    cases = [c for c in chip_smoke.op_cases(TINY_OP_SHAPES)
+             if c.name != name]
+    with pytest.raises(SystemExit, match=name):
+        chip_smoke.check_op_coverage(cases)
+
+
+def test_sampler_checks_pass_the_port_and_fail_a_planted_scale():
+    stats_, _ = chip_smoke.sampler_checks(0, "cpu", TINY_SAMPLERS)
+    assert len(stats_) == 12
+    assert all(stat < bound for stat, bound in stats_.values())
+    with pytest.raises(SystemExit, match="random_normal"):
+        with chip_smoke.planted_sampler_fault():
+            chip_smoke.sampler_checks(0, "cpu", TINY_SAMPLERS,
+                                      only="random_normal")
+
+
+def test_image_factor_checks_pass_the_port():
+    worst, share = chip_smoke.image_factor_checks(0, "cpu", TINY_SAMPLERS)
+    assert worst <= chip_smoke.OP_TOL and 0.0 < share < 1.0
+
+
+def test_detection_chains_run_on_the_cpu():
+    out = chip_smoke.detection_chains(0, TINY_OP_SHAPES, device="cpu",
+                                      repeats=1)
+    assert len(out) == 3
+    assert all(dev == 0.0 for _, _, dev in out.values())
