@@ -6,7 +6,9 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 (``--bert-step-seeds 1 2 3`` runs only the build and the BERT-base step
-check of phase 6 (b), once for each seed.)
+check of phase 6 (b), once for each seed, and ``--gluon-bert-seeds 1 2
+3`` the same for phase 9 (b); ``--op-table`` and ``--gluon-train`` run
+only the build and phase 8 or 9.)
 
 Phases (any failed check exits nonzero; nothing runs on the CPU):
 
@@ -135,7 +137,29 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    and read just after it, and must be 0; (a)'s check of
    _contrib_flash_attention launches the kernel outside that window.
    ``--op-table`` runs only the build and this phase;
-9. the kernels line (its times and launches at the main path's shape,
+9. the Gluon training surface: (a) every registered optimizer (3
+   updates over BERT-base's word embedding and a bias, a warm-up
+   PolyScheduler, clip_gradient, an index lr_mult) on the card against
+   the CPU within OP_TOL, SGLD's noise by KS against N(0, lr), a LAMB
+   with its trust ratio forced to 1 that must fail; (b) GluonNLP's BERT
+   pretraining step through gluon.Trainer (LAMB, warm-up poly schedule,
+   wd_mult 0 on LayerNorm and biases, scale_loss -> backward -> unscale
+   -> clip_global_norm -> step, batch 8, dropout 0): fp32 on the card
+   against the CPU's fp64 step within 6 x the CPU's fp32 deviation, bf16
+   under amp within 3 x the CPU's bf16 deviation, the reference's
+   param_dict lookup (multipliers ignored) and TF32 matmuls planted and
+   failing, flash_attn_fwd once a layer; (c) float16 dynamic
+   loss scaling on a BERT-base-width FFN: the scale kept, doubled, and
+   halved with the weights untouched on a planted inf gradient; (d) the
+   recipe timed at batch 64 in AMP bf16 with dropout 0.1 and the
+   metrics every step (samples/s, MFU, peak memory, a profile with the
+   optimizer and clip_global_norm apart, beside phase 6 (d)'s
+   TrainStep figure); (e) GluonCV's ResNet-50 v1 recipe (NAG, cosine
+   warm-up, no wd on BatchNorm and biases, label smoothing, top-5
+   accuracy), one step at batch 8 on the card against the CPU's fp64
+   step, an ignored warm-up planted and failing.  ``--gluon-train`` runs
+   only the build and this phase;
+10. the kernels line (its times and launches at the main path's shape,
    the serving fleet, 4c;
    each path's shape, times and launches under ``by_path``, the op table
    with none), then the device line.
@@ -243,7 +267,8 @@ PROXY_SHAPE = (8, 16, 8, 1024, 1024, 64, True, False)
 PATH_SHAPES = {"serving": SERVING_SHAPE, "serve_http": SERVING_SHAPE,
                "serve_fleet": SERVING_SHAPE,
                "bert_train": BERT_SHAPE, "llama_train": SERVING_SHAPE,
-               "llama_proxy_train": PROXY_SHAPE}
+               "llama_proxy_train": PROXY_SHAPE,
+               "gluon_bert_lamb": BERT_SHAPE}
 KERNEL_CASES = BUCKET_SHAPES + [PROXY_SHAPE] + [
     (1, 32, 8, 512, 512, 128, False, False),
     (1, 32, 8, 1000, 1000, 128, True, False),     # ragged length
@@ -470,19 +495,22 @@ def log_device_profile(run, kernel_groups, n_top=8, label=None, steps=1,
                        step_ms=None):
     """Run ``run()`` (``steps`` steps) under torch.profiler and print its
     wall time, the device-busy share and the device time by kernel group
-    (the first group whose pattern a kernel's name holds), per step.  With
-    ``label``, host activity is traced too, and the kernels that ran inside
-    a ``label`` range (its annotation on the device timeline) form the
-    group ``label``.  With ``step_ms`` (the unprofiled step time) the busy
-    share is the device time per step over it, as the host profiler slows
-    the host; else it is the device time over the profiled wall time."""
+    (the first group whose pattern a kernel's name holds) and its count of
+    device operations (kernels and copies), per step.  With
+    ``label`` (one name or a tuple), host activity is traced too, and the
+    kernels that ran inside a range of that name (its annotation on the
+    device timeline) form a group of that name.  With ``step_ms`` (the
+    unprofiled step time) the busy share is the device time per step over
+    it, as the host profiler slows the host; else it is the device time
+    over the profiled wall time.  Returns {group: device ops per step}."""
     import bisect
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    labels = (label,) if isinstance(label, str) else tuple(label or ())
     activities = [ProfilerActivity.CUDA]
-    if label:
+    if labels:
         activities.append(ProfilerActivity.CPU)
     torch.cuda.synchronize()
     with profile(activities=activities) as prof:
@@ -493,29 +521,31 @@ def log_device_profile(run, kernel_groups, n_top=8, label=None, steps=1,
     device = [ev for ev in prof.events()
               if ev.device_type == DeviceType.CUDA
               and ev.time_range.end > ev.time_range.start]
-    spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in device if ev.name == label)
-    starts = [a for a, _ in spans]
+    spans = {lb: sorted((ev.time_range.start, ev.time_range.end)
+                        for ev in device if ev.name == lb) for lb in labels}
+    starts = {lb: [a for a, _ in sp] for lb, sp in spans.items()}
 
     def group_of(ev):
-        i = bisect.bisect_right(starts, ev.time_range.start) - 1
-        if i >= 0 and ev.time_range.start < spans[i][1]:
-            return label
+        for lb, sp in spans.items():
+            i = bisect.bisect_right(starts[lb], ev.time_range.start) - 1
+            if i >= 0 and ev.time_range.start < sp[i][1]:
+                return lb
         return next((gr for gr, pats in kernel_groups
                      if any(pt in ev.name for pt in pats)), "other")
 
-    groups, by_kernel = {}, {}
+    groups, counts, by_kernel = {}, {}, {}
     for ev in device:
-        if ev.name == label or getattr(ev, "is_user_annotation", False):
+        if ev.name in labels or getattr(ev, "is_user_annotation", False):
             continue                 # ranges, not kernels
         ms = (ev.time_range.end - ev.time_range.start) / 1e3
         by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ms
         group = group_of(ev)
         groups[group] = groups.get(group, 0.0) + ms
+        counts[group] = counts.get(group, 0) + 1
     busy = sum(groups.values())
     if busy == 0:
         log("  profile: no device time recorded (not measured)")
-        return
+        return {}
     if step_ms is None:
         share = f"{100 * busy / 1e3 / wall:.1f}% busy"
     else:
@@ -526,14 +556,17 @@ def log_device_profile(run, kernel_groups, n_top=8, label=None, steps=1,
     unit = " a step" if steps > 1 else ""
     if steps > 1:
         head += f" = {busy / steps:.2f} ms{unit} over {steps} steps"
-    if label:
-        share += f"; host profiler on, {len(spans)} {label} ranges"
+    if labels:
+        share += "; host profiler on, " + ", ".join(
+            f"{len(sp)} {lb} ranges" for lb, sp in spans.items())
     log(f"{head} ({share})")
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {group:18s} {ms / steps:10.2f} ms{unit}  "
-            f"{100 * ms / busy:5.1f}%")
+            f"{100 * ms / busy:5.1f}%  {counts[group] / steps:8.1f} device "
+            f"ops{unit}")
     for key, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:n_top]:
         log(f"    {ms / steps:10.2f} ms{unit}  {key[:110]}")
+    return {group: n / steps for group, n in counts.items()}
 
 
 @contextlib.contextmanager
@@ -2602,7 +2635,7 @@ def bert_step_check(seed):
     t1 = time.perf_counter()
     cpu64 = trainstep_result(cpu_net.double(), ids, labels, "cpu",
                              BERT_CHECK_OPT, None, bert_loss)
-    log(f"  CPU steps: bf16 {t1 - t0:.1f} s, fp64 "
+    log(f"  CPU steps: fp32 and bf16 {t1 - t0:.1f} s, fp64 "
         f"{time.perf_counter() - t1:.1f} s")
     del cpu_net
     fa_mod._flash_fwd_cuda.launches = 0
@@ -2720,6 +2753,8 @@ def time_adam_forms(params, gen):
 
 
 def bert_phase(seed):
+    """Phase 6: (a) to (e); returns flash_attn_fwd's launches over (d)'s
+    steps and (d)'s samples/s."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.gluon.model_zoo.language import bert
     from mxnet_tpu_torch.gluon.model_zoo.language import llama as llama_mod
@@ -2801,7 +2836,7 @@ def bert_phase(seed):
     log("== bert 4: attention device times beside SDPA's")
     for shape in (BERT_ATTN, LLAMA_ATTN):
         time_attention(fa_mod, shape, gen)
-    return launches
+    return launches, samples_s
 
 # ---------------------------------------------------------------------------
 # phase 7: Llama training at Llama-3-8B widths
@@ -2943,7 +2978,7 @@ def llama_step_check(seed):
     cpu16 = step(cpu_net, "cpu", "bfloat16")
     t1 = time.perf_counter()
     cpu64 = step(cpu_net.double(), "cpu")
-    log(f"  CPU steps: bf16 {t1 - t0:.1f} s, fp64 "
+    log(f"  CPU steps: fp32 and bf16 {t1 - t0:.1f} s, fp64 "
         f"{time.perf_counter() - t1:.1f} s")
     del cpu_net
     t0 = time.perf_counter()
@@ -5198,6 +5233,687 @@ def op_table_phase(seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the Gluon training surface (optimizers, schedulers, metrics, AMP
+# loss scaling, gluon.utils) at BERT-base and ResNet-50 widths
+# ---------------------------------------------------------------------------
+# (a): every registered optimizer, 3 updates over BERT-base's word embedding
+# and a bias, the index lr_mult on the bias; SGLD by its noise's KS
+GLUON_OPT_SHAPES = ((30522, 768), (768,))
+GLUON_OPT_STEPS = 3
+GLUON_OPT_KW = dict(learning_rate=0.01, wd=1e-3, rescale_grad=0.125,
+                    clip_gradient=0.2)
+GLUON_OPT_LR_MULT = {1: 0.5}
+GLUON_OPTIMIZERS = [
+    ("sgd", {"momentum": 0.9}), ("nag", {"momentum": 0.9}), ("adam", {}),
+    ("adagrad", {}), ("adadelta", {}), ("rmsprop", {}),
+    ("rmsprop", {"centered": True, "clip_weights": 0.5}), ("ftrl", {}),
+    ("ftml", {}), ("signsgd", {}), ("signum", {}), ("lamb", {}),
+    ("lamb", {"lower_bound": 0.1, "upper_bound": 10.0}), ("nadam", {}),
+    ("adamax", {}), ("test", {})]
+# (b): GluonNLP's BERT pretraining step: LAMB, a warm-up poly schedule,
+# weight decay 0.01 but none on LayerNorm and biases, clip to norm 1
+GLUON_BERT_OPT = {"learning_rate": 1e-3, "wd": 0.01}
+GLUON_BERT_SCHEDULE = dict(max_update=1000, pwr=1, warmup_steps=10,
+                           warmup_begin_lr=0.0)
+GLUON_CLIP = 1.0
+GLUON_NO_WD = ".*gamma|.*beta|.*bias"
+# a tensor's gradient in the fp64 step is rounding noise below this share
+# of the largest gradient (lamb_scales)
+GRAD_NOISE = 1e-9
+# LAMB divides each gradient entry by its size plus epsilon, so an entry
+# that is small against its own rounding error carries the gradient's
+# rounding into the step at full size (the worst tensors: the FFN and
+# attention weights).  Measured on the CPU (a 2-layer BERT, batch 8 x 128),
+# the fp32 step against the fp64 step by BERT_FP32_BOUND's measure:
+# 9.3e-4 at hidden 32, 1.0e-3 at 128, 1.7e-3 at 256, so that bound
+# cannot hold at hidden 768.  The card's fp32 step is held within this
+# factor of the CPU's fp32 step's deviation instead, tensor by tensor, as
+# the bf16 check is.  The card's fp32 gradients carry about twice the
+# CPU's rounding (bert_recipe_check logs both), and a tensor's reading is
+# that of its worst entry, so the worst of ~200 tensors reads 1.7-3.5x the
+# CPU's over seeds (--gluon-bert-seeds); TF32 matmuls read > 1000x and
+# the reference's multiplier lookup ~17x
+GLUON_FP32_NOISE_FACTOR = 6.0
+# (c): float16 dynamic loss scaling on a BERT-base-width FFN
+GLUON_FP16_SCALE = 2.0 ** 10
+# (d): the timed run, bench.py's BERT batch; LAMB's own lr
+GLUON_TIMED_OPT = {"learning_rate": 2e-3, "wd": 0.01}
+GLUON_TIMED_SCHEDULE = dict(max_update=100, pwr=1, warmup_steps=4,
+                            warmup_begin_lr=2e-4)
+# (e): GluonCV's ResNet-50 v1 ImageNet recipe
+GLUON_CV_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+GLUON_CV_SCHEDULE = dict(max_update=1000, final_lr=0.0, warmup_steps=5,
+                         warmup_begin_lr=0.0)
+GLUON_LABEL_SMOOTHING = 0.1
+
+# profiler ranges of bert_recipe_step, reported apart in (d)'s profile
+GLUON_RANGES = ("trainer.step", "clip_global_norm")
+
+
+def _opt_tensors(seed, device, shapes):
+    """Weights (N(0, 0.02), BERT's init) and GLUON_OPT_STEPS gradients
+    (N(0, 1)) of ``shapes``, drawn on ``device`` from ``seed``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    weights = [0.02 * torch.randn(s, generator=g, device=device)
+               for s in shapes]
+    grads = [[torch.randn(s, generator=g, device=device) for s in shapes]
+             for _ in range(GLUON_OPT_STEPS)]
+    return weights, grads
+
+
+def optimizer_updates(name, params, weights, grads):
+    """GLUON_OPT_STEPS updates of the port's optimizer ``name`` (under
+    GLUON_OPT_KW, a warm-up PolyScheduler and GLUON_OPT_LR_MULT) through
+    its Updater, from copies of ``weights``: the weights after."""
+    from mxnet_tpu_torch import lr_scheduler, optimizer
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    kw = dict(GLUON_OPT_KW, **params)
+    kw["lr_scheduler"] = lr_scheduler.PolyScheduler(
+        max_update=20, base_lr=0.01, pwr=2, warmup_steps=2,
+        warmup_begin_lr=0.001)
+    opt = optimizer.create(name, **kw)
+    opt.set_lr_mult(GLUON_OPT_LR_MULT)
+    updater = optimizer.get_updater(opt)
+    ws = [NDArray._wrap(w.clone()) for w in weights]
+    for step in grads:
+        for i, (w, g) in enumerate(zip(ws, step)):
+            updater(i, NDArray._wrap(g), w)
+    return [w._data for w in ws], opt
+
+
+def planted_optimizer_fault(fault):
+    """Context manager: "lamb_ratio_1" (LAMB's trust ratio forced to 1)
+    or "reference_lookup" (the optimizer looks Parameters up in
+    param_dict by name, as the reference does, so that through Trainer
+    every multiplier is 1)."""
+    from mxnet_tpu_torch.optimizer import optimizer as opt_mod
+
+    if fault == "lamb_ratio_1":
+        return patched(opt_mod, "lamb_trust_ratio",
+                       lambda r1, r2: torch.ones_like(r1))
+
+    def reference_lookup(self, index, attr, table):
+        name = self.idx2name.get(index,
+                                 index if isinstance(index, str) else None)
+        if name in self.param_dict:
+            return getattr(self.param_dict[name], attr)
+        if index in table:
+            return table[index]
+        return table.get(name, 1.0) if name is not None else 1.0
+
+    return patched(opt_mod.Optimizer, "_mult", reference_lookup)
+
+
+def gluon_optimizer_checks(seed, device="cuda", shapes=GLUON_OPT_SHAPES,
+                           fault=None, only=None):
+    """(a) Every registered optimizer: GLUON_OPT_STEPS updates on
+    ``device`` against the same on the CPU from the same tensors (drawn
+    on ``device``), max |difference| / max(1, max |CPU|) within OP_TOL;
+    ``fault`` planted on ``device``'s side only; ``only`` restricts the
+    run to that optimizer.  SGLD: one update's noise (the update less its
+    deterministic part, over sqrt(lr)) by the KS statistic against N(0,
+    1).  Returns {label: deviation}."""
+    import scipy.stats
+
+    weights, grads = _opt_tensors(seed, device, shapes)
+    cpu_w = [w.cpu() for w in weights]
+    cpu_g = [[g.cpu() for g in step] for step in grads]
+    devs = {}
+    for name, params in GLUON_OPTIMIZERS:
+        if only not in (None, name):
+            continue
+        label = name + "".join(f" {k}={v}" for k, v in params.items())
+        want, _ = optimizer_updates(name, params, cpu_w, cpu_g)
+        ctx = planted_optimizer_fault(fault) if fault else \
+            contextlib.nullcontext()
+        with ctx:
+            got, _ = optimizer_updates(name, params, weights, grads)
+        devs[label] = max(
+            ((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1.0))
+            .item() for a, b in zip(got, want))
+        check(all(bool(torch.isfinite(a).all()) for a in got),
+              f"{label}: non-finite weights on {device}")
+    for label, dev in devs.items():
+        check(dev <= OP_TOL, f"optimizer {label}: {device} deviates "
+                             f"{dev:.3e} from the CPU (OP_TOL {OP_TOL:g})")
+    if only not in (None, "sgld"):
+        return devs
+    # SGLD: w' = w - lr / 2 * (clip(rescale * g) + wd * w) + sqrt(lr) * n
+    got, opt = optimizer_updates("sgld", {}, weights, grads[:1])
+    w, g = weights[0].double(), grads[0][0].double()
+    lr, wd = opt._get_lr(0), opt._get_wd(0)
+    g = (g * GLUON_OPT_KW["rescale_grad"]).clamp(
+        -GLUON_OPT_KW["clip_gradient"], GLUON_OPT_KW["clip_gradient"])
+    noise = (got[0].double() - w + lr / 2 * (g + wd * w)) / math.sqrt(lr)
+    ks, bound = distribution_check("sgld noise", noise,
+                                   scipy.stats.norm(), True)
+    devs["sgld (KS statistic)"] = ks
+    log(f"  sgld's noise over {noise.numel()} draws: KS {ks:.3e} (bound "
+        f"{bound:.3e})")
+    return devs
+
+
+def bert_labels(labels):
+    """bench.py's labels as the MLM targets and the NSP label."""
+    return labels[:, :-1], labels[:, -1]
+
+
+def bert_recipe_trainer(net, opt=GLUON_BERT_OPT,
+                        schedule=GLUON_BERT_SCHEDULE):
+    """GluonNLP's pretraining Trainer: LAMB under a warm-up PolyScheduler,
+    no weight decay on LayerNorm parameters and biases."""
+    from mxnet_tpu_torch import gluon, lr_scheduler
+
+    net.collect_params(GLUON_NO_WD).setattr("wd_mult", 0.0)
+    sched = lr_scheduler.PolyScheduler(base_lr=opt["learning_rate"],
+                                       **schedule)
+    return gluon.Trainer(net.collect_params(), "lamb",
+                         dict(opt, lr_scheduler=sched))
+
+
+def bert_recipe_step(net, trainer, ids, mlm, nsp, metrics=(), times=None):
+    """One GluonNLP step: record -> amp.scale_loss -> backward ->
+    amp.unscale -> clip_global_norm(GLUON_CLIP) -> trainer.step; the MLM
+    and NSP accuracies and the loss into ``metrics``.  With ``times`` (a
+    dict), the card is synchronised between the parts and each part's
+    wall ms is added to ``times[part]``.  Returns (the loss NDArray, the
+    global norm before the clip)."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.contrib import amp
+
+    clock = [time.perf_counter()]
+
+    def lap(part):
+        if times is not None:
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            times[part] = times.get(part, 0.0) + 1e3 * (now - clock[0])
+            clock[0] = now
+
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    lap("start")
+    with autograd.record():
+        mlm_out, nsp_out = net(ids)
+        loss = ce(mlm_out, mlm).mean() + ce(nsp_out, nsp).mean()
+        with amp.scale_loss(loss, trainer) as scaled:
+            scaled.backward()
+    lap("forward and backward")
+    amp.unscale(trainer)
+    with torch.profiler.record_function(GLUON_RANGES[1]):
+        norm = gluon.utils.clip_global_norm([p.grad() for p in params],
+                                            GLUON_CLIP)
+    lap("unscale and clip_global_norm")
+    with torch.profiler.record_function(GLUON_RANGES[0]):
+        trainer.step(1)
+    lap("trainer.step")
+    for m, label, pred in zip(metrics, (mlm, nsp, None),
+                              (mlm_out, nsp_out, loss)):
+        m.update([label], [pred])
+    lap("metrics")
+    return loss, norm
+
+
+def gluon_step_result(net, run, params=None):
+    """(loss, the parameters before, after) of ``run()`` (one training
+    step of ``net`` in place, returning its loss), in collect_params()
+    order on the host; the parameters are put back after, so that the
+    next step starts from the same weights."""
+    params = list((params or net.collect_params()).values())
+    before = [_host(p.data()._data) for p in params]
+    loss = float(run())
+    after = [_host(p.data()._data) for p in params]
+    for p, b in zip(params, before):
+        p.set_data(b.to(p.data()._data.device))
+    return loss, before, after
+
+
+def bert_recipe_result(net, ids, labels, amp_dtype=None, info=None):
+    """One recipe step of ``net`` (a fresh Trainer, so a first update),
+    under ``amp.init(amp_dtype)`` + ``init_trainer`` when given: (loss,
+    before, after) as gluon_step_result.  ``info`` (a dict) gets the
+    step's learning rate ("lr"), each parameter's largest gradient after
+    the clip ("grad_max") and the gradients themselves, on the host in
+    fp64 ("grads")."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+
+    ctx = next(iter(net.collect_params().values())).data().context
+    mlm, nsp = bert_labels(labels)
+    args = [mx.nd.array(a, ctx=ctx, dtype="int32") for a in (ids, mlm, nsp)]
+    trainer = bert_recipe_trainer(net)
+    if amp_dtype:
+        amp.init(amp_dtype)
+        amp.init_trainer(trainer)
+    try:
+        result = gluon_step_result(net, lambda: bert_recipe_step(
+            net, trainer, *args)[0].asscalar())
+    finally:
+        amp.disable()
+    if info is not None:
+        info["lr"] = trainer.learning_rate
+        info["grad_max"] = [p.grad()._data.abs().max().item()
+                            if p.grad_req != "null" else 0.0
+                            for p in net.collect_params().values()]
+        info["grads"] = [p.grad()._data.to("cpu", torch.float64)
+                         if p.grad_req != "null" else None
+                         for p in net.collect_params().values()]
+    return result
+
+
+def lamb_scales(scales, info, noise=GRAD_NOISE):
+    """``scales`` (update_scales or noise_scales of a LAMB step) with the
+    step's learning rate as the floor of every tensor whose gradient in
+    the fp64 step is rounding noise (largest entry at most ``noise`` of
+    the largest gradient, not exactly 0; BERT's key-projection biases,
+    whose gradient is zero, as softmax ignores a shift of a query's
+    scores).  LAMB
+    divides a gradient by its own size plus epsilon, so on such a tensor
+    it steps by up to lr in a direction set by rounding, whatever the
+    arithmetic's precision: fp32's noise against fp64's, not a fault."""
+    top = max(info["grad_max"])
+    return [max(s, info["lr"]) if i and 0 < info["grad_max"][i - 1]
+            <= noise * top else s for i, s in enumerate(scales)]
+
+
+def bert_recipe_check(cfg, seed, device="cuda", batch=BERT_CHECK_BATCH,
+                      seq=BERT_SEQ):
+    """(b) GluonNLP's BERT pretraining step through gluon.Trainer on
+    ``device`` (fp32, and bf16 under amp) against the CPU's fp64 step:
+    fp32 within GLUON_FP32_NOISE_FACTOR of the CPU's fp32 step's
+    deviation, bf16 within BF16_NOISE_FACTOR of the CPU's bf16 step's
+    (both with lamb_scales' floor), the planted fault "reference_lookup"
+    and, on the card, TF32 matmuls beyond the fp32 bound (every reading
+    is logged before the first check).  Returns the readings and
+    flash_attn_fwd's launches in the fp32 step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+
+    ctx = mx.gpu(0) if torch.device(device).type == "cuda" else mx.cpu()
+    net = init_bert(cfg, seed, ctx, seq)
+    names = list(net.collect_params())
+    ids, labels = bert_batch(seed, batch, seq, cfg.vocab_size)
+    cpu_net = copy_bert(net, cfg, mx.cpu())
+    t0 = time.perf_counter()
+    card_info, cpu32_info = {}, {}
+    cpu32 = bert_recipe_result(cpu_net, ids, labels, info=cpu32_info)
+    cpu16 = bert_recipe_result(cpu_net, ids, labels, "bfloat16")
+    t1 = time.perf_counter()
+    info = {}
+    cpu64 = bert_recipe_result(cpu_net.double(), ids, labels, info=info)
+    log(f"  CPU steps: fp32 and bf16 {t1 - t0:.1f} s, fp64 "
+        f"{time.perf_counter() - t1:.1f} s")
+    del cpu_net
+    top = max(info["grad_max"])
+    noisy = [n for n, g in zip(names, info["grad_max"])
+             if 0 < g <= GRAD_NOISE * top]
+    log(f"  the step's lr {info['lr']:.3e}; tensors whose fp64 gradient "
+        f"is rounding noise (<= {GRAD_NOISE:g} of the largest, "
+        f"{top:.3e}), held to lr: {noisy}")
+    scales = lamb_scales(update_scales(cpu64, names), info)
+    fa_mod._flash_fwd_cuda.launches = 0
+    card = bert_recipe_result(net, ids, labels, info=card_info)
+    launches = fa_mod._flash_fwd_cuda.launches
+    out = {"launches": launches, "noisy": noisy}
+    for what, cand in ((device, card), ("CPU", cpu32)):
+        ratio, where = compare_steps(cand, cpu64, names, scales)
+        out[f"fp32 {what} of the update"] = ratio
+        log(f"  {what}'s fp32 step vs the fp64 step: {ratio:.3e} of the "
+            f"update ({where}; phase 6's measure)")
+    # the gradients' own rounding (after the clip, which every precision
+    # computes to ~1e-8), tensor by tensor, the noise tensors left out
+    gerr = {}
+    for what, got in ((device, card_info), ("CPU", cpu32_info)):
+        errs = sorted((g - r).norm().item() / r.norm().item() for n, g, r in
+                      zip(names, got["grads"], info["grads"])
+                      if r is not None and r.norm().item() > 0
+                      and n not in noisy)
+        gerr[what] = errs[len(errs) // 2]
+    out["grad noise"] = gerr[device] / gerr["CPU"]
+    log(f"  fp32 gradients vs the fp64 step's, relative L2 error of the "
+        f"median tensor: {device} {gerr[device]:.3e}, CPU {gerr['CPU']:.3e} "
+        f"({out['grad noise']:.2f}x)")
+    scales32 = lamb_scales(noise_scales(cpu32, cpu64, names), info)
+    out["fp32"], where32 = compare_steps(card, cpu64, names, scales32)
+    log(f"  fp32, {device} vs the fp64 step: worst deviation "
+        f"{out['fp32']:.3e} of the CPU's fp32 deviation ({where32}), bound "
+        f"{GLUON_FP32_NOISE_FACTOR:g}; loss {card[0]:.9f} vs "
+        f"{cpu64[0]:.9f}")
+    ratios = sorted(d / sc for (_, d), sc in
+                    zip(step_deviations(card, cpu64, names), scales32))
+    out["fp32 median"] = ratios[len(ratios) // 2]
+    log(f"  fp32, {device}'s deviation over the CPU's, tensor by tensor: "
+        f"median {out['fp32 median']:.3f}, 90th percentile "
+        f"{ratios[9 * len(ratios) // 10]:.3f}, worst {ratios[-1]:.3f} "
+        f"({len(ratios)} entries)")
+    if torch.device(device).type == "cuda":
+        # a lower precision must fail the fp32 bound: TF32 matmuls
+        with patched(torch.backends.cuda.matmul, "allow_tf32", True), \
+                patched(torch.backends.cudnn, "allow_tf32", True):
+            out["tf32"], where = compare_steps(
+                bert_recipe_result(net, ids, labels), cpu64, names, scales32)
+        log(f"  fp32 with TF32 matmuls (planted): {out['tf32']:.3e} of the "
+            f"CPU's fp32 deviation at {where}")
+    with planted_optimizer_fault("reference_lookup"):
+        out["fault"], where = compare_steps(
+            bert_recipe_result(net, ids, labels), cpu64, names, scales32)
+    log(f"  fp32 with the reference's param_dict lookup (multipliers "
+        f"ignored): {out['fault']:.3e} of the CPU's fp32 deviation at "
+        f"{where}")
+    check(out["fp32"] <= GLUON_FP32_NOISE_FACTOR,
+          f"fp32, {device} vs the fp64 step: deviation {out['fp32']:.3e} "
+          f"at {where32} exceeds {GLUON_FP32_NOISE_FACTOR:g}")
+    check(out.get("tf32", math.inf) > GLUON_FP32_NOISE_FACTOR,
+          "the Gluon BERT check misses TF32 matmuls")
+    check(out["fault"] > GLUON_FP32_NOISE_FACTOR,
+          "the Gluon BERT check misses the ignored multipliers")
+    card16 = bert_recipe_result(net, ids, labels, "bfloat16")
+    check(all(t.dtype == torch.float32 for t in card16[2]),
+          "the bf16 step's master weights are not fp32")
+    for what, cand in ((device, card16), ("CPU", cpu16)):
+        ratio, where = compare_steps(cand, cpu64, names, scales)
+        log(f"  {what}'s bf16 step vs the fp64 step: {ratio:.3e} of the "
+            f"update ({where})")
+    out["bf16"] = check_steps(card16, cpu64, names,
+                              f"bf16, {device} vs the fp64 step",
+                              BF16_NOISE_FACTOR,
+                              lamb_scales(noise_scales(cpu16, cpu64, names),
+                                          info),
+                              "of the CPU's bf16 deviation")
+    return out
+
+
+def loss_scale_check(seed, device="cuda", width=(768, 3072),
+                     shape=(BERT_CHECK_BATCH, BERT_SEQ)):
+    """(c) float16 dynamic loss scaling (``amp.init("float16")``,
+    ``init_trainer`` with scale_window 2) on a BERT-base-width FFN (Dense
+    768 -> 3072, GELU, 3072 -> 768, LayerNorm): the first clean step
+    leaves the scale as it is, the second doubles it; a step with inf
+    planted in a gradient changes no weight (bit for bit) and halves it.
+    Returns the scales."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.contrib import amp
+
+    ctx = mx.gpu(0) if torch.device(device).type == "cuda" else mx.cpu()
+    hidden, inner = width
+    mx.random.seed(seed)
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(inner, flatten=False, in_units=hidden),
+            gluon.nn.GELU(),
+            gluon.nn.Dense(hidden, flatten=False, in_units=inner),
+            gluon.nn.LayerNorm(in_channels=hidden))
+    net.initialize(ctx=ctx)
+    r = np.random.RandomState(seed)
+    x = mx.nd.array(r.randn(*shape, hidden).astype("float32"), ctx=ctx)
+    amp.init("float16")
+    try:
+        trainer = bert_recipe_trainer(net)
+        amp.init_trainer(trainer, amp.LossScaler(
+            init_scale=GLUON_FP16_SCALE, scale_window=2))
+        scales = []
+        for step in range(3):
+            with autograd.record():
+                loss = (net(x) ** 2).mean()
+                with amp.scale_loss(loss, trainer) as scaled:
+                    scaled.backward()
+            if step == 2:
+                net[0].weight.grad()[0, 0] = float("inf")
+            before = [p.data()._data.clone()
+                      for p in net.collect_params().values()]
+            amp.unscale(trainer)
+            trainer.step(1)
+            scales.append(trainer._amp_loss_scaler.loss_scale)
+            moved = [not torch.equal(b, p.data()._data) for b, p in
+                     zip(before, net.collect_params().values())]
+            if step < 2:
+                check(all(moved[i] for i in (0, 2)),
+                      f"fp16 step {step} did not move the weights")
+            else:
+                check(not any(moved), "a step with an inf gradient changed "
+                                      "the weights")
+    finally:
+        amp.disable()
+    log(f"  fp16 loss scale after a clean step, a clean step, an inf "
+        f"gradient: {scales} (start {GLUON_FP16_SCALE:g}, window 2); "
+        f"the skipped step left every weight unchanged")
+    want = [GLUON_FP16_SCALE, 2 * GLUON_FP16_SCALE, GLUON_FP16_SCALE]
+    check(scales == want, f"fp16 loss scales {scales}, expected {want}")
+    check(trainer.step_count == 2, "the overflow step was counted")
+    return scales
+
+
+def resnet_recipe_result(net, x, y, classes=1000):
+    """One step of GluonCV's ImageNet recipe on ``net`` (fresh Trainer:
+    NAG under a warm-up CosineScheduler, no weight decay on BatchNorm and
+    biases, label smoothing, TopKAccuracy(5)): (loss, before, after)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, lr_scheduler, metric
+
+    params = net.collect_params()
+    params_nowd = net.collect_params(GLUON_NO_WD)
+    ctx = next(iter(params.values())).data().context
+    dtype = next(iter(params.values())).data()._data.dtype
+    params_nowd.setattr("wd_mult", 0.0)
+    sched = lr_scheduler.CosineScheduler(
+        base_lr=GLUON_CV_OPT["learning_rate"], **GLUON_CV_SCHEDULE)
+    trainer = gluon.Trainer(params, "nag",
+                            dict(GLUON_CV_OPT, lr_scheduler=sched))
+    eps = GLUON_LABEL_SMOOTHING
+    smooth = np.full((len(y), classes), eps / classes)
+    smooth[np.arange(len(y)), y] += 1 - eps
+    X = mx.nd.array(torch.from_numpy(x).to(dtype), ctx=ctx)
+    Y = mx.nd.array(torch.from_numpy(smooth).to(dtype), ctx=ctx)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss(sparse_label=False)
+    top5 = metric.TopKAccuracy(5)
+
+    def run():
+        with autograd.record():
+            out = net(X)
+            loss = ce(out, Y)
+        loss.backward()
+        trainer.step(len(x))
+        top5.update([mx.nd.array(y, ctx=ctx)], [out])
+        return loss.mean().asscalar()
+
+    result = gluon_step_result(net, run, params)
+    check(0.0 <= top5.get()[1] <= 1.0, "TopKAccuracy(5) out of range")
+    return result
+
+
+def resnet_recipe_check(make_net, seed, device="cuda", batch=CHECK_BATCH,
+                        size=TRAIN_SIZE, classes=1000):
+    """(e) GluonCV's ResNet recipe, one step at ``batch``: fp32 on
+    ``device`` against the CPU's fp64 step within FP32_STEP_BOUND, and
+    with the scheduler ignored (the base lr from the first update, no
+    warm-up) beyond it.  Returns (ratio, fault ratio)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.optimizer import optimizer as opt_mod
+
+    ctx = mx.gpu(0) if torch.device(device).type == "cuda" else mx.cpu()
+    net = init_net(make_net, seed, ctx, size)
+    names = list(net.collect_params())
+    x, y = train_batch(seed, batch, size, classes)
+    cpu_net = copy_net(net, make_net, mx.cpu(), size).double()
+    t0 = time.perf_counter()
+    cpu64 = resnet_recipe_result(cpu_net, x.astype(np.float64), y, classes)
+    log(f"  CPU fp64 step: {time.perf_counter() - t0:.1f} s")
+    del cpu_net
+    card = resnet_recipe_result(net, x, y, classes)
+    check(all(bool(torch.isfinite(t).all()) for t in card[2]),
+          "non-finite parameters after the GluonCV step")
+    ratio = check_steps(card, cpu64, names, f"fp32 {device} vs the fp64 "
+                        f"CPU step (NAG, cosine warm-up, label smoothing)",
+                        FP32_STEP_BOUND)
+    no_sched = lambda self, index: self.lr * self._mult(   # noqa: E731
+        index, "lr_mult", self.lr_mult)
+    with patched(opt_mod.Optimizer, "_get_lr", no_sched):
+        fault, where = compare_steps(resnet_recipe_result(net, x, y,
+                                                          classes),
+                                     cpu64, names)
+    log(f"  with the scheduler ignored: {fault:.3e} at {where}")
+    check(fault > FP32_STEP_BOUND, "the GluonCV check misses an ignored "
+                                   "warm-up")
+    return ratio, fault
+
+
+def gluon_timed_run(seed, trainstep_samples_s=None):
+    """(d) BERT-base at bench.py's batch, AMP bf16, dropout 0.1, the
+    recipe (LAMB + poly warm-up + unscale + clip) with the MLM and NSP
+    accuracies and the loss metric every step: GLUON_WARMUP +
+    BERT_STEPS steps, samples/s, MFU, peak memory, a profile by kernel
+    group with the optimizer and clip_global_norm apart.  Returns
+    flash_attn_fwd's launches over the steps."""
+    import types
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+
+    cfg = bert.BertConfig()
+    net = init_bert(cfg, seed, mx.gpu(0))
+    ids, labels = bert_batch(seed, BERT_BATCH, BERT_SEQ, cfg.vocab_size)
+    mlm, nsp = bert_labels(labels)
+    args = [mx.nd.array(a, ctx=mx.gpu(0), dtype="int32")
+            for a in (ids, mlm, nsp)]
+    trainer = bert_recipe_trainer(net, GLUON_TIMED_OPT, GLUON_TIMED_SCHEDULE)
+    metrics = [metric.Accuracy(axis=-1, name="mlm_accuracy"),
+               metric.Accuracy(name="nsp_accuracy"), metric.Loss()]
+    amp.init()
+    try:
+        amp.init_trainer(trainer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa_mod._flash_fwd_cuda.launches = 0
+        losses, norms = [], []
+        t0 = time.perf_counter()
+        for i in range(BERT_WARMUP + BERT_STEPS):
+            if i == BERT_WARMUP:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            loss, norm = bert_recipe_step(net, trainer, *args, metrics)
+            losses.append(loss)
+            norms.append(norm)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        launches = fa_mod._flash_fwd_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        losses = [v.asscalar() for v in losses]
+        log(f"  losses: {' '.join(f'{v:.4f}' for v in losses)}")
+        log(f"  global norms before the clip: "
+            f"{' '.join(f'{v:.3f}' for v in norms)}")
+        log("  metrics: " + ", ".join(f"{n} {v:.4f}" for m in metrics
+                                      for n, v in m.get_name_value()))
+        check(all(math.isfinite(v) for v in losses), "non-finite loss")
+        check(losses[-1] < losses[0], "the Gluon BERT loss did not fall")
+        n_steps = BERT_WARMUP + BERT_STEPS
+        check(launches == cfg.num_layers * n_steps,
+              f"flash_attn_fwd launched {launches} times in {n_steps} "
+              f"steps, expected {cfg.num_layers * n_steps}")
+        samples_s = BERT_BATCH * BERT_STEPS / dt
+        n_mm = matmul_params(types.SimpleNamespace(params={
+            k: p.data()._data for k, p in net.collect_params().items()}))
+        mfu = samples_s * 6.0 * n_mm * BERT_SEQ / \
+            PEAK_FLOPS[torch.bfloat16]
+        ts = "not run" if trainstep_samples_s is None else \
+            f"{trainstep_samples_s:.1f} samples/s"
+        log(f"  [{gpu_line()}] Gluon recipe (Trainer, LAMB, AMP bf16, "
+            f"clip, metrics): {samples_s:.1f} samples/s, "
+            f"{1e3 * dt / BERT_STEPS:.2f} ms/step over {BERT_STEPS} steps "
+            f"(warm-up {BERT_WARMUP} steps {t1 - t0:.2f} s), MFU "
+            f"{100 * mfu:.2f}% (bench.py's count), peak memory "
+            f"{peak / 2**30:.3f} GiB; phase 6 (d)'s TrainStep-Adam in this "
+            f"run: {ts}; flash_attn_fwd launches {launches}")
+        ops = log_device_profile(
+            lambda: [bert_recipe_step(net, trainer, *args, metrics)
+                     for _ in range(3)],
+            BERT_KERNEL_GROUPS, n_top=12, label=GLUON_RANGES, steps=3,
+            step_ms=1e3 * dt / BERT_STEPS)
+        if ops:
+            n_params = len(trainer._params)
+            log(f"  trainer.step: {ops[GLUON_RANGES[0]]:.1f} device ops a "
+                f"step over {n_params} parameters = "
+                f"{ops[GLUON_RANGES[0]] / n_params:.2f} a parameter")
+        times = {}
+        for _ in range(3):
+            bert_recipe_step(net, trainer, *args, metrics, times)
+        times.pop("start")
+        log("  wall ms a step by part, the card synchronised between "
+            "them (3 steps): " + ", ".join(
+                f"{part} {ms / 3:.2f}" for part, ms in times.items()))
+    finally:
+        amp.disable()
+    del net, trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gluon_train_phase(seed, trainstep_samples_s=None):
+    """Phase 9: (a) to (e); returns flash_attn_fwd's launches over (d)'s
+    steps, the gluon_bert_lamb path."""
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+
+    t0 = time.perf_counter()
+    log(f"== gluon train 1: every registered optimizer, {GLUON_OPT_STEPS} "
+        f"updates over {GLUON_OPT_SHAPES} fp32 ({GLUON_OPT_KW}, a warm-up "
+        f"PolyScheduler, lr_mult {GLUON_OPT_LR_MULT}), card against CPU "
+        f"within {OP_TOL:g}")
+    devs = gluon_optimizer_checks(seed)
+    for label, dev in devs.items():
+        log(f"    {dev:.3e}  {label}")
+    try:
+        gluon_optimizer_checks(seed, fault="lamb_ratio_1", only="lamb")
+    except SystemExit as e:
+        log(f"  planted LAMB trust ratio 1: fails ({e})")
+    else:
+        check(False, "the optimizer check passed LAMB with its trust "
+                     "ratio forced to 1")
+    t1 = time.perf_counter()
+    log(f"  (a) {t1 - t0:.1f} s")
+
+    log(f"== gluon train 2: GluonNLP's BERT pretraining step through "
+        f"gluon.Trainer (LAMB {GLUON_BERT_OPT}, PolyScheduler "
+        f"{GLUON_BERT_SCHEDULE}, wd_mult 0 on {GLUON_NO_WD!r}, scale_loss "
+        f"-> backward -> unscale -> clip_global_norm({GLUON_CLIP:g})), "
+        f"batch {BERT_CHECK_BATCH} x {BERT_SEQ}, dropout 0")
+    out = bert_recipe_check(bert.BertConfig(dropout=0.0), seed)
+    log(f"  flash_attn_fwd launches in one recipe step: {out['launches']}")
+    check(out["launches"] == bert.BertConfig().num_layers,
+          f"flash_attn_fwd launched {out['launches']} times in a step")
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    log(f"  (b) {t2 - t1:.1f} s")
+
+    log("== gluon train 3: float16 dynamic loss scaling on a BERT-base-"
+        "width FFN")
+    loss_scale_check(seed)
+    t3 = time.perf_counter()
+    log(f"  (c) {t3 - t2:.1f} s")
+
+    log(f"== gluon train 4: the recipe timed, BertForPretraining at batch "
+        f"{BERT_BATCH} x {BERT_SEQ}, AMP bf16, dropout 0.1, LAMB "
+        f"{GLUON_TIMED_OPT}, metrics every step")
+    launches = gluon_timed_run(seed, trainstep_samples_s)
+    t4 = time.perf_counter()
+    log(f"  (d) {t4 - t3:.1f} s")
+
+    log(f"== gluon train 5: GluonCV's ResNet-50 v1 recipe through "
+        f"gluon.Trainer (NAG {GLUON_CV_OPT}, CosineScheduler "
+        f"{GLUON_CV_SCHEDULE}, wd_mult 0 on BatchNorm and biases, label "
+        f"smoothing {GLUON_LABEL_SMOOTHING}, TopKAccuracy(5)), batch "
+        f"{CHECK_BATCH}, {TRAIN_SIZE}x{TRAIN_SIZE}")
+    resnet_recipe_check(resnet50, seed)
+    torch.cuda.empty_cache()
+    log(f"  (e) {time.perf_counter() - t4:.1f} s")
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -5211,12 +5927,21 @@ def main():
     parser.add_argument("--op-table", action="store_true",
                         help="run only the build and phase 8, the mx.nd "
                              "op table")
+    parser.add_argument("--gluon-train", action="store_true",
+                        help="run only the build and phase 9, the Gluon "
+                             "training surface")
     parser.add_argument("--bert-step-seeds", type=int, nargs="+",
                         metavar="SEED",
                         help="run only the build and the BERT-base step "
                              "check (bert 2) once for each seed, and print "
                              "the bf16 step's readings (its spread over "
                              "seeds)")
+    parser.add_argument("--gluon-bert-seeds", type=int, nargs="+",
+                        metavar="SEED",
+                        help="run only the build and the Gluon BERT step "
+                             "check (gluon train 2) once for each seed, and "
+                             "print its fp32, TF32 and bf16 readings (their "
+                             "spread over seeds)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the "
@@ -5258,6 +5983,29 @@ def main():
                 f"{seed}: {r:.3f}" for seed, r in ratios.items()))
         return 0
 
+    if args.gluon_bert_seeds:
+        from mxnet_tpu_torch.gluon.model_zoo.language import bert
+
+        outs = {}
+        for seed in args.gluon_bert_seeds:
+            log(f"== gluon train 2 at seed {seed}")
+            outs[seed] = bert_recipe_check(bert.BertConfig(dropout=0.0), seed)
+            torch.cuda.empty_cache()
+        log(f"  [{gpu_line()}] the Gluon BERT step by seed, as ratios to "
+            f"the CPU's deviation of the same precision (fp32: worst and "
+            f"median tensor; TF32 planted: worst; bf16: worst): " +
+            ", ".join(f"{seed}: fp32 {o['fp32']:.3f} / "
+                      f"{o['fp32 median']:.3f}, tf32 {o['tf32']:.3f}, "
+                      f"bf16 {o['bf16']:.3f}" for seed, o in outs.items()))
+        return 0
+
+    if args.gluon_train:
+        log("== the Gluon training surface (phase 9 alone)")
+        n = gluon_train_phase(args.seed)
+        check(n > 0, "flash_attn_fwd never ran on the gluon_bert_lamb path")
+        log(f"== done in {time.perf_counter() - t_all:.1f} s")
+        return 0
+
     if args.op_table:
         log("== the mx.nd op table (phase 8 alone)")
         n = op_table_phase(args.seed)
@@ -5291,7 +6039,7 @@ def main():
     log(f"  resnet phase took {t2 - t1:.1f} s")
 
     log("== transformer training: BERT-base widths")
-    launches["bert_train"] = bert_phase(args.seed)
+    launches["bert_train"], bert_samples_s = bert_phase(args.seed)
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
     log(f"  bert phase took {t3 - t2:.1f} s")
@@ -5307,7 +6055,15 @@ def main():
     n_op_table = op_table_phase(args.seed)
     check(n_op_table == 0, f"flash_attn_fwd launched {n_op_table} times on "
                            f"the op table")
-    log(f"  op table phase took {time.perf_counter() - t4:.1f} s")
+    t5 = time.perf_counter()
+    log(f"  op table phase took {t5 - t4:.1f} s")
+
+    log("== the Gluon training surface: every optimizer, GluonNLP's BERT "
+        "and GluonCV's ResNet-50 recipes through gluon.Trainer")
+    launches["gluon_bert_lamb"] = gluon_train_phase(args.seed,
+                                                    bert_samples_s)
+    torch.cuda.empty_cache()
+    log(f"  gluon train phase took {time.perf_counter() - t5:.1f} s")
     for path, n in launches.items():
         check(n > 0, f"flash_attn_fwd never ran on the {path} path")
         row["by_path"][path]["launches"] = n

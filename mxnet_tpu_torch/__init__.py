@@ -5,7 +5,8 @@ Serving: the model-zoo Llama (``gluon.model_zoo.language.llama``) served
 by the continuous-batching, paged-KV ``serving.ServingEngine``, with
 prefill attention in a hand-written CUDA flash-attention kernel
 (``csrc/flash_attn_fwd.cu``).  Training: ``mx.nd`` over an op table,
-``autograd``, Gluon blocks and parameters, ``gluon.Trainer`` and the fused
+``autograd``, Gluon blocks and parameters, ``gluon.Trainer`` (every
+optimizer, ``lr_scheduler``, ``metric``, AMP loss scaling) and the fused
 ``parallel.TrainStep``, which train the model-zoo ResNets
 (``gluon.model_zoo.vision``), BERT and the same Llama the engine serves
 (``gluon.model_zoo.language``).  Entry points run
@@ -23,13 +24,15 @@ from . import initializer as init
 from . import ndarray as nd
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, resolve_device
-from . import contrib, gluon, optimizer, parallel  # noqa: E402
+from . import contrib, gluon, lr_scheduler, metric, optimizer  # noqa: E402
+from . import parallel  # noqa: E402
 from . import env, fault, flight_recorder, lifecycle, telemetry  # noqa: E402
 
 env.apply_env()
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "resolve_device", "nd", "ndarray", "autograd", "init",
-           "initializer", "random", "gluon", "optimizer", "parallel",
+           "initializer", "random", "gluon", "optimizer", "lr_scheduler",
+           "metric", "parallel",
            "contrib", "env", "fault", "telemetry", "flight_recorder",
            "lifecycle"]

@@ -1,10 +1,14 @@
-"""Activation layer (counterpart of
-``mxnet_tpu/gluon/nn/activations.py``)."""
+"""Activation layers (counterpart of
+``mxnet_tpu/gluon/nn/activations.py``): Activation, LeakyReLU, PReLU (a
+learned slope, 0.25 at start), ELU, SELU, GELU and Swish, over the table's
+Activation and LeakyReLU ops."""
 from __future__ import annotations
 
+from ... import initializer as init
 from ..block import HybridBlock
 
-__all__ = ["Activation"]
+__all__ = ["Activation", "LeakyReLU", "PReLU", "ELU", "SELU", "Swish",
+           "GELU"]
 
 
 class Activation(HybridBlock):
@@ -20,3 +24,53 @@ class Activation(HybridBlock):
 
     def __repr__(self):
         return f"Activation({self._act_type})"
+
+
+class LeakyReLU(HybridBlock):
+    def __init__(self, alpha, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    def __init__(self, alpha_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        self.alpha = self.params.get(
+            "alpha", shape=(1,),
+            init=alpha_initializer or init.Constant(0.25))
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")
+
+
+class Swish(HybridBlock):
+    """x * sigmoid(beta * x)."""
+
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)

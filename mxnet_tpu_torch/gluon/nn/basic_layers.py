@@ -1,6 +1,7 @@
 """Gluon basic layers (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): Sequential, HybridSequential,
-Dense, Dropout, BatchNorm, LayerNorm, Embedding and Flatten."""
+Dense, Dropout, BatchNorm, InstanceNorm, LayerNorm, GroupNorm, Embedding,
+Flatten, Lambda and HybridLambda."""
 from __future__ import annotations
 
 import numpy as _np
@@ -10,7 +11,8 @@ from ..block import Block, HybridBlock
 from .activations import Activation
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "LayerNorm", "Embedding", "Flatten"]
+           "InstanceNorm", "LayerNorm", "GroupNorm", "Embedding", "Flatten",
+           "Lambda", "HybridLambda"]
 
 
 class _SequentialMixin:
@@ -158,6 +160,61 @@ class BatchNorm(HybridBlock):
         return out
 
 
+class _ChannelNorm(HybridBlock):
+    """A norm layer with ``gamma`` and ``beta`` over axis 1 (the
+    channels), deferred until the first input."""
+
+    def __init__(self, center, scale, beta_initializer, gamma_initializer,
+                 in_channels, **kwargs):
+        super().__init__(**kwargs)
+        self.gamma = self.params.get("gamma",
+                                     grad_req="write" if scale else "null",
+                                     shape=(in_channels,),
+                                     init=gamma_initializer,
+                                     allow_deferred_init=True)
+        self.beta = self.params.get("beta",
+                                    grad_req="write" if center else "null",
+                                    shape=(in_channels,),
+                                    init=beta_initializer,
+                                    allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        self.gamma.shape = (x.shape[1],)
+        self.beta.shape = (x.shape[1],)
+
+
+class InstanceNorm(_ChannelNorm):
+    """Normalization over each sample's and channel's spatial axes; the
+    scale ``gamma`` is not trained by default (``scale=False``)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(center, scale, beta_initializer, gamma_initializer,
+                         in_channels, **kwargs)
+        self._epsilon = epsilon
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
+class GroupNorm(_ChannelNorm):
+    """Normalization over ``num_groups`` groups of channels and the
+    spatial axes, per sample."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(center, scale, beta_initializer, gamma_initializer,
+                         in_channels, **kwargs)
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._epsilon)
+
+
 class LayerNorm(HybridBlock):
     """Layer normalization over ``axis``: ``gamma`` (ones) and ``beta``
     (zeros) of the axis's size, deferred until the first input."""
@@ -213,3 +270,38 @@ class Flatten(HybridBlock):
 
     def __repr__(self):
         return "Flatten"
+
+
+class Lambda(Block):
+    """A Block around ``function``, or around the ``nd`` function of that
+    name."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd
+
+            function = getattr(nd, function)
+        self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A HybridBlock around ``function(F, x, *args)``, or around the ``F``
+    function of that name."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_name = function if isinstance(function, str) else \
+            getattr(function, "__name__", "custom")
+        if isinstance(function, str):
+            def f(F, *args):
+                return getattr(F, function)(*args)
+            self._func = f
+        else:
+            self._func = function
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)

@@ -54,9 +54,17 @@ class _TraceContext:
 
 
 class Parameter:
+    """A named tensor of a Block.  ``lr_mult`` and ``wd_mult`` scale the
+    optimizer's learning rate and weight decay for this parameter (through
+    ``gluon.Trainer``, which hands the optimizer its parameters by
+    index)."""
+
     def __init__(self, name, grad_req="write", shape=None, dtype=_np.float32,
-                 init=None, allow_deferred_init=False, differentiable=True):
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True):
         self.name = name
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         self._grad_req = grad_req if differentiable else "null"
         if isinstance(shape, int):
             shape = (shape,)
@@ -148,7 +156,7 @@ class Parameter:
         actual = initializer or self.init or default_init
         if isinstance(actual, str):
             actual = init_mod.create(actual)
-        actual(self.name, data)
+        actual(init_mod.InitDesc(self.name), data)
         self._init_impl(data._data)
 
     def _init_impl(self, tensor):
@@ -198,6 +206,10 @@ class Parameter:
         self._check_initialized()
         return self._nd
 
+    def list_data(self):
+        """The data on every device: one here (reference: list_data)."""
+        return [self.data()]
+
     def grad(self, ctx=None):
         self._check_initialized()
         if self._grad_req == "null":
@@ -205,6 +217,10 @@ class Parameter:
         if self._nd._grad is None:
             self._nd._grad = NDArray._wrap(torch.zeros_like(self._nd._data))
         return self._nd._grad
+
+    def list_grad(self):
+        """The gradient on every device: one here (reference: list_grad)."""
+        return [self.grad()]
 
     def zero_grad(self):
         if self._nd is not None:
@@ -319,6 +335,12 @@ class ParameterDict:
     def zero_grad(self):
         for v in self.values():
             v.zero_grad()
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` of every Parameter here to ``value``,
+        e.g. ``collect_params('.*beta|.*bias').setattr('wd_mult', 0.0)``."""
+        for v in self.values():
+            setattr(v, name, value)
 
     def __repr__(self):
         s = "\n".join(repr(v) for v in self.values())

@@ -1,8 +1,11 @@
 """Gluon Trainer on one device (counterpart of
 ``mxnet_tpu/gluon/trainer.py``): ``step(batch_size)`` rescales the
 gradients by 1 / batch_size and applies the optimizer to every parameter
-with a gradient.  Gradient reduction across devices (the KVStore) is not
-ported; with one device there is nothing to reduce."""
+with a gradient.  The optimizer gets the parameters as ``param_dict``
+({index: Parameter}), so each Parameter's ``lr_mult`` and ``wd_mult``
+reach its update.  Gradient reduction across devices (the KVStore) and
+``save_states``/``load_states`` are not ported; with one device there is
+nothing to reduce."""
 from __future__ import annotations
 
 from .. import optimizer as opt_mod
@@ -36,27 +39,39 @@ class Trainer:
             if not isinstance(p, Parameter):
                 raise MXNetError(f"invalid parameter {p}")
             self._params.append(p)
+        param_dict = dict(enumerate(self._params))
         if isinstance(optimizer, opt_mod.Optimizer):
             if optimizer_params:
                 raise MXNetError("optimizer_params must be None when "
                                  "optimizer is an Optimizer instance")
             self._optimizer = optimizer
+            self._optimizer.param_dict = param_dict
         else:
-            self._optimizer = opt_mod.create(optimizer,
+            self._optimizer = opt_mod.create(optimizer, param_dict=param_dict,
                                              **(optimizer_params or {}))
         self._updater = opt_mod.get_updater(self._optimizer)
         self._scale = self._optimizer.rescale_grad
         self._telemetry = bool(telemetry)
 
     @property
+    def step_count(self):
+        """Optimizer updates applied so far (``optimizer.num_update``)."""
+        return self._optimizer.num_update
+
+    @property
     def learning_rate(self):
-        return self._optimizer.lr
+        """The learning rate of the next update: the scheduler's at the
+        update count, if the optimizer has one."""
+        opt = self._optimizer
+        return opt.lr if opt.lr_scheduler is None else \
+            opt.lr_scheduler(opt.num_update)
 
     @property
     def optimizer(self):
         return self._optimizer
 
     def set_learning_rate(self, lr):
+        """Raises MXNetError if the optimizer has a scheduler."""
         self._optimizer.set_learning_rate(lr)
 
     def step(self, batch_size, ignore_stale_grad=False):

@@ -87,20 +87,61 @@ def pooling(x, kernel=None, pool_type="max", stride=None, pad=None,
         if pool_type == "max":
             return x.amax(dim=axes, keepdim=True)
         return x.mean(dim=axes, keepdim=True)
-    if pooling_convention != "valid" or pool_type not in ("max", "avg"):
-        raise MXNetError(f"Pooling: pool_type={pool_type!r} with "
-                         f"pooling_convention={pooling_convention!r} is not "
-                         f"ported (max/avg, 'valid' only)")
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise MXNetError(f"Pooling: unknown pool_type {pool_type!r}")
     if cl:
         x = x.movedim(-1, 1)
     k = _tup(kernel, nd)
     s = _tup(stride if stride is not None else 1, nd)
     p = _tup(pad or 0, nd)
-    if pool_type == "max":
+    if pooling_convention == "valid" and pool_type == "max":
         y = _POOL["max", nd](x, k, s, p)
-    else:
+    elif pooling_convention == "valid" and pool_type == "avg":
         y = _POOL["avg", nd](x, k, s, p, count_include_pad=count_include_pad)
+    else:
+        y = _padded_pooling(x, k, s, p, pool_type, pooling_convention,
+                            count_include_pad)
     return y.movedim(1, -1) if cl else y
+
+
+def _window_sum(x, k, s):
+    """Sums over the pooling windows of channels-first ``x`` (no
+    padding)."""
+    if len(k) == 1:
+        return F.avg_pool2d(x.unsqueeze(-2), (1,) + k, (1,) + s,
+                            divisor_override=1).squeeze(-2)
+    pool = F.avg_pool2d if len(k) == 2 else F.avg_pool3d
+    return pool(x, k, s, divisor_override=1)
+
+
+def _padded_pooling(x, k, s, p, pool_type, convention, count_include_pad):
+    """Pooling over explicitly padded ``x``, as the reference's
+    reduce_window: the "full" (ceil-mode) convention extends each axis's
+    high-side padding until the windows cover it; max pads with -inf, the
+    sums with 0; "avg" divides by the window size (``count_include_pad``,
+    the extra padding counted too) or by the real elements in the window;
+    "lp" is the window's L2 norm."""
+    pads = [[pp, pp] for pp in p]
+    if convention == "full":
+        for i, pp in enumerate(pads):
+            rem = (x.shape[2 + i] + 2 * p[i] - k[i]) % s[i]
+            if rem:
+                pp[1] += s[i] - rem
+    flat = [v for pp in reversed(pads) for v in pp]
+    if pool_type == "max":
+        return _POOL["max", len(k)](F.pad(x, flat, value=float("-inf")),
+                                    k, s)
+    if pool_type == "lp":
+        return torch.sqrt(_window_sum(F.pad(torch.abs(x) ** 2, flat), k, s))
+    y = _window_sum(F.pad(x, flat), k, s)
+    if pool_type == "sum":
+        return y
+    if count_include_pad:
+        denom = 1.0
+        for kk in k:
+            denom *= kk
+        return y / denom
+    return y / _window_sum(F.pad(torch.ones_like(x), flat), k, s)
 
 
 _ACT = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,

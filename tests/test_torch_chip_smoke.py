@@ -818,3 +818,80 @@ def test_detection_chains_run_on_the_cpu():
                                       repeats=1)
     assert len(out) == 3
     assert all(dev == 0.0 for _, _, dev in out.values())
+
+
+# -- the Gluon training surface (phase 9) ----------------------------------------
+def test_gluon_train_flag_needs_a_card(monkeypatch, capsys):
+    """``--gluon-train`` parses; without a card the script exits nonzero
+    and prints no result."""
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py", "--gluon-train"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_gluon_bert_seeds_flag_needs_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py", "--gluon-bert-seeds",
+                                      "1", "2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_gluon_path_is_on_the_kernels_line():
+    assert chip_smoke.PATH_SHAPES["gluon_bert_lamb"] == chip_smoke.BERT_SHAPE
+
+
+TINY_OPT_SHAPES = ((300, 16), (16,))
+
+
+@pytest.mark.parametrize("fault", [None, "lamb_ratio_1"])
+def test_gluon_optimizer_checks_catch_a_unit_trust_ratio(fault):
+    """Every registered optimizer (SGLD by its noise's KS) passes; a LAMB
+    whose trust ratio is forced to 1 fails."""
+    if fault is None:
+        devs = chip_smoke.gluon_optimizer_checks(0, "cpu", TINY_OPT_SHAPES)
+        assert len(devs) == len(chip_smoke.GLUON_OPTIMIZERS) + 1
+        assert {label.split()[0] for label in devs} == \
+            set(chip_smoke.GLUON_OPTIMIZERS[i][0]
+                for i in range(len(chip_smoke.GLUON_OPTIMIZERS))) | {"sgld"}
+    else:
+        with pytest.raises(SystemExit, match="optimizer lamb"):
+            chip_smoke.gluon_optimizer_checks(0, "cpu", TINY_OPT_SHAPES,
+                                              fault, only="lamb")
+
+
+def test_gluon_bert_recipe_check_catches_ignored_multipliers():
+    """GluonNLP's step on the CPU (fp32 and bf16 against fp64) passes,
+    the reference's param_dict lookup fails the fp32 bound, and the
+    tensors held to lr are exactly the key projections' biases."""
+    cfg = _tiny_bert_cfg()
+    out = chip_smoke.bert_recipe_check(cfg, 0, "cpu", batch=4, seq=16)
+    assert out["fp32"] <= chip_smoke.GLUON_FP32_NOISE_FACTOR
+    assert out["fp32 median"] <= out["fp32"]
+    assert "tf32" not in out           # a control of the card's alone
+    assert out["bf16"] <= chip_smoke.BF16_NOISE_FACTOR
+    assert out["fault"] > chip_smoke.GLUON_FP32_NOISE_FACTOR
+    assert len(out["noisy"]) == cfg.num_layers
+    assert all(n.startswith("dense") and n.endswith("bias")
+               for n in out["noisy"])
+
+
+def test_lamb_scales_floor_only_noise_tensors():
+    info = {"lr": 0.5, "grad_max": [1.0, 1e-12, 0.0, 2e-3]}
+    assert chip_smoke.lamb_scales([1.0, 1e-3, 1e-4, 1e-5, 1e-6], info) == \
+        [1.0, 1e-3, 0.5, 1e-5, 1e-6]
+
+
+def test_loss_scale_check_runs_on_the_cpu():
+    assert chip_smoke.loss_scale_check(0, "cpu", width=(32, 64),
+                                       shape=(2, 8)) == [1024.0, 2048.0,
+                                                         1024.0]
+
+
+def test_resnet_recipe_check_catches_an_ignored_warmup():
+    ratio, fault = chip_smoke.resnet_recipe_check(
+        _tiny_resnet, 0, "cpu", batch=4, size=32, classes=10)
+    assert ratio <= chip_smoke.FP32_STEP_BOUND < fault

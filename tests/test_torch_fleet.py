@@ -1153,7 +1153,9 @@ def test_serve_fleet_returns_preempted_after_request_stop(nets, capsys):
     """Local mode on real engines: two replicas (the second joined on the
     first), a completion through the router's HTTP front door, then
     lifecycle.request_stop: serve_fleet drains every replica and returns
-    43; the engines' pools are released."""
+    43; the engines' pools are released.  Hedging is off (a completion
+    that outlasts the 50 ms hedge floor under a loaded host would
+    otherwise be sent to the second replica too: two attempts)."""
     made = []
 
     def factory(rid, donor):
@@ -1178,7 +1180,7 @@ def test_serve_fleet_returns_preempted_after_request_stop(nets, capsys):
     try:
         rc = port_fleet.serve_fleet(engine_factory=factory, replicas=2,
                                     port=0, install_signals=False,
-                                    on_ready=on_ready)
+                                    on_ready=on_ready, hedge_ms=600_000)
         for t in threads:
             t.join(TIMEOUT)
     finally:
@@ -1187,7 +1189,7 @@ def test_serve_fleet_returns_preempted_after_request_stop(nets, capsys):
     assert rc == port_lifecycle.EXIT_PREEMPTED
     status, doc, _ = box["completion"]
     assert status == 200 and len(doc["token_ids"]) == 4
-    assert doc["fleet"]["attempts"] == 1
+    assert doc["fleet"]["attempts"] == 1 and doc["fleet"]["hedges"] == 0
     status, fdoc, _ = box["fleet"]
     assert status == 200 and [r["health"]["state"] for r in
                               fdoc["replicas"]] == ["healthy"] * 2

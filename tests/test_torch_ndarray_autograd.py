@@ -140,10 +140,16 @@ def test_pooling(layout, attrs):
 
 
 def test_pooling_full_convention_is_refused():
-    x = torch.zeros(1, 1, 5, 5)
-    with pytest.raises(MXNetError, match="not ported"):
-        port_get_op("Pooling").fn(x, kernel=(2, 2), stride=(2, 2),
-                                  pooling_convention="full")
+    """The "full" (ceil-mode) convention, once refused, is ported: it
+    matches the reference's (windows over the extended high-side
+    padding); an unknown pool type is still refused."""
+    r = np.random.RandomState(4)
+    _check_op("Pooling", [_rand(r, (1, 2, 5, 5))],
+              dict(kernel=(2, 2), stride=(2, 2), pool_type="avg",
+                   pooling_convention="full"))
+    with pytest.raises(MXNetError, match="pool_type"):
+        port_get_op("Pooling").fn(torch.zeros(1, 1, 5, 5), kernel=(2, 2),
+                                  pool_type="median")
 
 
 @pytest.mark.parametrize("act", ["relu", "sigmoid", "tanh", "softrelu",
