@@ -14,7 +14,11 @@ on the first CUDA card unless the caller passes ``device="cpu"`` /
 ``ctx=mx.cpu()``.  ``serving.serve()`` answers HTTP completions beside the
 runtime planes ``telemetry`` (metrics, ``/metrics``), ``fault`` (fault
 seams and retries), ``flight_recorder`` (the event ring and black-box
-dumps) and ``lifecycle`` (graceful stop and exit codes).  The package
+dumps) and ``lifecycle`` (graceful stop and exit codes).  Persistence:
+``nd.save``/``nd.load``, ``save_parameters``, ``Trainer.save_states`` and
+``checkpoint.CheckpointManager`` / ``run_with_recovery`` read and write
+the reference's files, and a training loop that polls
+``lifecycle.check_stop()`` resumes exactly after a preemption.  The package
 imports ``torch`` and numpy, never ``jax`` and nothing of ``mxnet_tpu``.
 """
 from __future__ import annotations
@@ -27,6 +31,7 @@ from .context import Context, cpu, current_context, gpu, resolve_device
 from . import contrib, gluon, lr_scheduler, metric, optimizer  # noqa: E402
 from . import parallel  # noqa: E402
 from . import env, fault, flight_recorder, lifecycle, telemetry  # noqa: E402
+from . import callback, checkpoint  # noqa: E402
 
 env.apply_env()
 
@@ -35,4 +40,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "initializer", "random", "gluon", "optimizer", "lr_scheduler",
            "metric", "parallel",
            "contrib", "env", "fault", "telemetry", "flight_recorder",
-           "lifecycle"]
+           "lifecycle", "checkpoint", "callback"]

@@ -8,7 +8,7 @@ import numpy as _np
 import torch
 
 __all__ = ["MXNetError", "Registry", "numeric_types", "torch_dtype",
-           "dtype_name"]
+           "dtype_name", "world_size"]
 
 numeric_types = (float, int, _np.generic)
 
@@ -57,3 +57,12 @@ def dtype_name(dtype):
     if dtype == torch.bfloat16:
         return "bfloat16"
     return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def world_size():
+    """The number of processes of the job: ``torch.distributed``'s world
+    size once a process group is initialised, else 1."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and \
+        dist.is_initialized() else 1

@@ -14,13 +14,14 @@
 // What bounds it on the H100: at prefill shapes (L = 2048, Hq = 32, D = 128,
 // causal) the work is ~34 GFLOP per call against ~42 MB of q/k/v/o, ~800
 // FLOP per byte against the card's ridge of ~295: the bound is the
-// tensor-core rate, not memory.  So the bf16 kernel is built, in the shape
-// of a Hopper GEMM, to keep the tensor cores fed.  Against what held the
+// tensor-core rate, not memory.  So the 16-bit kernel (bf16 and fp16: one
+// template over the element type) is built, in the shape of a Hopper GEMM,
+// to keep the tensor cores fed.  Against what held the
 // first (mma.sync) version of this kernel back:
 //  1. mma.sync -> wgmma for both products.  S = Q K^T reads Q and K from
 //     shared memory through matrix descriptors (both K-major, as they lie
 //     in memory).  O += P V takes P from registers: the fp32 accumulator
-//     fragment of S, rounded to bf16 pairs, is already the register-A
+//     fragment of S, rounded to 16-bit pairs, is already the register-A
 //     layout, so P never leaves the registers.
 //  2. No copy/compute overlap -> TMA into a 2-stage ring.  One producer
 //     thread loads the CTA's Q tile once, then streams K and V tiles; each
@@ -57,7 +58,7 @@
 // causal block down, so every head's longest blocks start first and the q
 // heads of one kv head run side by side (their K/V tiles are shared in L2).
 // Head dims: every one the wrapper takes (32, 64, 128, 256) runs this
-// kernel; there is no other bf16 kernel.  D = 256 uses one consumer
+// kernel; there is no other 16-bit kernel.  D = 256 uses one consumer
 // warpgroup (a 64-row CTA of 256 threads) and 64-key tiles: its 64 x 256
 // fp32 O accumulator alone is 128 registers a thread.
 //
@@ -73,12 +74,18 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
+
+template <typename E>
+constexpr bool kIsHalf = std::is_same<E, __half>::value;
 
 struct Strides {  // element strides of a (B, H, L, D) tensor; D's is 1
   long long b, h, l;
@@ -244,7 +251,10 @@ __global__ void __launch_bounds__(256) fa_fwd_f32(F32Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma, TMA into a shared-memory ring, warp-specialised.
+// bf16 and fp16: wgmma, TMA into a shared-memory ring, warp-specialised.
+// One template over the 16-bit element type E (__nv_bfloat16 or __half):
+// the operands' type in wgmma, P's packing, o's type and the tensor maps'
+// data type follow E; accumulation, the softmax state and lse are fp32.
 // ---------------------------------------------------------------------------
 constexpr int kStages = 2;  // K/V ring depth
 // with two consumer warpgroups (384 threads, 168 registers a thread at
@@ -255,9 +265,10 @@ constexpr int kConsumerRegs = 232;
 // launch fails with an error instead of hanging the card.
 constexpr uint32_t kSpinLimit = 1u << 26;
 
-struct Bf16Params {
+template <typename E>
+struct WgParams {
   CUtensorMap tm_q, tm_k, tm_v;  // (D, L, H, B) maps, boxes of Tile<D>
-  __nv_bfloat16* o;
+  E* o;
   float* lse;
   Strides os;
   int Hq, Hkv, Lq, Lk;
@@ -275,7 +286,7 @@ struct Tile {
   static constexpr int kBM = 64 * kConsumers;      // query rows per CTA
   static constexpr int kBN = D == 256 ? 64 : 128;  // keys per K/V tile
   static constexpr int kSw = D >= 64 ? 128 : 64;   // swizzle span = box row bytes
-  static constexpr int kBoxCols = kSw / 2;         // bf16 columns per TMA box
+  static constexpr int kBoxCols = kSw / 2;         // 16-bit columns per TMA box
   static constexpr int kBoxes = D / kBoxCols;      // boxes per row
   static constexpr int kNO = D < 128 ? D : 128;    // O columns per P.V wgmma
   static constexpr int kNOC = D / kNO;
@@ -365,152 +376,171 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two fp32 values rounded to E, lo in the low half: one register of a
+// wgmma A fragment, or two adjacent outputs.
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsHalf<E>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
+
+// wgmma's inline PTX names the element type; each shape's asm is a macro
+// over that name ("bf16" or "f16"), expanded once per element type.
+#define WG_TYPED(E, M) \
+  if constexpr (kIsHalf<E>) {     \
+    M("f16");                     \
+  } else {                        \
+    M("bf16");                    \
+  }
+
+#define WGMMA_SS64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\n" \
+      "setp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(da), "l"(db), "r"(scale_d));
+
+#define WGMMA_SS128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\n" \
+      "setp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, " \
+      "%40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db), "r"(scale_d));
+
+#define WGMMA_RS32(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\n" \
+      "setp.ne.b32 p, %21, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15" \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+
+#define WGMMA_RS64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\n" \
+      "setp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+
+#define WGMMA_RS128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\n" \
+      "setp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, " \
+      "%40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 
 // d (64 x N fp32) = [d +] A (64 x 16, smem, K-major) * B (N x 16, smem,
-// K-major)^T
-template <int N>
+// K-major)^T, A and B of element type E
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int scale_d);
-// d (64 x N fp32) += A (64 x 16 bf16, registers) * B (16 x N, smem, MN-major)
-template <int N>
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "S tiles are 64 or 128 keys wide");
+  if constexpr (N == 64) {
+    WG_TYPED(E, WGMMA_SS64)
+  } else {
+    WG_TYPED(E, WGMMA_SS128)
+  }
+}
+
+// d (64 x N fp32) += A (64 x 16 E, registers) * B (16 x N, smem, MN-major)
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
-                                             const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                             const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                              const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+                                         const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N == 32 || N == 64 || N == 128, "O tiles are 32-128 wide");
+  if constexpr (N == 32) {
+    WG_TYPED(E, WGMMA_RS32)
+  } else if constexpr (N == 64) {
+    WG_TYPED(E, WGMMA_RS64)
+  } else {
+    WG_TYPED(E, WGMMA_RS128)
+  }
 }
 
 template <int N>
@@ -521,7 +551,7 @@ __device__ __forceinline__ void wg_wait() {
 // Issue S = Q K^T for a consumer's 64 rows (one k16 wgmma per 16 of D).
 // Descriptors are built once per tile; each step adds its byte offset
 // (>> 4) to the start-address field.
-template <int D>
+template <typename E, int D>
 __device__ __forceinline__ void issue_qk(float (&s)[Tile<D>::kBN / 2],
                                          uint32_t q_rows, uint32_t k_tile) {
   using T = Tile<D>;
@@ -531,13 +561,13 @@ __device__ __forceinline__ void issue_qk(float (&s)[Tile<D>::kBN / 2],
   for (int kd = 0; kd < D / 16; ++kd) {
     const uint32_t box = (kd * 16) / T::kBoxCols;
     const uint32_t col = (kd * 16) % T::kBoxCols * 2;  // bytes into the box
-    wgmma_ss<T::kBN>(s, da + ((box * T::kBM * T::kSw + col) >> 4),
+    wgmma_ss<E, T::kBN>(s, da + ((box * T::kBM * T::kSw + col) >> 4),
                      db + ((box * T::kBN * T::kSw + col) >> 4), kd > 0);
   }
 }
 
 // Issue O += P V: P from registers, V read MN-major (transpose bit).
-template <int D>
+template <typename E, int D>
 __device__ __forceinline__ void issue_pv(
     float (&o)[Tile<D>::kNOC][Tile<D>::kNO / 2],
     const uint32_t (&pa)[Tile<D>::kBN / 16][4], uint32_t v_tile) {
@@ -549,7 +579,7 @@ __device__ __forceinline__ void issue_pv(
 #pragma unroll
     for (int n = 0; n < T::kNOC; ++n) {
       const uint32_t box = n * T::kNO / T::kBoxCols;
-      wgmma_rs<T::kNO>(
+      wgmma_rs<E, T::kNO>(
           o[n], pa[kk],
           db + ((box * T::kBN * T::kSw + kk * 16 * T::kSw) >> 4));
     }
@@ -571,10 +601,10 @@ struct RowState {
 // s becomes p, m and l move on, and al0 / al1 are the factors by which the
 // O rows must be rescaled.  Accumulator entry i of a thread holds row
 // row0 + 8 * ((i >> 1) & 1), key k0 + 8 * (i / 4) + 2 * qd + (i & 1).
-template <int BN>
+template <int BN, typename P>
 __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], RowState& r,
                                              float& al0, float& al1,
-                                             const Bf16Params& p, float c,
+                                             const P& p, float c,
                                              int k0, int r0, int row0,
                                              int qd) {
   const int off = p.Lk - p.Lq;
@@ -618,22 +648,22 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], RowState& r,
   r.l1 = r.l1 * al1 + rs1;
 }
 
-// P as bf16 register-A fragments: two adjacent n8 tiles per k16 step.
-template <int BN>
+// P as E register-A fragments: two adjacent n8 tiles per k16 step.
+template <typename E, int BN>
 __device__ __forceinline__ void pack_p(const float (&s)[BN / 2],
                                        uint32_t (&pa)[BN / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {
-    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    pa[kk][0] = pack2<E>(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = pack2<E>(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack2<E>(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack2<E>(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
-    fa_fwd_wgmma(const __grid_constant__ Bf16Params p) {
+    fa_fwd_wgmma(const __grid_constant__ WgParams<E> p) {
   using T = Tile<D>;
   constexpr int BN = T::kBN, kBM = T::kBM;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -757,7 +787,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
       mbar_wait(FULL_K(st), par);
       pin(s);
       wg_fence();
-      issue_qk<D>(s, q_rows, sK + st * T::kKVBytes);
+      issue_qk<E, D>(s, q_rows, sK + st * T::kKVBytes);
       wg_commit();
       wg_wait<0>();
       pin(s);
@@ -774,12 +804,12 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
           o[n][i + 2] *= al1;
           o[n][i + 3] *= al1;
         }
-      pack_p<BN>(s, pa);
+      pack_p<E, BN>(s, pa);
 
       mbar_wait(FULL_V(st), par);
       pin_o<D>(o);
       wg_fence();
-      issue_pv<D>(o, pa, sV + st * T::kKVBytes);
+      issue_pv<E, D>(o, pa, sV + st * T::kKVBytes);
       wg_commit();
       wg_wait<0>();
       pin_o<D>(o);
@@ -790,21 +820,20 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
       rs.l0 += __shfl_xor_sync(0xffffffffu, rs.l0, x);
       rs.l1 += __shfl_xor_sync(0xffffffffu, rs.l1, x);
     }
-    __nv_bfloat16* ob = p.o + b * p.os.b + h * p.os.h;
+    E* ob = p.o + b * p.os.b + h * p.os.h;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       if (row >= p.Lq) continue;
       const float li = fmaxf(r ? rs.l1 : rs.l0, 1e-30f), inv = 1.f / li;
-      __nv_bfloat16* orow = ob + row * p.os.l;
+      E* orow = ob + row * p.os.l;
 #pragma unroll
       for (int n = 0; n < T::kNOC; ++n)
 #pragma unroll
         for (int jn = 0; jn < T::kNO / 8; ++jn)
-          *reinterpret_cast<__nv_bfloat162*>(orow + n * T::kNO + 8 * jn +
-                                             2 * qd) =
-              __floats2bfloat162_rn(o[n][4 * jn + 2 * r] * inv,
-                                    o[n][4 * jn + 2 * r + 1] * inv);
+          *reinterpret_cast<uint32_t*>(orow + n * T::kNO + 8 * jn + 2 * qd) =
+              pack2<E>(o[n][4 * jn + 2 * r] * inv,
+                       o[n][4 * jn + 2 * r + 1] * inv);
       if (qd == 0)
         p.lse[(size_t)bh * p.Lq + row] =
             ((r ? rs.m1 : rs.m0) * c + __log2f(li)) * 0.69314718056f;
@@ -878,10 +907,12 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A (B, H, L, D) bf16 tensor as a 4-d map (D, L, H, B), boxes of
-// box_cols x box_rows, swizzled as the wgmma descriptors expect.
-bool encode(CUtensorMap* map, const void* ptr, int B, int H, int L, int D,
-            const Strides& s, int box_cols, int box_rows, int swizzle_bytes) {
+// A (B, H, L, D) tensor of 16-bit elements (type: bf16 or fp16) as a 4-d
+// map (D, L, H, B), boxes of box_cols x box_rows, swizzled as the wgmma
+// descriptors expect.
+bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+            int B, int H, int L, int D, const Strides& s, int box_cols,
+            int box_rows, int swizzle_bytes) {
   const EncodeTiled fn = encoder();
   if (!fn) return false;
   cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H,
@@ -890,7 +921,7 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int H, int L, int D,
                            (cuuint64_t)s.b * 2};
   cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
   cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+  return fn(map, type, 4, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : CU_TENSOR_MAP_SWIZZLE_64B,
@@ -898,20 +929,23 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int H, int L, int D,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-int launch_bf16(const Args& a, cudaStream_t stream) {
+template <typename E, int D>
+int launch_wgmma(const Args& a, cudaStream_t stream) {
   using T = Tile<D>;
   const int nqb = (a.Lq + T::kBM - 1) / T::kBM;
   if (nqb > 65535) return (int)cudaErrorInvalidValue;
-  Bf16Params p;
-  if (!encode(&p.tm_q, a.q, a.B, a.Hq, a.Lq, D, a.qs, T::kBoxCols, T::kBM,
-              T::kSw) ||
-      !encode(&p.tm_k, a.k, a.B, a.Hkv, a.Lk, D, a.ks, T::kBoxCols, T::kBN,
-              T::kSw) ||
-      !encode(&p.tm_v, a.v, a.B, a.Hkv, a.Lk, D, a.vs, T::kBoxCols, T::kBN,
-              T::kSw))
+  const CUtensorMapDataType type = kIsHalf<E>
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  WgParams<E> p;
+  if (!encode(&p.tm_q, type, a.q, a.B, a.Hq, a.Lq, D, a.qs, T::kBoxCols,
+              T::kBM, T::kSw) ||
+      !encode(&p.tm_k, type, a.k, a.B, a.Hkv, a.Lk, D, a.ks, T::kBoxCols,
+              T::kBN, T::kSw) ||
+      !encode(&p.tm_v, type, a.v, a.B, a.Hkv, a.Lk, D, a.vs, T::kBoxCols,
+              T::kBN, T::kSw))
     return (int)cudaErrorInvalidValue;
-  p.o = static_cast<__nv_bfloat16*>(a.o);
+  p.o = static_cast<E*>(a.o);
   p.lse = a.lse;
   p.os = a.os;
   p.Hq = a.Hq;
@@ -921,22 +955,37 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
   p.causal = a.causal;
   p.scale_log2 = a.sm_scale * 1.4426950408889634f;
   const dim3 grid(a.B * a.Hq, nqb);
-  return launch(fa_fwd_wgmma<D>, grid, T::kThreads, T::kSmem, p, stream);
+  return launch(fa_fwd_wgmma<E, D>, grid, T::kThreads, T::kSmem, p, stream);
+}
+
+// The element type of q, k, v and o (lse is always fp32).
+enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+template <typename E>
+int launch_16(const Args& a, int D, cudaStream_t st) {
+  switch (D) {
+    case 32: return launch_wgmma<E, 32>(a, st);
+    case 64: return launch_wgmma<E, 64>(a, st);
+    case 128: return launch_wgmma<E, 128>(a, st);
+    case 256: return launch_wgmma<E, 256>(a, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// strides: 12 element strides, (batch, head, seq) of q, k, v and o in turn;
-// each tensor's head dim is dense.
+// dtype: a DType code.  strides: 12 element strides, (batch, head, seq) of
+// q, k, v and o in turn; each tensor's head dim is dense.
 extern "C" int mxt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int B, int Hq, int Hkv,
                                   int Lq, int Lk, int D, int causal,
-                                  float sm_scale, int is_bf16,
+                                  float sm_scale, int dtype,
                                   const long long* strides, void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Lq <= 0 || Lk <= 0)
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Lq <= 0 || Lk <= 0 ||
+      dtype < kF32 || dtype > kF16)
     return (int)cudaErrorInvalidValue;
-  // TMA (bf16) and the fp32 loads alike take 16-byte aligned rows
-  const long long align = is_bf16 ? 8 : 4;
+  // TMA (16-bit types) and the fp32 loads alike take 16-byte aligned rows
+  const long long align = dtype == kF32 ? 4 : 8;
   for (int i = 0; i < 12; ++i)
     if (strides[i] <= 0 || strides[i] % align) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, Lq, Lk,
@@ -946,20 +995,13 @@ extern "C" int mxt_flash_attn_fwd(const void* q, const void* k, const void* v,
                Strides{strides[6], strides[7], strides[8]},
                Strides{strides[9], strides[10], strides[11]}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    switch (D) {
-      case 32: return launch_bf16<32>(a, st);
-      case 64: return launch_bf16<64>(a, st);
-      case 128: return launch_bf16<128>(a, st);
-      case 256: return launch_bf16<256>(a, st);
-    }
-  } else {
-    switch (D) {
-      case 32: return launch_f32<32>(a, st);
-      case 64: return launch_f32<64>(a, st);
-      case 128: return launch_f32<128>(a, st);
-      case 256: return launch_f32<256>(a, st);
-    }
+  if (dtype == kBF16) return launch_16<__nv_bfloat16>(a, D, st);
+  if (dtype == kF16) return launch_16<__half>(a, D, st);
+  switch (D) {
+    case 32: return launch_f32<32>(a, st);
+    case 64: return launch_f32<64>(a, st);
+    case 128: return launch_f32<128>(a, st);
+    case 256: return launch_f32<256>(a, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -46,11 +46,18 @@ Wired vars:
   ms (default 250, at least 10).
 - ``MXNET_FLEET_EJECT_THRESHOLD``: consecutive dispatch/probe failures
   before the circuit breaker ejects a replica (default 3).
+- ``MXNET_PREEMPTION_CHECKPOINT``: a graceful stop publishes a final
+  synchronous checkpoint (default 1; ``lifecycle.
+  publish_final_checkpoint``).
+- ``MXNET_CHECKPOINT_ASYNC``: ``CheckpointManager.save``'s default
+  ``async_`` (default 0).
+- ``MXNET_PREFETCH_BUFFER``: ``PrefetchIterator``'s depth (default 2; 0 =
+  staged on the caller's thread).
 
 The knobs of planes not ported yet (planner, graph, guard, ZeRO, compile
-cache, tuning, data path), and those of the lifecycle's watchdog
-(``MXNET_WATCHDOG_TIMEOUT_S``) and multi-process stop agreement
-(``MXNET_STOP_SYNC_EVERY``), wait for their code.
+cache, tuning, the rest of the data path), of the lifecycle's watchdog
+(``MXNET_WATCHDOG_TIMEOUT_S``) and of the cross-process stop agreement
+(``MXNET_STOP_SYNC_EVERY``) wait for their code.
 """
 from __future__ import annotations
 
@@ -67,6 +74,8 @@ __all__ = ["get_str", "get_int", "get_bool", "get_float",
            "goodput_slo_windows", "trace_requests", "trace_keep_slowest",
            "fleet_replicas", "fleet_hedge_ms", "fleet_retry_budget",
            "fleet_probe_interval_ms", "fleet_eject_threshold",
+           "preemption_checkpoint_default",
+           "checkpoint_async_default", "prefetch_buffer",
            "describe", "apply_env"]
 
 
@@ -154,6 +163,24 @@ def grace_period_s():
     """Stop-request -> forced-exit deadline (MXNET_GRACE_PERIOD_S, default
     0 = no forced exit)."""
     return max(0.0, get_float("MXNET_GRACE_PERIOD_S", 0.0))
+
+
+def preemption_checkpoint_default():
+    """Whether a graceful preemption stop publishes a final synchronous
+    checkpoint (MXNET_PREEMPTION_CHECKPOINT, default on)."""
+    return get_bool("MXNET_PREEMPTION_CHECKPOINT", True)
+
+
+def checkpoint_async_default():
+    """Default for CheckpointManager.save(async_=None)
+    (MXNET_CHECKPOINT_ASYNC, default off)."""
+    return get_bool("MXNET_CHECKPOINT_ASYNC", False)
+
+
+def prefetch_buffer():
+    """Device-prefetch queue depth (MXNET_PREFETCH_BUFFER, default 2; 0
+    disables the background prefetch pipeline)."""
+    return max(0, get_int("MXNET_PREFETCH_BUFFER", 2))
 
 
 def launcher_rank():
@@ -284,6 +311,12 @@ _WIRED = (
      "(default 16)"),
     ("MXNET_GRACE_PERIOD_S", "stop-request -> forced-exit deadline "
      "(default 0 = none)"),
+    ("MXNET_PREEMPTION_CHECKPOINT", "a graceful stop publishes a final "
+     "synchronous checkpoint (default 1)"),
+    ("MXNET_CHECKPOINT_ASYNC", "CheckpointManager.save's default async_ "
+     "(default 0)"),
+    ("MXNET_PREFETCH_BUFFER", "PrefetchIterator depth (default 2; 0 = "
+     "synchronous staging)"),
     ("MXNET_SERVING_PORT", "serving.serve HTTP endpoint port (default 0 = "
      "pick free; routes mount beside /metrics)"),
     ("MXNET_SERVING_MAX_BATCH", "serving decode-batch admission cap "

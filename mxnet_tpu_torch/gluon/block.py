@@ -22,8 +22,9 @@ import torch
 from .. import autograd as _ag
 from .. import ndarray as _F
 from ..base import MXNetError
+from ..context import cpu as _cpu
 from .parameter import (_TRACE, DeferredInitializationError, Parameter,
-                        ParameterDict)
+                        ParameterDict, load_params)
 
 __all__ = ["Block", "HybridBlock"]
 
@@ -129,6 +130,32 @@ class Block(torch.nn.Module):
         for name, child in self._children.items():
             ret.update(child._collect_params_with_prefix(prefix + name))
         return ret
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Write every parameter to ``filename`` (the ``.params``
+        container) under its structural name, so that a net of the same
+        architecture in either package loads it whatever its block
+        counters."""
+        from ..ndarray.serialization import save as _save
+
+        _save(filename, {k: v.data() for k, v in
+                         self._collect_params_with_prefix().items()})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Read a :meth:`save_parameters` file (from either package) into
+        the parameters of the same structural names; see
+        :func:`.parameter.load_params` for the options."""
+        from ..ndarray.serialization import load as _load
+
+        load_params(self._collect_params_with_prefix(),
+                    _load(filename, ctx=_cpu()), filename, ctx,
+                    allow_missing, ignore_extra, cast_dtype, dtype_source)
+
+    # legacy aliases
+    save_params = save_parameters
+    load_params = load_parameters
 
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):

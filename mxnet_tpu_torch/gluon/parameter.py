@@ -10,6 +10,11 @@ gradient.  Every Block that holds the
 Parameter as an attribute registers the torch tensor in its
 ``_parameters`` under that attribute name, so ``parameters()`` and
 ``.to()`` work on a Gluon net as on any ``nn.Module``.
+
+``ParameterDict.save``/``load`` write and read the ``.params`` container
+(:mod:`..ndarray.serialization`) by parameter name; ``Block``'s
+``save_parameters``/``load_parameters`` go through :func:`load_params`
+with the structural names.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 from .. import initializer as init_mod
 from ..base import MXNetError, torch_dtype
 from ..context import Context, current_context
+from ..context import cpu as _cpu
 from ..ndarray.ndarray import NDArray
 
 __all__ = ["Parameter", "ParameterDict", "DeferredInitializationError",
@@ -342,9 +348,69 @@ class ParameterDict:
         for v in self.values():
             setattr(v, name, value)
 
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter to ``filename`` under its name, less
+        ``strip_prefix`` (which every name must start with)."""
+        from ..ndarray.serialization import save as _save
+
+        arg = {}
+        for name, param in self.items():
+            if not name.startswith(strip_prefix):
+                raise MXNetError(f"prefix {strip_prefix} not in {name}")
+            arg[name[len(strip_prefix):]] = param.data()
+        _save(filename, arg)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Read ``filename`` into the parameters of the same names
+        (``restore_prefix`` + the saved name; the legacy ``arg:`` /
+        ``aux:`` tags are dropped)."""
+        from ..ndarray.serialization import load as _load
+
+        loaded = {restore_prefix + k.replace("arg:", "").replace("aux:", ""):
+                  v for k, v in _load(filename, ctx=_cpu()).items()}
+        load_params(self._params, loaded, filename, ctx, allow_missing,
+                    ignore_extra, what="this ParameterDict")
+
     def __repr__(self):
         s = "\n".join(repr(v) for v in self.values())
         return f"ParameterDict(prefix={self._prefix!r})\n{s}"
+
+
+def load_params(params, loaded, filename, ctx=None, allow_missing=False,
+                ignore_extra=False, cast_dtype=False, dtype_source="current",
+                what="the Block"):
+    """Copy ``loaded`` ({name: NDArray}, read from ``filename``) into
+    ``params`` ({name: Parameter}).  A parameter not yet initialized is
+    initialized on ``ctx`` (default: the current context) with the saved
+    shape first.  Each value takes the parameter's dtype, as the
+    reference's ``set_data`` casts; with ``cast_dtype`` and
+    ``dtype_source="saved"`` the parameter takes the saved dtype
+    instead.  Missing and extra names raise unless allowed."""
+    if dtype_source not in ("current", "saved"):
+        raise MXNetError(f"dtype_source must be 'current' or 'saved', got "
+                         f"{dtype_source!r}")
+    if not allow_missing:
+        for name in params:
+            if name not in loaded:
+                raise MXNetError(f"Parameter {name} missing in {filename}")
+    for name, v in loaded.items():
+        if name not in params:
+            if not ignore_extra:
+                raise MXNetError(f"Parameter {name} in {filename} is not in "
+                                 f"{what} (set ignore_extra=True)")
+            continue
+        p = params[name]
+        if p._nd is None and not p._deferred_init:
+            p.shape = v.shape
+            p.initialize(ctx=ctx or current_context())
+        if cast_dtype and dtype_source == "saved" and \
+                torch_dtype(p.dtype) != v._data.dtype:
+            if p._nd is None:
+                p.dtype = v.dtype
+            else:
+                p.cast(v.dtype)
+        p.set_data(v)
 
 
 def _strip_counter(name):

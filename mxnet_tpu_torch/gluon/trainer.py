@@ -3,9 +3,11 @@
 gradients by 1 / batch_size and applies the optimizer to every parameter
 with a gradient.  The optimizer gets the parameters as ``param_dict``
 ({index: Parameter}), so each Parameter's ``lr_mult`` and ``wd_mult``
-reach its update.  Gradient reduction across devices (the KVStore) and
-``save_states``/``load_states`` are not ported; with one device there is
-nothing to reduce."""
+reach its update.  ``save_states``/``load_states`` write and read the
+optimizer and its states in the reference's format (either package reads
+the other's file).  Gradient reduction across devices (the KVStore) and
+ZeRO's sharded states are not ported; with one device there is nothing to
+reduce."""
 from __future__ import annotations
 
 from .. import optimizer as opt_mod
@@ -83,6 +85,35 @@ class Trainer:
             self.allreduce_grads()
         with _telemetry.maybe_phase(self._telemetry, "optimizer"):
             self.update(batch_size, ignore_stale_grad)
+
+    # the reference's header of a states file holding ZeRO-1 sharded
+    # optimizer state (its parallel/zero.py)
+    _ZERO_MAGIC = b"MXTRZRO1"
+
+    def _states_blob(self):
+        """The bytes ``save_states`` writes: the updater's states and the
+        optimizer, pickled (an async checkpoint takes them on the step
+        loop's thread and writes them on another)."""
+        return self._updater.get_states(dump_optimizer=True)
+
+    def save_states(self, fname):
+        """Write the optimizer and its states to ``fname``."""
+        with open(fname, "wb") as f:
+            f.write(self._states_blob())
+
+    def load_states(self, fname):
+        """Read a ``save_states`` file of either package: the optimizer
+        (its update counts and scheduler included) replaces this
+        Trainer's, with ``param_dict`` rebuilt over its parameters."""
+        with open(fname, "rb") as f:
+            data = f.read()
+        if data.startswith(self._ZERO_MAGIC):
+            raise MXNetError(f"{fname} holds ZeRO-1 sharded optimizer "
+                             f"state (MXNET_ZERO); reading it waits for the "
+                             f"port of parallel/zero.py")
+        self._updater.set_states(data)
+        self._optimizer = self._updater.optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))
 
     def allreduce_grads(self):
         """Sum gradients across devices: the identity on one device."""

@@ -1,6 +1,6 @@
 """Graceful shutdown: the stop flag, the signal handlers, the grace
-deadline and the exit codes (counterpart of ``mxnet_tpu/lifecycle.py``, as
-far as ``serving.serve`` and the serving engine use it).
+deadline, the exit codes, the training loop's step-boundary poll and the
+exact-resume train state (counterpart of ``mxnet_tpu/lifecycle.py``).
 
 ``install_signal_handlers()`` (SIGTERM/SIGINT) or a programmatic
 ``request_stop(reason)`` sets a process-wide stop flag.  The serving
@@ -18,9 +18,20 @@ goodput-SLO breach (observers subscribe with
 ``register_goodput_breach_hook``; the serving fleet's autoscaler is the
 one in the package) and the fleet's queue-SLO breach.
 
-Not ported yet: ``check_stop``'s cross-rank agreement (it needs the
-port's collectives), the stall ``Watchdog``, the training-state capture
-and ``elastic_resharder``.
+A training loop calls ``check_stop()`` at every step boundary: it beats
+the telemetry heartbeat, turns an armed ``lifecycle.sigterm`` fault seam
+into a stop request, and returns True once a stop is pending.  On a stop
+the loop publishes a final synchronous checkpoint
+(``publish_final_checkpoint``, with ``capture_train_state``'s RNG, loss
+scaler and update count) and raises ``GracefulExit``; the relaunched job
+restores it (``CheckpointManager.restore`` + ``restore_train_state``) and
+continues bit for bit.
+
+Not ported yet: ``check_stop``'s cross-process agreement (a one-scalar
+all-reduce, paced by ``MXNET_STOP_SYNC_EVERY`` in the reference) waits for
+the port's collectives (the multi-GPU slice), and the knob with it: with
+more than one process and agreement on, ``check_stop`` raises.  The stall ``Watchdog`` waits for the
+other runtime planes, ``elastic_resharder`` for the multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -30,15 +41,19 @@ import threading
 import time
 
 from . import env as _env
+from . import fault
 from . import flight_recorder as _flight
 from . import telemetry
+from .base import MXNetError, world_size
 
 __all__ = ["GracefulExit", "EXIT_PREEMPTED", "EXIT_FORCED", "EXIT_STALLED",
            "request_stop", "stop_requested", "stop_reason",
            "install_signal_handlers", "uninstall_signal_handlers",
            "cancel_grace_deadline", "note_goodput_slo_breach",
            "register_goodput_breach_hook", "unregister_goodput_breach_hook",
-           "note_fleet_queue_slo_breach", "reset"]
+           "note_fleet_queue_slo_breach", "coordinate_stops", "check_stop",
+           "publish_final_checkpoint", "capture_train_state",
+           "restore_train_state", "reset"]
 
 _LOGGER = logging.getLogger(__name__)
 # REENTRANT: the signal handler runs ON the main thread between bytecodes,
@@ -55,6 +70,8 @@ EXIT_STALLED = 45     # watchdog abort (the watchdog is not ported yet)
 
 _STOP = {"requested": False, "reason": None, "time": None}
 _HANDLERS = {"installed": False, "prev": {}, "deliveries": 0}
+# cross-process stop agreement: on/off
+_SYNC = {"enabled": False}
 
 _STOPS_TOTAL = telemetry.counter(
     "mxnet_lifecycle_stops_total", "stop requests (signals + programmatic)")
@@ -107,6 +124,36 @@ def stop_requested():
 
 def stop_reason():
     return _STOP["reason"]
+
+
+def coordinate_stops(enabled=True):
+    """Turn on per-step agreement across processes: every ``check_stop()``
+    of a multi-process job would agree on the stop through a one-scalar
+    all-reduce.  One process never needs it."""
+    _SYNC["enabled"] = bool(enabled)
+
+
+def check_stop(sync=None):
+    """The step-boundary poll: True when the loop should stop.
+
+    Beats the telemetry heartbeat (a loop that polls is not stalled).  The
+    fault seam ``lifecycle.sigterm``: an armed fault here counts as a
+    delivered preemption signal, so the stop path is testable without a
+    real SIGTERM.  ``sync`` overrides :func:`coordinate_stops`; agreement
+    across processes is not ported yet, so it raises with more than one
+    process."""
+    telemetry.heartbeat()
+    try:
+        fault.check("lifecycle.sigterm")
+    except Exception as e:
+        request_stop(f"fault-injected preemption ({e})")
+    if sync is None:
+        sync = _SYNC["enabled"]
+    if sync and world_size() > 1:
+        raise MXNetError("check_stop: the stop agreement across processes "
+                         "waits for the port's collectives; pass "
+                         "sync=False for a local poll")
+    return _STOP["requested"]
 
 
 # --------------------------------------------------------------------------
@@ -215,6 +262,7 @@ def reset():
     with _LOCK:
         _STOP.update(requested=False, reason=None, time=None)
         _HANDLERS["deliveries"] = 0
+        _SYNC["enabled"] = False
     _STOP_GAUGE.set(0)
 
 
@@ -272,3 +320,72 @@ def note_fleet_queue_slo_breach(depth, threshold, shed):
     _flight.record_event("lifecycle", event="fleet_queue_slo_breach",
                          depth=int(depth), threshold=int(threshold),
                          shed=int(shed))
+
+
+# --------------------------------------------------------------------------
+# exact-resume training state
+# --------------------------------------------------------------------------
+def publish_final_checkpoint(manager, step, net=None, trainer=None,
+                             train_state=None):
+    """The stop path's save: a synchronous checkpoint at ``step`` (an async
+    write could still be staging when the grace period ends).  Honours
+    ``MXNET_PREEMPTION_CHECKPOINT`` (default on); returns the checkpoint
+    directory, or None when disabled."""
+    if not _env.preemption_checkpoint_default():
+        _LOGGER.warning("MXNET_PREEMPTION_CHECKPOINT=0: exiting WITHOUT a "
+                        "final checkpoint (step %s)", step)
+        return None
+    return manager.save(step, net, trainer, train_state=train_state,
+                        async_=False)
+
+
+def capture_train_state(step=None, dataloader=None, scaler=None,
+                        trainer=None, extra=None, guard=None):
+    """What an exact resume needs beyond the weights and the optimizer
+    states, as a JSON-able dict for ``CheckpointManager.save(...,
+    train_state=...)``: the random state of every device's generator
+    (``random.get_state``: dropout's masks on the card come from it), a
+    data loader's position (``dataloader.state_dict()``), the loss
+    scaler's scale and clean-step counter, the Trainer's update count (a
+    cross-check of the pickled optimizer's) and JSON-able ``extra``.
+    Capture at a step boundary, on the training thread.  A ``guard``
+    waits for the port of the numerical-integrity guard and raises."""
+    from . import random as _random
+
+    if guard is not None:
+        raise MXNetError("capture_train_state(guard=): the numerical-"
+                         "integrity guard is not ported yet")
+    st = {"format": 1, "rng": _random.get_state()}
+    if step is not None:
+        st["step"] = int(step)
+    if dataloader is not None:
+        sd = getattr(dataloader, "state_dict", None)
+        if sd is not None:
+            st["dataloader"] = sd()
+    if scaler is not None:
+        st["loss_scaler"] = scaler.state_dict()
+    if trainer is not None:
+        st["trainer"] = {"num_update": int(trainer.step_count)}
+    if extra:
+        st["extra"] = extra
+    return st
+
+
+def restore_train_state(state, dataloader=None, scaler=None, guard=None):
+    """Re-apply a :func:`capture_train_state` dict: the random state
+    always, the data loader's position and the loss scaler's state when
+    passed.  Returns the recorded step (or None)."""
+    if not state:
+        return None
+    from . import random as _random
+
+    if guard is not None:
+        raise MXNetError("restore_train_state(guard=): the numerical-"
+                         "integrity guard is not ported yet")
+    if "rng" in state:
+        _random.set_state(state["rng"])
+    if dataloader is not None and state.get("dataloader") is not None:
+        dataloader.load_state_dict(state["dataloader"])
+    if scaler is not None and state.get("loss_scaler") is not None:
+        scaler.load_state_dict(state["loss_scaler"])
+    return state.get("step")

@@ -3,8 +3,9 @@ import (counterpart of ``mxnet_tpu/ndarray/__init__.py``), the helpers
 with MXNet's positional signatures (``array``, ``zeros``, ``ones``,
 ``full``, ``empty``, ``arange``, ``eye``, ``concat``, ``stack``,
 ``add_n``, the ``*_like`` ops, the scalar-tolerant ``maximum`` /
-``minimum`` / ``power`` and ``dot``), and the ``linalg``, ``contrib``,
-``image`` and ``random`` namespaces."""
+``minimum`` / ``power`` and ``dot``), ``save`` / ``load`` (the ``.params``
+container), and the ``linalg``, ``contrib``, ``image`` and ``random``
+namespaces."""
 from __future__ import annotations
 
 import inspect as _inspect
@@ -21,7 +22,8 @@ from .ndarray import NDArray, array, invoke, waitall
 __all__ = ["NDArray", "array", "invoke", "waitall", "zeros", "ones", "full",
            "empty", "arange", "eye", "concat", "stack", "add_n",
            "zeros_like", "ones_like", "maximum", "minimum", "power", "dot",
-           "list_ops", "linalg", "contrib", "image", "random"]
+           "list_ops", "save", "load", "linalg", "contrib", "image",
+           "random"]
 
 
 def _make_op_func(opname, od):
@@ -176,5 +178,21 @@ def _scalar_tolerant(opname, scalar_op):
 
 for _n in ("maximum", "minimum", "power"):
     setattr(_mod, _n, _scalar_tolerant(_n, f"broadcast_{_n}_scalar"))
+
+
+def save(fname, data):
+    """Save a dict, list or single NDArray to ``fname`` in the ``.params``
+    container (see :mod:`.serialization`)."""
+    from .serialization import save as _save
+
+    return _save(fname, data)
+
+
+def load(fname, ctx=None):
+    """Load a ``.params`` file onto ``ctx`` (default: the current context,
+    the first CUDA card)."""
+    from .serialization import load as _load
+
+    return _load(fname, ctx=ctx)
 
 from . import contrib, image, linalg, random  # noqa: E402,F401

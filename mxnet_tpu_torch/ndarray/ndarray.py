@@ -103,10 +103,13 @@ class NDArray:
 
     def asnumpy(self):
         """A numpy copy (bfloat16 comes back as float32: numpy has no
-        bfloat16)."""
+        bfloat16).  A copy on the CPU too, where ``Tensor.numpy()`` would
+        share the tensor's memory and see its later in-place updates."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
+        elif not t.is_cuda:
+            t = t.clone()
         return t.cpu().numpy()
 
     def asscalar(self):

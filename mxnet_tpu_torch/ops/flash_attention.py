@@ -36,6 +36,8 @@ __all__ = ["NEG_INF", "flash_attention"]
 NEG_INF = -1e30
 
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+# the kernel's element types, by the code its C entry point takes
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _check_shapes(q, k, v, causal):
@@ -122,11 +124,11 @@ def _flash_fwd_cuda(q, k, v, causal, sm_scale):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise MXNetError("the flash-attention kernel takes CUDA tensors on "
                          "one device")
-    if q.dtype not in (torch.float32, torch.bfloat16) or \
+    if q.dtype not in KERNEL_DTYPES or \
             k.dtype != q.dtype or v.dtype != q.dtype:
-        raise MXNetError(f"the flash-attention kernel takes float32 or "
-                         f"bfloat16 q/k/v of one dtype, got {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}")
+        raise MXNetError(f"the flash-attention kernel takes float32, "
+                         f"bfloat16 or float16 q/k/v of one dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     b, hq, lq, d = q.shape
     if d not in KERNEL_HEAD_DIMS:
         raise MXNetError(f"the flash-attention kernel takes head_dim in "
@@ -144,7 +146,7 @@ def _flash_fwd_cuda(q, k, v, causal, sm_scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, hq, k.shape[1], lq, k.shape[2], d,
             int(bool(causal)), float(sm_scale),
-            int(q.dtype == torch.bfloat16),
+            KERNEL_DTYPES[q.dtype],
             (ctypes.c_longlong * 12)(*strides), stream)
     if err:
         raise MXNetError(f"flash_attn_fwd launch failed: CUDA error {err} "

@@ -14,18 +14,31 @@ One deliberate difference: ``_get_lr``/``_get_wd`` look a parameter up in
 ``param_dict`` by its index first, as MXNet 1.x does.  ``gluon.Trainer``
 keys ``param_dict`` by index, so a Parameter's ``lr_mult``/``wd_mult``
 reach its update; the reference looks up by name there and ignores them.
-Row-sparse updates and ``Updater.get_states``/``set_states`` are not
-ported.
+Row-sparse updates are not ported.
+
+States files: ``Updater.get_states`` pickles the states as numpy arrays
+(and the optimizer with ``dump_optimizer=True``) in the reference's
+format, naming the reference's classes (``mxnet_tpu.optimizer.optimizer.
+LAMB``, ``mxnet_tpu.lr_scheduler.PolyScheduler``) with the same attribute
+names, so the reference's ``Trainer.load_states`` reads the port's file;
+``set_states`` reads either package's file through an unpickler that maps
+those classes to the port's own and refuses any other global of
+``mxnet_tpu`` or ``jax``, so a load never imports them.
 """
 from __future__ import annotations
 
+import io
 import math
+import pickle
 
+import numpy as _np
 import torch
 
+from .. import lr_scheduler as _lr_scheduler
 from .. import random as _rnd
 from ..base import MXNetError, Registry
-from ..ndarray.ndarray import invoke
+from ..ndarray.ndarray import NDArray, invoke
+from ..ndarray.serialization import host_copies
 
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdaGrad", "AdaDelta",
            "RMSProp", "Ftrl", "FTML", "Signum", "SignSGD", "LAMB", "Nadam",
@@ -545,9 +558,120 @@ class Test(Optimizer):
         weight._set(weight - self.lr * grad * self.rescale_grad)
 
 
+# the reference's modules of the classes a states file names
+_REF_MODULES = {"mxnet_tpu.optimizer.optimizer": "optimizer",
+                "mxnet_tpu.lr_scheduler": "lr_scheduler"}
+_PORT_MODULES = {__name__: "optimizer", _lr_scheduler.__name__: "lr_scheduler"}
+_REF_BY_KIND = {kind: mod for mod, kind in _REF_MODULES.items()}
+
+
+def _port_class(kind, name):
+    """The port's optimizer or scheduler class ``name``, or None."""
+    cls = globals().get(name) if kind == "optimizer" else \
+        getattr(_lr_scheduler, name, None)
+    base = Optimizer if kind == "optimizer" else _lr_scheduler.LRScheduler
+    return cls if isinstance(cls, type) and issubclass(cls, base) else None
+
+
+class _RefPickler(pickle._Pickler):
+    """Pickles the port's optimizer and scheduler classes under the
+    reference's module paths.  The Python pickler, whose ``save_global``
+    can be overridden: the C one imports each class's module to check
+    it, which would import the reference."""
+
+    def save_global(self, obj, name=None):
+        kind = _PORT_MODULES.get(getattr(obj, "__module__", None))
+        if kind is None or _port_class(kind, obj.__qualname__) is not obj:
+            return super().save_global(obj, name)
+        self.save(_REF_BY_KIND[kind])
+        self.save(obj.__qualname__)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def _ref_dumps(obj):
+    buf = io.BytesIO()
+    _RefPickler(buf, protocol=4).dump(obj)
+    return buf.getvalue()
+
+
+def _jax_array_to_numpy(fun, args, arr_state, aval_state):
+    """A pickled JAX array (``jax._src.array._reconstruct_array``'s
+    arguments) rebuilt as the numpy array it wraps."""
+    value = fun(*args)
+    value.__setstate__(arr_state)
+    return value
+
+
+class _StatesUnpickler(pickle.Unpickler):
+    """Reads a states file of either package without importing the
+    reference or JAX: their optimizer and scheduler classes map to the
+    port's, a JAX array to numpy, and any other ``mxnet_tpu`` or ``jax``
+    global raises MXNetError."""
+
+    def find_class(self, module, name):
+        kind = _REF_MODULES.get(module) or _PORT_MODULES.get(module)
+        if kind is not None:
+            cls = _port_class(kind, name)
+            if cls is None:
+                raise MXNetError(f"states file names {module}.{name}, which "
+                                 f"the port does not have")
+            return cls
+        if (module, name) == ("jax._src.array", "_reconstruct_array"):
+            return _jax_array_to_numpy
+        if module.split(".")[0] in ("mxnet_tpu", "mxnet_tpu_torch", "jax",
+                                    "jaxlib"):
+            raise MXNetError(f"states file names {module}.{name}; the port "
+                             f"reads only the optimizer and scheduler "
+                             f"classes and numpy arrays")
+        return super().find_class(module, name)
+
+
+def _numpy_states(states):
+    """{index: state} with every NDArray as a numpy array (bfloat16 as
+    float32, as ``asnumpy`` gives it), all read back in one pass."""
+    tensors = []
+
+    def collect(v):
+        if isinstance(v, NDArray):
+            tensors.append(v._data)
+        elif isinstance(v, (tuple, list)):
+            for s in v:
+                collect(s)
+
+    for v in states.values():
+        collect(v)
+    # pickled at once by the caller, so host tensors need no copy
+    host = iter(host_copies(tensors, clone_host=False))
+
+    def build(v):
+        if isinstance(v, NDArray):
+            t = next(host)
+            return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        if isinstance(v, (tuple, list)):
+            return tuple(build(s) for s in v)
+        return v
+
+    return {k: build(v) for k, v in states.items()}
+
+
+def _state_arrays(v, device):
+    """A state (numpy arrays or NDArrays, in tuples) as NDArrays on
+    ``device``."""
+    if isinstance(v, NDArray):
+        return NDArray._wrap(v._data.to(device))
+    if isinstance(v, _np.ndarray):
+        return NDArray._wrap(torch.from_numpy(_np.array(v)).to(device))
+    if isinstance(v, (tuple, list)):
+        return tuple(_state_arrays(s, device) for s in v)
+    return v
+
+
 class Updater:
     """Applies an optimizer to (index, grad, weight), creating each
-    parameter's state at its first update."""
+    parameter's state at its first update.  States read by
+    :meth:`set_states` move to their weight's device at its next
+    update (``states_synced``)."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
@@ -560,8 +684,34 @@ class Updater:
             self.states[index] = \
                 self.optimizer.create_state_multi_precision(index, weight)
             self.states_synced[index] = True
+        elif not self.states_synced[index]:
+            self.states[index] = _state_arrays(self.states[index],
+                                               weight._data.device)
+            self.states_synced[index] = True
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
+
+    def get_states(self, dump_optimizer=False):
+        """The pickled states (numpy arrays), with the optimizer when
+        ``dump_optimizer``: the reference's format, which its
+        ``Updater.set_states`` reads."""
+        states = _numpy_states(self.states)
+        return _ref_dumps((states, self.optimizer) if dump_optimizer
+                          else states)
+
+    def set_states(self, states):
+        """Read :meth:`get_states` bytes of either package.  A file with
+        the optimizer replaces ``self.optimizer``; the arrays stay on the
+        host until their parameter's next update."""
+        data = _StatesUnpickler(io.BytesIO(states)).load()
+        if isinstance(data, tuple) and len(data) == 2 and \
+                isinstance(data[1], Optimizer):
+            states, self.optimizer = data
+        else:
+            states = data
+        self.states = {k: _state_arrays(v, torch.device("cpu"))
+                       for k, v in states.items()}
+        self.states_synced = {k: False for k in self.states}
 
 
 def get_updater(optimizer):

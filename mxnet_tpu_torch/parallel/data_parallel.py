@@ -7,8 +7,10 @@ The master weights and optimizer state are fp32 tensors the step owns; with
 ``dtype="bfloat16"`` the model's forward runs under the AMP cast policy
 (``contrib.amp``), its outputs are cast back to fp32 and the loss is fp32,
 as in the reference.  ``remat=True`` recomputes the whole forward in the
-backward instead of storing its activations.  Sharding (``mesh``,
-``plan``), pipelining, the compile cache and ``run()`` are not ported.
+backward instead of storing its activations.  ``run()`` drives the step
+over an iterator of batches through the device prefetcher, polling
+``lifecycle.check_stop()`` at every step boundary.  Sharding (``mesh``,
+``plan``), pipelining and the compile cache are not ported.
 """
 from __future__ import annotations
 
@@ -231,6 +233,59 @@ class TrainStep:
             self.rest_params[k] = v
         self.step_count += 1
         return loss.detach()
+
+    def run(self, batches, steps=None, prefetch=0, guard=None):
+        """Drive the step over an iterator of ``(x, y)`` batches, the next
+        ``prefetch`` batches staged to the card in the background
+        (:class:`..gluon.data.PrefetchIterator`; ``None`` reads
+        ``MXNET_PREFETCH_BUFFER``).  The default, 0, stages each batch in
+        turn on the caller's stream: on BERT's 32 KB token batches the
+        pipeline's thread and side stream cost more than the copies they
+        hide.  Returns the per-step
+        losses (device scalars; the card is synchronised once, at the
+        end, so a failed step raises here).
+
+        With ``steps=N`` the loop stops after N batches; up to
+        ``prefetch`` more may already be staged, and ``close()`` drops
+        them: callers splitting one iterator over several ``run`` calls
+        pass ``prefetch=0``.
+
+        Preemption: every step boundary polls ``lifecycle.check_stop()``;
+        on a stop the loop returns the losses so far, and the caller
+        (``lifecycle.stop_requested()`` is then true) publishes its final
+        checkpoint and raises ``lifecycle.GracefulExit``.  A failure dumps
+        the flight recorder's black box before it propagates.  ``guard``
+        (the numerical-integrity guard) is not ported yet and raises."""
+        from .. import flight_recorder as _flight
+        from .. import lifecycle as _lifecycle
+        from ..gluon.data.prefetcher import PrefetchIterator
+
+        if guard is not None:
+            raise MXNetError("TrainStep.run(guard=): the numerical-"
+                             "integrity guard is not ported yet")
+        losses = []
+        try:
+            it = PrefetchIterator(iter(batches), depth=prefetch,
+                                  device=self._device)
+            try:
+                while steps is None or len(losses) < steps:
+                    if _lifecycle.check_stop():
+                        break
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        break
+                    losses.append(self(batch[0], batch[1]))
+            finally:
+                it.close()
+            if losses:
+                losses[-1].item()   # the one sync, so a step error is ours
+        except _lifecycle.GracefulExit:
+            raise
+        except Exception:
+            _flight.dump_blackbox("train_step_failure")
+            raise
+        return losses
 
     def write_back(self):
         """Copy the trained values back into the Gluon net's Parameters."""

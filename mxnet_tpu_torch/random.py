@@ -12,6 +12,8 @@ import threading
 
 import torch
 
+from .base import MXNetError
+
 __all__ = ["seed", "generator", "get_state", "set_state", "uniform",
            "normal", "randint"]
 
@@ -67,6 +69,10 @@ def get_state():
 def set_state(state):
     """Restore a :func:`get_state` snapshot (None: back to the unseeded
     default, seed 0)."""
+    if state is not None and not isinstance(state, dict):
+        raise MXNetError("set_state takes a state of this package's "
+                         "get_state(); the reference's (its threefry key "
+                         "words) cannot seed torch's generators")
     _S.generators.clear()
     if state is None:
         _S.seed = 0

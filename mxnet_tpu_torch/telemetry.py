@@ -12,6 +12,10 @@ and the flight recorder use it).
   attribute each step's wall time to phases, innermost phase wins, so the
   phases of a step sum to its wall time.  Completed steps land in a
   bounded ring (``MXNET_TELEMETRY_TIMELINE_STEPS``, default 256).
+- **Step heartbeat**: ``heartbeat()`` / ``last_heartbeat()``, beaten by
+  ``step_begin`` / ``step_end``, ``lifecycle.check_stop`` and the
+  checkpoint writer (read by the stall watchdog, which waits for the
+  lifecycle plane's ``Watchdog``).
 - **Goodput ledger** with the SLO alert (``MXNET_GOODPUT_SLO``), whose
   breach is a lifecycle event.
 - **Exporters**: ``render_prometheus()``, ``snapshot()`` and a background
@@ -22,7 +26,8 @@ and the flight recorder use it).
 Not ported yet: the compile-event tracer and the dispatch-cache collector
 (the port traces no ``jax.jit``; CUDA-graph capture will be their
 counterpart), the snapshot's graph section, the Chrome-trace spans (the
-profiler plane) and the cross-rank aggregation tick.
+profiler plane) and the cross-rank aggregation tick (``_agg_tick``, which
+``check_stop`` calls in the reference: it comes with ``telemetry_agg``).
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ __all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge", "histogram",
            "render_prometheus", "start_http_server", "stop_http_server",
            "register_http_route", "unregister_http_route",
            "step_begin", "step_end", "step_abort", "step_scope", "phase",
-           "maybe_phase", "timeline",
+           "maybe_phase", "timeline", "heartbeat", "last_heartbeat",
            "goodput_note", "goodput_summary", "reset"]
 
 _LOCK = threading.RLock()
@@ -395,10 +400,25 @@ def _goodput_slo_tick():
         pass
 
 
+# the monotonic time of the last step-boundary activity, or None
+_HEARTBEAT = [None]
+
+
+def heartbeat():
+    """Mark step-boundary liveness: one monotonic read and a store."""
+    _HEARTBEAT[0] = time.monotonic()
+
+
+def last_heartbeat():
+    """Monotonic time of the last heartbeat, or None."""
+    return _HEARTBEAT[0]
+
+
 def step_begin(step=None):
     """Open a timeline step.  An unfinished previous step is finalized
     first (robustness beats strictness in a training loop)."""
     global _CUR
+    heartbeat()
     with _LOCK:
         if _CUR is not None:
             _finalize_locked(time.perf_counter())
@@ -452,6 +472,7 @@ def _finalize_locked(now):
 def step_end():
     """Close the active step; returns its record (phase durations sum to
     the step wall time — unattributed time lands in ``other``)."""
+    heartbeat()
     with _LOCK:
         rec = _finalize_locked(time.perf_counter())
     if rec is not None:

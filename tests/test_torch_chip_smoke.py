@@ -868,11 +868,23 @@ def test_gluon_bert_recipe_check_catches_ignored_multipliers():
     the reference's param_dict lookup fails the fp32 bound, and the
     tensors held to lr are exactly the key projections' biases."""
     cfg = _tiny_bert_cfg()
-    out = chip_smoke.bert_recipe_check(cfg, 0, "cpu", batch=4, seq=16)
+    # the planted bf16 faults are sized for BERT-base (fp16's underflow
+    # needs its small gradients): their check runs on the card only
+    out = chip_smoke.bert_recipe_check(cfg, 0, "cpu", batch=4, seq=16,
+                                       check_bounds=False)
     assert out["fp32"] <= chip_smoke.GLUON_FP32_NOISE_FACTOR
     assert out["fp32 median"] <= out["fp32"]
     assert "tf32" not in out           # a control of the card's alone
     assert out["bf16"] <= chip_smoke.BF16_NOISE_FACTOR
+    assert out["bf16"] == out["bf16 readings"]["bf16"]["worst"]
+    # the scale control is read under --gluon-bert-seeds only
+    readings = out["bf16 readings"]
+    assert set(readings) == {"bf16", "fp16", "master", "fp32 list"}
+    # weights kept in bf16 fail the bound; AMP's fp32 list dropped leaves
+    # the loss a bf16 number, which the right step's never is
+    assert readings["master"]["worst"] > chip_smoke.GLUON_BF16_NOISE_FACTOR
+    assert readings["fp32 list"]["loss in bf16"]
+    assert not readings["bf16"]["loss in bf16"]
     assert out["fault"] > chip_smoke.GLUON_FP32_NOISE_FACTOR
     assert len(out["noisy"]) == cfg.num_layers
     assert all(n.startswith("dense") and n.endswith("bias")
@@ -886,9 +898,10 @@ def test_lamb_scales_floor_only_noise_tensors():
 
 
 def test_loss_scale_check_runs_on_the_cpu():
-    assert chip_smoke.loss_scale_check(0, "cpu", width=(32, 64),
-                                       shape=(2, 8)) == [1024.0, 2048.0,
-                                                         1024.0]
+    scales, launches = chip_smoke.loss_scale_check(
+        0, "cpu", cfg=_tiny_bert_cfg(), batch=2, seq=8)
+    assert scales == [1024.0, 2048.0, 1024.0]
+    assert launches == 0               # the plain version on the CPU
 
 
 def test_resnet_recipe_check_catches_an_ignored_warmup():

@@ -17,6 +17,10 @@ the reference's own ``_fa_backward_blockwise``, with GQA folded by
 ``jnp.repeat``'s vjp.  Tolerance 1e-5 absolute in fp32 on gradients of
 magnitude up to ~5 (measured gap up to 3.6e-6, at Lk = 1024 with two key
 blocks).
+
+fp16 (the kernel's fp16 instance serves ``amp.init("float16")``): the
+plain version in fp16 against the reference's Pallas body in fp16, o
+within 4 fp16 unit roundoffs of the larger of 1 and its magnitude.
 """
 import jax
 import numpy as np
@@ -59,6 +63,44 @@ def test_plain_matches_pallas_kernel_body(d, causal, lq, lk):
                                atol=ATOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), rtol=0,
                                atol=ATOL)
+
+
+# fp16: both sides round P and o to fp16 (unit roundoff u = 2^-11) and sum
+# in fp32, in other orders; o within 4u of the larger of 1 and its
+# magnitude (measured: one fp16 ulp at |o| ~ 1, 2u), lse (fp32) within
+# ATOL
+FP16_U = 2.0 ** -11
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_fp16_matches_pallas_kernel_body(d, causal):
+    q, k, v = (a.astype("float16") for a in _qkv(3, 1, 2, 2, 256, 256, d))
+    scale = 1.0 / np.sqrt(d)
+    with pltpu.force_tpu_interpret_mode():
+        o_ref, lse_ref = ref_fa._fa_forward_pallas(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, scale,
+            128, 128)
+    o, lse = port_fa._mha_with_lse(*_t(q, k, v), causal, scale)
+    assert o.dtype == torch.float16 and o_ref.dtype == jnp.float16
+    o_ref = np.asarray(o_ref, np.float32)
+    np.testing.assert_allclose(
+        o.float().numpy(), o_ref, rtol=0,
+        atol=4 * FP16_U * max(1.0, float(np.abs(o_ref).max())))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), rtol=0,
+                               atol=ATOL)
+
+
+def test_kernel_dtype_codes_match_the_source():
+    """The wrapper's dtype codes are the C entry point's DType enum."""
+    import re
+
+    src = open(_kernels._CSRC / "flash_attn_fwd.cu").read()
+    enum = dict(re.findall(r"(k\w+) = (\d)", re.search(
+        r"enum DType \{([^}]*)\}", src).group(1)))
+    assert {"kF32": "0", "kBF16": "1", "kF16": "2"} == enum
+    assert port_fa.KERNEL_DTYPES == {torch.float32: 0, torch.bfloat16: 1,
+                                     torch.float16: 2}
 
 
 @pytest.mark.parametrize("hq,hkv,lq,lk,d,causal", [

@@ -4,7 +4,8 @@ chip_smoke.py, imports JAX or the reference package ``mxnet_tpu``.
 Checked twice: statically, over every import statement and every string
 handed to ``__import__``/``importlib.import_module``; and at run time, by
 importing the whole port in a fresh interpreter and listing what landed in
-``sys.modules``.
+``sys.modules``, also after it loaded a ``trainer.states`` file the
+reference wrote (whose pickle names the reference's classes).
 """
 import ast
 import os
@@ -72,6 +73,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import mxnet_tpu_torch.gluon.model_zoo.language.bert\n"
         "import mxnet_tpu_torch.gluon.model_zoo.vision\n"
         "import mxnet_tpu_torch.parallel, mxnet_tpu_torch.contrib.amp\n"
+        "import mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.callback\n"
+        "import mxnet_tpu_torch.gluon.contrib, mxnet_tpu_torch.gluon.data\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'\n"
         "             or m.split('.')[0] == 'mxnet_tpu')\n"
         "print(bad)\n")
@@ -80,3 +83,50 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_loading_a_reference_states_file_loads_neither(tmp_path):
+    """A ``trainer.states`` the reference wrote (LAMB under a warm-up
+    PolyScheduler: its pickle names ``mxnet_tpu.optimizer.optimizer.LAMB``
+    and ``mxnet_tpu.lr_scheduler.PolyScheduler``) loads into the port's
+    Trainer in a fresh interpreter, and neither JAX nor the reference
+    lands in ``sys.modules``."""
+    import numpy as np
+
+    import mxnet_tpu as rmx
+
+    prev = rmx.nd.set_eager_jit(False)
+    try:
+        net = rmx.gluon.nn.Dense(3, in_units=4)
+        net.initialize()
+        sched = rmx.lr_scheduler.PolyScheduler(max_update=100, base_lr=0.01,
+                                               pwr=1, warmup_steps=10)
+        trainer = rmx.gluon.Trainer(net.collect_params(), "lamb",
+                                    {"learning_rate": 0.01,
+                                     "lr_scheduler": sched})
+        with rmx.autograd.record():
+            loss = net(rmx.nd.array(np.ones((2, 4), "float32"))).sum()
+        loss.backward()
+        trainer.step(2)
+        path = str(tmp_path / "trainer.states")
+        trainer.save_states(path)
+    finally:
+        rmx.nd.set_eager_jit(prev)
+    code = (
+        "import sys\n"
+        "import mxnet_tpu_torch as mx\n"
+        "net = mx.gluon.nn.Dense(3, in_units=4)\n"
+        "net.initialize(ctx=mx.cpu())\n"
+        "tr = mx.gluon.Trainer(net.collect_params(), 'sgd')\n"
+        f"tr.load_states({path!r})\n"
+        "opt = tr.optimizer\n"
+        "print(type(opt).__name__, type(opt.lr_scheduler).__name__,\n"
+        "      opt.num_update)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'\n"
+        "             or m.split('.')[0] == 'mxnet_tpu')\n"
+        "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == ["LAMB PolyScheduler 1", "[]"]
