@@ -7,8 +7,9 @@ Run from the repository root, with no arguments:
 
 (``--bert-step-seeds 1 2 3`` runs only the build and the BERT-base step
 check of phase 6 (b), once for each seed, and ``--gluon-bert-seeds 1 2
-3`` the same for phase 9 (b); ``--op-table``, ``--gluon-train`` and
-``--persistence`` run only the build and phase 8, 9 or 10.)
+3`` the same for phase 9 (b); ``--op-table``, ``--gluon-train``,
+``--persistence`` and ``--frontend`` run only the build and phase 8, 9,
+10 or 11.)
 
 Phases (any failed check exits nonzero; nothing runs on the CPU):
 
@@ -188,7 +189,32 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    the checkpoint's bytes, sync save, async snapshot, sha256 verify and
    restore seconds at BERT-base.  ``--persistence`` runs only the build
    and this phase;
-11. the kernels line (its times and launches at the main path's shape,
+11. the Gluon frontend (``hybridize()`` as CUDA graphs): (a)
+   autograd.grad, plain and create_graph=True (a gradient penalty through
+   BERT-base's 768 -> 3072 -> 768 feed-forward block at batch 64, eager
+   and hybridized), a custom autograd.Function, foreach, while_loop and
+   cond, card against CPU within FRONT_TOL; (b) every vision family at its
+   published width (AlexNet, VGG-16-bn, SqueezeNet 1.1, MobileNet 1.0 and
+   v2 1.0, DenseNet-121, ResNet-50 s2d at 224, Inception-v3 at 299), fp32,
+   batch 8: the hybridized forward equal to the eager one, a hybridized
+   Trainer step against the eager step, and the card's hybridized step
+   against the CPU's fp64 step by phase 5's measure (fp32 and fp64, batch
+   1); (c) GluonCV's train_imagenet.py, eager and --mode hybrid, bf16 AMP,
+   batch 128 (img/s, ms a step, peak memory); (d) the medium PTB word LM
+   through gluon.rnn hybridized: its fp32 step against the CPU's fp64
+   step, LSTMCell.unroll against the layer, tokens/s eager and hybrid; (e)
+   GluonNLP's BERT-base LAMB recipe with the model and the loss
+   hybridized: the step against the eager one and against the CPU's fp64
+   step (phase 9 (b)'s bound), samples/s, ms a step and peak memory eager
+   and hybrid, flash_attn_fwd launched 12 a step from the graph and
+   counted so by the profiler over two replayed steps; hybridized
+   gradients against eager across a grad_req change and over two
+   recorded calls before one backward; six planted faults (an output
+   returned without a copy, a stale cache after a parameter's tensor is
+   replaced, an eager fallback for a host read, a graph left on the
+   generator a reseed replaced, a grad_req change not noticed, two
+   pending calls sharing one capture) each failing its check.  ``--frontend`` runs only the build and this phase;
+12. the kernels line (its times and launches at the main path's shape,
    the serving fleet, 4c;
    each path's shape, times and launches under ``by_path``, the op table
    with none), then the device line.
@@ -305,7 +331,8 @@ PATH_SHAPES = {"serving": SERVING_SHAPE, "serve_http": SERVING_SHAPE,
                "bert_train": BERT_SHAPE, "llama_train": SERVING_SHAPE,
                "llama_proxy_train": PROXY_SHAPE,
                "gluon_bert_lamb": BERT_SHAPE,
-               "gluon_bert_resume": RESUME_SHAPE}
+               "gluon_bert_resume": RESUME_SHAPE,
+               "gluon_bert_lamb_hybrid": BERT_SHAPE}
 # each path's attention dtype where it is not bf16
 PATH_DTYPES = {"gluon_bert_resume": RESUME_DTYPE}
 KERNEL_CASES = BUCKET_SHAPES + [PROXY_SHAPE] + [
@@ -5529,13 +5556,16 @@ def bert_recipe_trainer(net, opt=GLUON_BERT_OPT,
                          dict(opt, lr_scheduler=sched))
 
 
-def bert_recipe_step(net, trainer, ids, mlm, nsp, metrics=(), times=None):
+def bert_recipe_step(net, trainer, ids, mlm, nsp, metrics=(), times=None,
+                     loss_block=None):
     """One GluonNLP step: record -> amp.scale_loss -> backward ->
     amp.unscale -> clip_global_norm(GLUON_CLIP) -> trainer.step; the MLM
     and NSP accuracies and the loss into ``metrics``.  With ``times`` (a
     dict), the card is synchronised between the parts and each part's
-    wall ms is added to ``times[part]``.  Returns (the loss NDArray, the
-    global norm before the clip)."""
+    wall ms is added to ``times[part]``.  ``loss_block`` (a
+    BertRecipeLoss over ``net``, hybridized) computes the model and the
+    loss in one call.  Returns (the loss NDArray, the global norm before
+    the clip)."""
     from mxnet_tpu_torch import autograd, gluon
     from mxnet_tpu_torch.contrib import amp
 
@@ -5553,8 +5583,11 @@ def bert_recipe_step(net, trainer, ids, mlm, nsp, metrics=(), times=None):
               if p.grad_req != "null"]
     lap("start")
     with autograd.record():
-        mlm_out, nsp_out = net(ids)
-        loss = ce(mlm_out, mlm).mean() + ce(nsp_out, nsp).mean()
+        if loss_block is None:
+            mlm_out, nsp_out = net(ids)
+            loss = ce(mlm_out, mlm).mean() + ce(nsp_out, nsp).mean()
+        else:
+            loss, mlm_out, nsp_out = loss_block(ids, mlm, nsp)
         with amp.scale_loss(loss, trainer) as scaled:
             scaled.backward()
     lap("forward and backward")
@@ -6815,6 +6848,988 @@ def persistence_phase(seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the Gluon frontend, hybridize() as CUDA graphs
+# ---------------------------------------------------------------------------
+# (a): card against CPU within FRONT_TOL of max(1, |CPU|), TF32 off; the
+# gradient penalty through BERT-base's feed-forward widths at batch 64
+FRONT_TOL = 1e-4
+GP_WIDTHS, GP_BATCH = (768, 3072), 64
+FLOW_SHAPE = (16, 64, 768)          # foreach / while_loop: (T, N, C)
+# (b), (c): the families at their published widths, 1000 classes
+ZOO = (("alexnet", 224, {}), ("vgg16_bn", 224, {}),
+       ("squeezenet1_1", 224, {}), ("mobilenet1_0", 224, {}),
+       ("mobilenet_v2_1_0", 224, {}), ("densenet121", 224, {}),
+       ("resnet50_v1", 224, {"stem": "s2d"}), ("inceptionv3", 299, {}))
+ZOO_BATCH, ZOO_CPU_BATCH = 8, 1
+# a hybridized step against the eager step on the card, compare_steps's
+# measure: the captured graph replays the eager kernels, so they agree to
+# the nondeterminism of the backward's atomics.  An eager step against
+# another eager step reads that nondeterminism (up to 5.478e-03 at
+# VGG-16-bn's biases before BatchNorm, whose gradient is rounding noise,
+# on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md, the frontend): the
+# bound is the larger of HYBRID_STEP_BOUND and HYBRID_NOISE_FACTOR x that
+# reading
+HYBRID_STEP_BOUND, HYBRID_NOISE_FACTOR = 1e-3, 3.0
+# (c): GluonCV's NAG at lr 0.01 (no warm-up in 12 steps: VGG-16-bn at
+# GluonCV's 0.1 diverges to a non-finite loss on the card)
+ZOO_TIMED_BATCH, ZOO_WARMUP, ZOO_STEPS = 128, 2, 10
+ZOO_TIMED_OPT = dict(GLUON_CV_OPT, learning_rate=0.01)
+# (d): phase 8 (b)'s medium PTB LM through gluon.rnn; the cell unroll
+# against the layer, fp32
+UNROLL_TOL = 1e-5
+LM_HYBRID_STEPS = 10
+# (e): phase 9 (d)'s recipe, eager and hybridized; the CPU check at a cut
+# batch (phase 9 (b)'s bound is relative to the CPU's own fp32 step)
+FRONT_BERT_CHECK_BATCH, FRONT_BERT_STEPS = 2, 10
+
+
+def _tensors(xs):
+    return [x._data.detach().to("cpu", torch.float64) if hasattr(x, "_data")
+            else x for x in xs]
+
+
+def _worst(cand, ref):
+    """max |cand - ref| / max(1, max |ref|) over pairs of tensors."""
+    return max(((c.double() - r.double()).abs().max() /
+                max(1.0, r.double().abs().max().item())).item()
+               for c, r in zip(cand, ref))
+
+
+def gp_mlp(widths, seed, ctx):
+    """BERT's feed-forward block (Dense w0 -> w1, GELU, Dense w1 -> w0),
+    weights from a numpy seed."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+
+    net = nn.HybridSequential()
+    net.add(nn.Dense(widths[1], in_units=widths[0]), nn.GELU(),
+            nn.Dense(widths[0], in_units=widths[1]))
+    net.initialize(ctx=ctx)
+    r = np.random.RandomState(seed)
+    for p in net.collect_params().values():
+        p.set_data(mx.nd.array(r.randn(*p.shape) / math.sqrt(p.shape[-1]),
+                               ctx=ctx))
+    return net
+
+
+def gradient_penalty(net, x_np, ctx):
+    """(plain autograd.grad of the output's weighted sum wrt the input and
+    every parameter, the parameters' and the input's gradients of the
+    penalty |d out / d x|^2 through create_graph=True), as host tensors."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+
+    params = [p.data() for p in net.collect_params().values()]
+    x = mx.nd.array(x_np, ctx=ctx)
+    w = mx.nd.array(np.random.RandomState(7).randn(*x_np.shape), ctx=ctx)
+    x.attach_grad()
+    with autograd.record():
+        out = net(x)
+        head = (out * w).sum()
+        plain = autograd.grad(head, [x] + params, retain_graph=True)
+        g = autograd.grad(head, x, create_graph=True)[0]
+        pen = (g * g).sum()
+    pen.backward()
+    return (_tensors(plain),
+            _tensors([p.grad() for p in net.collect_params().values()]) +
+            _tensors([x.grad]))
+
+
+def _function_class():
+    from mxnet_tpu_torch import autograd, nd
+
+    class ScaledTanh(autograd.Function):
+        """tanh(a) * b, its gradient written by hand."""
+
+        def forward(self, a, b):
+            y = nd.tanh(a)
+            self.save_for_backward(y, b)
+            return y * b
+
+        def backward(self, dy):
+            y, b = self.saved_tensors
+            return dy * b * (1 - y * y), dy * y
+
+    return ScaledTanh
+
+
+def flow_results(ctx, shape, seed):
+    """foreach, while_loop and cond over seeded inputs on ``ctx``: their
+    outputs and the inputs' gradients of a weighted sum, host tensors."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+
+    T, N, C = shape
+    r = np.random.RandomState(seed)
+    xs = mx.nd.array(r.randn(T, N, C) * 0.5, ctx=ctx)
+    h0 = mx.nd.array(r.randn(N, C) * 0.5, ctx=ctx)
+    w = mx.nd.array(r.randn(C) * 0.5, ctx=ctx)
+    a = mx.nd.array(r.randn(N, C), ctx=ctx)
+    b = mx.nd.array(r.randn(N, C), ctx=ctx)
+    arrays = [xs, h0, w, a, b]
+    for v in arrays:
+        v.attach_grad()
+    with autograd.record():
+        outs, hT = nd.contrib.foreach(
+            lambda x, h: (nd.tanh(x * w + h),) * 2, xs, h0)
+        wl, (s, _) = nd.contrib.while_loop(
+            lambda s, i: i.sum() < T // 2,
+            lambda s, i: (nd.tanh(s * w), [s * 0.9 + nd.tanh(s * w),
+                                           i + 1]),
+            [h0, mx.nd.zeros((1,), ctx=ctx)], max_iterations=T)
+        c1 = nd.contrib.cond(lambda a, b: (a * b).sum() > 0,
+                             lambda a, b: a * b, lambda a, b: a - b, [a, b])
+        c2 = nd.contrib.cond(lambda a, b: (a * b).sum() <= 0,
+                             lambda a, b: a * b, lambda a, b: a - b, [a, b])
+        f = _function_class()()(a, b)
+        results = [outs, hT, wl, s, c1, c2, f]
+        total = None
+        for i, o in enumerate(results):
+            wt = mx.nd.array(np.random.RandomState(100 + i).randn(*o.shape),
+                             ctx=ctx)
+            term = (o * wt).sum()
+            total = term if total is None else total + term
+    total.backward()
+    return _tensors(results), _tensors([v.grad for v in arrays])
+
+
+def autograd_checks(seed, device="cuda", widths=GP_WIDTHS, batch=GP_BATCH,
+                    flow_shape=FLOW_SHAPE):
+    """(a): autograd.grad (plain and create_graph=True, a gradient penalty
+    through BERT's feed-forward widths), a custom Function, foreach,
+    while_loop and cond on ``device`` against the CPU, within FRONT_TOL;
+    the penalty through the hybridized block on ``device`` against its
+    eager run (first-order gradients from the captured backward, the
+    second order from the recomputed forward).  Returns the readings."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.Context.from_device(torch.device(device))
+    x = np.random.RandomState(seed).randn(batch, widths[0]) \
+        .astype("float32")
+    out = {}
+    cpu_net, dev_net = gp_mlp(widths, seed, mx.cpu()), \
+        gp_mlp(widths, seed, ctx)
+    cpu = gradient_penalty(cpu_net, x, mx.cpu())
+    dev = gradient_penalty(dev_net, x, ctx)
+    out["grad"] = _worst(dev[0], cpu[0])
+    out["create_graph"] = _worst(dev[1], cpu[1])
+    dev_net.hybridize()
+    gradient_penalty(dev_net, x, ctx)            # builds the cache entry
+    hyb = gradient_penalty(dev_net, x, ctx)
+    out["hybrid grad"] = _worst(hyb[0], dev[0])
+    out["hybrid create_graph"] = _worst(hyb[1], dev[1])
+    fc, gc = flow_results(mx.cpu(), flow_shape, seed)
+    fd, gd = flow_results(ctx, flow_shape, seed)
+    out["control flow and Function"] = max(_worst(fd, fc), _worst(gd, gc))
+    for key, v in out.items():
+        log(f"    {v:.3e}  {key}")
+    bad = {k: v for k, v in out.items() if v > FRONT_TOL}
+    check(not bad, f"(a) beyond {FRONT_TOL:g}: {bad}")
+    return out
+
+
+def memory_base():
+    """Free what earlier runs left for the collector and reset the peak:
+    the card's allocated bytes now, which a run's peak is read above (the
+    run's own model, activations, optimizer state and graphs)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def zoo_net(name, size, kw, seed, ctx, classes=1000):
+    """A zoo family from the device generator seeded with ``seed``
+    (Xavier), its deferred shapes settled by a predict-mode call."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    mx.random.seed(seed)
+    net = vision.get_model(name, classes=classes, **kw)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    with autograd.predict_mode():
+        net(mx.nd.zeros(zoo_shape(name, size, kw, 1), ctx=ctx))
+    return net
+
+
+def zoo_shape(name, size, kw, batch):
+    return (batch, size, size, 3) if kw.get("layout") == "NHWC" else \
+        (batch, 3, size, size)
+
+
+def zoo_step(net, x, y, train, rng_seed, hybrid):
+    """One record / backward / Trainer.step (GluonCV's SGD) of ``net``,
+    hybridized or not, the generator seeded with ``rng_seed`` first (the
+    same dropout masks for both): (loss, before, after), the weights put
+    back after."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    if net._active != hybrid:
+        net.hybridize(hybrid)
+    ctx = next(iter(net.collect_params().values())).data().context
+    X = mx.nd.array(x, ctx=ctx, dtype=x.dtype)
+    Y = mx.nd.array(y, ctx=ctx)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(CHECK_OPT))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def run():
+        mx.random.seed(rng_seed)
+        with autograd.record(train_mode=train):
+            loss = loss_fn(net(X), Y).mean()
+        loss.backward()
+        trainer.step(1)
+        return loss.asscalar()
+
+    return gluon_step_result(net, run)
+
+
+def zoo_checks(seed, device="cuda", families=ZOO, batch=ZOO_BATCH,
+               cpu_batch=ZOO_CPU_BATCH, classes=1000):
+    """(b): each family on ``device``: the hybridized forward against the
+    eager forward (predict mode, exact), a hybridized train-mode SGD step
+    through Trainer against the eager step (HYBRID_STEP_BOUND, an eager
+    step against another eager step read beside it), and the hybridized
+    predict-mode step at ``cpu_batch`` against the CPU's fp64 step, in
+    fp32 (FP32_STEP_BOUND) and fp64 (FP64_STEP_BOUND), phase 5's measure.
+    Returns {family: readings}."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+
+    ctx = mx.Context.from_device(torch.device(device))
+    res = {}
+    for name, size, kw in families:
+        t0 = time.perf_counter()
+        net = zoo_net(name, size, kw, seed, ctx, classes)
+        names = list(net.collect_params())
+        r = np.random.RandomState(seed)
+        x = r.uniform(-1, 1, zoo_shape(name, size, kw, batch)) \
+            .astype("float32")
+        y = r.randint(0, classes, (batch,)).astype("int32")
+        X = mx.nd.array(x, ctx=ctx)
+        with autograd.predict_mode():
+            eager = net(X).asnumpy()
+            net.hybridize()
+            net(X)
+            hybrid = net(X).asnumpy()
+        fwd = float(np.abs(hybrid - eager).max())
+        e1 = zoo_step(net, x, y, True, seed + 1, False)
+        e2 = zoo_step(net, x, y, True, seed + 1, False)
+        zoo_step(net, x, y, True, seed + 1, True)          # builds the entry
+        h = zoo_step(net, x, y, True, seed + 1, True)
+        noise, _ = compare_steps(e2, e1, names)
+        step, where = compare_steps(h, e1, names)
+        # the card against the CPU: predict mode (no dropout draws, whose
+        # streams differ by device), fp32 and fp64, hybridized on the card
+        xc, yc = x[:cpu_batch], y[:cpu_batch]
+        cpu_net = zoo_net(name, size, kw, seed, mx.cpu(), classes)
+        for p, q in zip(cpu_net.collect_params().values(),
+                        net.collect_params().values()):
+            p.set_data(q.data()._data.cpu())
+        cpu_net.cast("float64")
+        cpu64 = zoo_step(cpu_net, xc.astype("float64"), yc, False, seed,
+                         False)
+        del cpu_net
+        card32 = zoo_step(net, xc, yc, False, seed, True)
+        net.cast("float64")
+        card64 = zoo_step(net, xc.astype("float64"), yc, False, seed, True)
+        # predict mode leaves the running statistics as they were: their
+        # deviation is read absolutely (scale 1), the rest by the update
+        scales = [sc if sc > 0 else 1.0
+                  for sc in update_scales(cpu64, names)]
+        r32, w32 = compare_steps(card32, cpu64, names, scales)
+        r64, w64 = compare_steps(card64, cpu64, names, scales)
+        res[name] = {"forward": fwd, "step": step, "eager noise": noise,
+                     "fp32": r32, "fp64": r64}
+        log(f"  {name} at {size}x{size}: hybrid forward vs eager "
+            f"{fwd:.3e} (max |diff|); hybrid step vs eager {step:.3e} of "
+            f"the update ({where}; eager vs eager {noise:.3e}); the card's "
+            f"hybridized step vs the CPU's fp64 step at batch {cpu_batch}: "
+            f"fp32 {r32:.3e} ({w32}), fp64 {r64:.3e} ({w64}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(fwd == 0.0, f"{name}: the hybridized forward differs from "
+                          f"the eager one by {fwd:.3e}")
+        bound = max(HYBRID_STEP_BOUND, HYBRID_NOISE_FACTOR * noise)
+        check(step <= bound, f"{name}: the hybridized step strays "
+                             f"{step:.3e} from the eager step at {where}, "
+                             f"bound {bound:.3e}")
+        check(r32 <= FP32_STEP_BOUND, f"{name}: fp32 step vs the CPU "
+                                      f"{r32:.3e} at {w32}")
+        check(r64 <= FP64_STEP_BOUND, f"{name}: fp64 step vs the CPU "
+                                      f"{r64:.3e} at {w64}")
+        del net
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return res
+
+
+def zoo_timing(seed, families=ZOO, batch=ZOO_TIMED_BATCH):
+    """(c): GluonCV's train_imagenet.py loop for each family, eager and
+    ``--mode hybrid`` (hybridize(static_alloc=True, static_shape=True)),
+    AMP bf16, NAG (ZOO_TIMED_OPT), batch ``batch``: ZOO_WARMUP +
+    ZOO_STEPS steps, img/s, ms a step, peak memory.  Returns {family: {mode: img/s}}."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.contrib import amp
+
+    ctx = mx.gpu(0)
+    out = {}
+    for name, size, kw in families:
+        out[name] = {}
+        for mode in ("eager", "hybrid"):
+            base = memory_base()
+            net = zoo_net(name, size, kw, seed, ctx)
+            if mode == "hybrid":
+                net.hybridize(static_alloc=True, static_shape=True)
+            r = np.random.RandomState(seed)
+            X = mx.nd.array(r.uniform(-1, 1, zoo_shape(name, size, kw,
+                                                       batch)), ctx=ctx)
+            Y = mx.nd.array(r.randint(0, 1000, (batch,)), ctx=ctx)
+            trainer = gluon.Trainer(net.collect_params(), "nag",
+                                    dict(ZOO_TIMED_OPT))
+            loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+            amp.init()
+            try:
+                amp.init_trainer(trainer)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                losses = []
+                for i in range(ZOO_WARMUP + ZOO_STEPS):
+                    if i == ZOO_WARMUP:
+                        torch.cuda.synchronize()
+                        t1 = time.perf_counter()
+                    with autograd.record():
+                        loss = loss_fn(net(X), Y)
+                        with amp.scale_loss(loss, trainer) as scaled:
+                            scaled.backward()
+                    trainer.step(batch)
+                    losses.append(loss)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t1
+            finally:
+                amp.disable()
+            peak = torch.cuda.max_memory_allocated() - base
+            vals = [v.mean().asscalar() for v in losses]
+            check(all(math.isfinite(v) for v in vals),
+                  f"{name} {mode}: non-finite loss")
+            ips = batch * ZOO_STEPS / dt
+            out[name][mode] = ips
+            log(f"  [{gpu_line()}] {name} {mode}: {ips:.1f} img/s, "
+                f"{1e3 * dt / ZOO_STEPS:.2f} ms/step, peak memory "
+                f"{peak / 2**30:.3f} GiB over the run's start (bf16 AMP, batch {batch}, "
+                f"{ZOO_STEPS} steps after {ZOO_WARMUP})")
+            del net, trainer, X, Y, losses
+            torch.cuda.empty_cache()
+    return out
+
+
+def lm_net(cfg, seed, ctx, dropout):
+    """GluonNLP's word LM over gluon.rnn: Embedding -> Dropout -> LSTM ->
+    Dropout -> Dense, weights uniform in [-0.05, 0.05] from a numpy seed
+    (lm_init's distribution)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn
+
+    class WordLM(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(cfg["vocab"], cfg["embed"])
+            self.drop = nn.Dropout(dropout)
+            self.encoder = gluon.rnn.LSTM(cfg["hidden"],
+                                          num_layers=cfg["layers"],
+                                          dropout=dropout,
+                                          input_size=cfg["embed"])
+            self.decoder = nn.Dense(cfg["vocab"], flatten=False,
+                                    in_units=cfg["hidden"])
+
+        def hybrid_forward(self, F, ids, h, c):
+            x = self.drop(self.embedding(ids))
+            out, (h, c) = self.encoder(x, [h, c])
+            return self.decoder(self.drop(out)), h, c
+
+    net = WordLM()
+    net.initialize(ctx=ctx)
+    r = np.random.RandomState(seed)
+    for p in net.collect_params().values():
+        p.set_data(mx.nd.array(r.uniform(-0.05, 0.05, p.shape), ctx=ctx))
+    return net
+
+
+def lm_batch(cfg, seed):
+    r = np.random.RandomState(seed)
+    toks = r.randint(0, cfg["vocab"], (cfg["steps"] + 1, cfg["batch"]))
+    return toks[:-1].astype("int32"), toks[1:].astype("int32")
+
+
+def lm_gluon_step(net, ids, labels, states, lr=LM_LR):
+    """One SGD step of the word LM (mean cross entropy): (loss, before,
+    after) over its parameters and the final states, weights put back."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    ctx = states[0].context
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": lr})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    ids_nd, lab = mx.nd.array(ids, ctx=ctx), mx.nd.array(labels, ctx=ctx)
+    final = []
+
+    def run():
+        with autograd.record():
+            logits, h, c = net(ids_nd, *states)
+            loss = loss_fn(logits, lab).mean()
+        loss.backward()
+        trainer.step(1)
+        final[:] = [_host(h._data), _host(c._data)]
+        return loss.asscalar()
+
+    loss, before, after = gluon_step_result(net, run)
+    zero = torch.zeros_like(final[0])
+    return loss, before + [zero, zero], after + final
+
+
+def lm_checks(seed, device="cuda", cfg=LM_CFG, fault=None):
+    """(d): the hybridized word LM's fp32 step at dropout 0 on ``device``
+    against the CPU's fp64 step (LM_BOUND, compare_steps), and the layer's
+    weights in a SequentialRNNCell of LSTMCells: unroll against the layer
+    within UNROLL_TOL.  ``fault`` (planted_lm_fault's) is planted in the
+    step on ``device`` only.  Returns (ratio, unroll deviation)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    ctx = mx.Context.from_device(torch.device(device))
+    ids, labels = lm_batch(cfg, seed)
+    shape = (cfg["layers"], cfg["batch"], cfg["hidden"])
+    cpu_net = lm_net(cfg, seed, mx.cpu(), 0.0)
+    cpu_net.cast("float64")
+    cpu_net.hybridize()
+    ref = lm_gluon_step(cpu_net, ids, labels, [
+        mx.nd.zeros(shape, ctx=mx.cpu(), dtype="float64")
+        for _ in range(2)])
+    del cpu_net
+    net = lm_net(cfg, seed, ctx, 0.0)
+    net.hybridize()
+    states = [mx.nd.zeros(shape, ctx=ctx) for _ in range(2)]
+    planted = planted_lm_fault(fault) if fault else \
+        contextlib.nullcontext()
+    with planted:
+        lm_gluon_step(net, ids, labels, states)      # builds the entry
+        cand = lm_gluon_step(net, ids, labels, states)
+    names = list(net.collect_params()) + ["state_h", "state_c"]
+    ratio, where = compare_steps(cand, ref, names)
+    log(f"  hybridized fp32 step on {device} vs the CPU's fp64 step: "
+        f"{ratio:.3e} of the update ({where}), bound {LM_BOUND:g}")
+    check(ratio <= LM_BOUND, f"(d) LM step: {ratio:.3e} at {where}")
+    # the cells: the layer's weights unrolled step by step
+    seq = gluon.rnn.SequentialRNNCell()
+    for i in range(cfg["layers"]):
+        seq.add(gluon.rnn.LSTMCell(cfg["hidden"], input_size=cfg[
+            "embed"] if i == 0 else cfg["hidden"]))
+    seq.initialize(ctx=ctx)
+    layer = dict(net.encoder.collect_params().items())
+    for i, cell in enumerate(seq._children.values()):
+        for suffix, p in cell.collect_params().items():
+            key = next(k for k in layer
+                       if k.endswith(f"l{i}_" + suffix.split("_", 1)[1]))
+            p.set_data(layer[key].data())
+    x = net.embedding(mx.nd.array(ids, ctx=ctx))
+    out, _ = net.encoder(x, [mx.nd.zeros(shape, ctx=ctx)
+                             for _ in range(2)])
+    outs, _ = seq.unroll(cfg["steps"], x, layout="TNC")
+    dev = _worst([_host(outs._data)], [_host(out._data)])
+    log(f"  SequentialRNNCell(LSTMCell x {cfg['layers']}).unroll vs the "
+        f"LSTM layer: {dev:.3e} of max(1, |out|), bound {UNROLL_TOL:g}")
+    check(dev <= UNROLL_TOL, f"(d) unroll vs the layer: {dev:.3e}")
+    return ratio, dev
+
+
+def lm_hybrid_timing(seed, cfg=LM_CFG):
+    """(d): the word LM at dropout cfg["dropout"], eager and hybridized,
+    the state carried: tokens/s, ms a step, peak memory."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    ctx = mx.gpu(0)
+    ids, labels = lm_batch(cfg, seed)
+    shape = (cfg["layers"], cfg["batch"], cfg["hidden"])
+    out = {}
+    for mode in ("eager", "hybrid"):
+        base = memory_base()
+        net = lm_net(cfg, seed, ctx, cfg["dropout"])
+        if mode == "hybrid":
+            net.hybridize()
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": LM_LR})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        ids_nd, lab = mx.nd.array(ids, ctx=ctx), mx.nd.array(labels, ctx=ctx)
+        h, c = (mx.nd.zeros(shape, ctx=ctx) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for i in range(LM_WARMUP + LM_HYBRID_STEPS):
+            if i == LM_WARMUP:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            with autograd.record():
+                logits, h, c = net(ids_nd, h.detach(), c.detach())
+                loss = loss_fn(logits, lab).mean()
+            loss.backward()
+            trainer.step(1)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() - base
+        vals = [v.asscalar() for v in losses]
+        check(all(math.isfinite(v) for v in vals), f"LM {mode}: non-finite")
+        tps = cfg["steps"] * cfg["batch"] * LM_HYBRID_STEPS / dt
+        out[mode] = tps
+        log(f"  [{gpu_line()}] word LM {mode}: {tps:.0f} tokens/s, "
+            f"{1e3 * dt / LM_HYBRID_STEPS:.2f} ms/step, peak memory "
+            f"{peak / 2**30:.3f} GiB over the run's start, losses {vals[0]:.4f} .. "
+            f"{vals[-1]:.4f}")
+        del net, trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def bert_recipe_loss(net):
+    """GluonNLP's pretraining loss over ``net`` as one HybridBlock: (the
+    mean MLM plus NSP cross entropy, the MLM scores, the NSP scores)."""
+    from mxnet_tpu_torch import gluon
+
+    class BertRecipeLoss(gluon.HybridBlock):
+        def __init__(self, model):
+            super().__init__()
+            self.model = model
+            self.ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def hybrid_forward(self, F, ids, mlm, nsp):
+            mlm_out, nsp_out = self.model(ids)
+            loss = self.ce(mlm_out, mlm).mean() + \
+                self.ce(nsp_out, nsp).mean()
+            return loss, mlm_out, nsp_out
+
+    return BertRecipeLoss(net)
+
+
+def bert_hybrid_result(net, ids, labels, hybrid):
+    """One recipe step (fp32, a fresh Trainer) of ``net`` with the model
+    and the loss hybridized or eager: (loss, before, after)."""
+    import mxnet_tpu_torch as mx
+
+    ctx = next(iter(net.collect_params().values())).data().context
+    mlm, nsp = bert_labels(labels)
+    args = [mx.nd.array(a, ctx=ctx, dtype="int32") for a in (ids, mlm, nsp)]
+    block = bert_recipe_loss(net)
+    block.hybridize(hybrid)
+
+    def run():
+        trainer = bert_recipe_trainer(net)
+        return bert_recipe_step(net, trainer, *args,
+                                loss_block=block)[0].asscalar()
+
+    gluon_step_result(net, run)          # builds the hybridized entry
+    return gluon_step_result(net, run)
+
+
+def bert_hybrid_checks(seed, device="cuda", cfg=None,
+                       batch=FRONT_BERT_CHECK_BATCH, seq=BERT_SEQ):
+    """(e) at dropout 0: the hybridized recipe step on ``device`` against
+    the eager one (HYBRID_STEP_BOUND, compare_steps), and against the
+    CPU's fp64 step within phase 9 (b)'s bound (GLUON_FP32_NOISE_FACTOR of
+    the CPU's fp32 deviation).  Each step is the second from the same
+    weights, so that the hybridized one replays its graph."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+
+    cfg = cfg or bert.BertConfig(dropout=0.0)
+    ctx = mx.Context.from_device(torch.device(device))
+    net = init_bert(cfg, seed, ctx, seq)
+    names = list(net.collect_params())
+    ids, labels = bert_batch(seed, batch, seq, cfg.vocab_size)
+    eager = bert_hybrid_result(net, ids, labels, False)
+    eager2 = bert_hybrid_result(net, ids, labels, False)
+    hybrid = bert_hybrid_result(net, ids, labels, True)
+    noise, _ = compare_steps(eager2, eager, names)
+    step, where = compare_steps(hybrid, eager, names)
+    bound = max(HYBRID_STEP_BOUND, HYBRID_NOISE_FACTOR * noise)
+    log(f"  hybridized vs eager step on {device}: {step:.3e} of the update "
+        f"({where}); eager vs eager {noise:.3e}; bound {bound:.3e}")
+    check(step <= bound, f"(e) hybridized step vs eager: {step:.3e} at "
+                         f"{where}")
+    cpu_net = copy_bert(net, cfg, mx.cpu())
+    info = {}
+    cpu32 = bert_hybrid_result(cpu_net, ids, labels, True)
+    cpu64 = bert_recipe_result(cpu_net.double(), ids, labels, info=info)
+    del cpu_net
+    scales32 = lamb_scales(noise_scales(cpu32, cpu64, names), info)
+    ratio, where = compare_steps(hybrid, cpu64, names, scales32)
+    log(f"  hybridized fp32 step on {device} vs the CPU's fp64 step: "
+        f"{ratio:.3e} of the CPU's fp32 deviation ({where}), bound "
+        f"{GLUON_FP32_NOISE_FACTOR:g} (phase 9 (b)'s)")
+    check(ratio <= GLUON_FP32_NOISE_FACTOR,
+          f"(e) hybridized step vs the CPU: {ratio:.3e} at {where}")
+    return {"vs eager": step, "eager noise": noise, "vs CPU": ratio}
+
+
+def bert_hybrid_timing(seed, steps=FRONT_BERT_STEPS):
+    """(e): phase 9 (d)'s recipe (batch 64 x 128, AMP bf16, dropout 0.1,
+    LAMB, clip) eager and with the model and loss hybridized: samples/s,
+    ms a step, peak memory; flash_attn_fwd launched 12 a step from the
+    graph (the count of the captured launches times the replays), and the
+    profiler's count of the kernel over two replayed steps.  Returns the
+    hybridized run's launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cfg = bert.BertConfig()
+    ids, labels = bert_batch(seed, BERT_BATCH, BERT_SEQ, cfg.vocab_size)
+    mlm, nsp = bert_labels(labels)
+    res = {}
+    for mode in ("eager", "hybrid"):
+        base = memory_base()
+        net = init_bert(cfg, seed, mx.gpu(0))
+        args = [mx.nd.array(a, ctx=mx.gpu(0), dtype="int32")
+                for a in (ids, mlm, nsp)]
+        block = bert_recipe_loss(net)
+        if mode == "hybrid":
+            block.hybridize(static_alloc=True)
+        trainer = bert_recipe_trainer(net, GLUON_TIMED_OPT,
+                                      GLUON_TIMED_SCHEDULE)
+        metrics = [metric.Accuracy(axis=-1, name="mlm_accuracy"),
+                   metric.Accuracy(name="nsp_accuracy"), metric.Loss()]
+        amp.init()
+        try:
+            amp.init_trainer(trainer)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses = []
+            for i in range(BERT_WARMUP + steps):
+                if i == BERT_WARMUP:
+                    torch.cuda.synchronize()
+                    fa_mod._flash_fwd_cuda.launches = 0
+                    t1 = time.perf_counter()
+                loss, _ = bert_recipe_step(net, trainer, *args, metrics,
+                                           loss_block=block)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            launches = fa_mod._flash_fwd_cuda.launches
+            peak = torch.cuda.max_memory_allocated() - base
+            vals = [v.asscalar() for v in losses]
+            check(all(math.isfinite(v) for v in vals),
+                  f"(e) {mode}: non-finite loss")
+            check(vals[-1] < vals[0], f"(e) {mode}: the loss did not fall")
+            check(launches == cfg.num_layers * steps,
+                  f"(e) {mode}: flash_attn_fwd launched {launches} times in "
+                  f"{steps} steps, expected {cfg.num_layers * steps}")
+            sps = BERT_BATCH * steps / dt
+            res[mode] = (sps, 1e3 * dt / steps, peak, launches)
+            log(f"  [{gpu_line()}] recipe {mode}: {sps:.1f} samples/s, "
+                f"{1e3 * dt / steps:.2f} ms/step, peak memory "
+                f"{peak / 2**30:.3f} GiB over the run's start, "
+                f"flash_attn_fwd launches "
+                f"{launches} in {steps} steps; losses {vals[0]:.4f} .. "
+                f"{vals[-1]:.4f}")
+            if mode == "hybrid":
+                # one profiled step before the two counted, so that the
+                # tracer's start-up cannot drop a kernel of theirs
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA],
+                             schedule=schedule(wait=0, warmup=1, active=2,
+                                               repeat=1)) as prof:
+                    for _ in range(3):
+                        bert_recipe_step(net, trainer, *args, metrics,
+                                         loss_block=block)
+                        torch.cuda.synchronize()
+                        prof.step()
+                n = sum(1 for ev in prof.events()
+                        if ev.device_type == DeviceType.CUDA
+                        and "fa_fwd" in ev.name)
+                log(f"  profiler: {n} fa_fwd kernels over 2 replayed steps "
+                    f"(expected {2 * cfg.num_layers})")
+                check(n == 2 * cfg.num_layers,
+                      f"(e) the profiler counts {n} fa_fwd kernels in 2 "
+                      f"replayed steps, expected {2 * cfg.num_layers}")
+        finally:
+            amp.disable()
+        del net, trainer, block
+        torch.cuda.empty_cache()
+    return res["hybrid"][3]
+
+
+# planted faults of phase 11: each must fail its check
+FRONT_FAULTS = ("static_output", "stale_cache", "eager_fallback",
+                "stale_generator", "stale_grad_req", "one_capture")
+
+
+@contextlib.contextmanager
+def planted_frontend_fault(fault):
+    """"static_output": a replay returns the graph's own output tensors;
+    "stale_cache": nothing empties a cache (a parameter tensor replaced
+    by another leaves the graph reading the old one); "eager_fallback": a forward that cannot be captured
+    runs eagerly (no host-read guard, the capture's error swallowed);
+    "stale_generator": reseeding leaves the graphs on the old
+    generator; "stale_grad_req": a grad_req changed after the capture is
+    not noticed (the graph keeps differentiating the old set);
+    "one_capture": a recorded call replays the capture whose previous
+    call's backward is still to run."""
+    from mxnet_tpu_torch import random as rnd
+    from mxnet_tpu_torch.gluon import _cached_op, block, parameter
+
+    with contextlib.ExitStack() as stack:
+        G = _cached_op.GraphForward
+        if fault == "static_output":
+            replay = G.replay
+
+            def no_copy(self, inputs):
+                replay(self, inputs)
+                return list(self._static_out)
+
+            stack.enter_context(patched(G, "replay", no_copy))
+        elif fault == "stale_cache":
+            stack.enter_context(patched(block.HybridBlock,
+                                        "_bump_cache_version",
+                                        lambda self: None))
+            stack.enter_context(patched(
+                block.HybridBlock, "_valid_params",
+                lambda self: self._cached_plist or sorted(
+                    self.collect_params().items())))
+        elif fault == "eager_fallback":
+            init = G.__init__
+
+            def fallback(self, name, apply_fn, plist, leaves, spec, rec):
+                try:
+                    init(self, name, apply_fn, plist, leaves, spec, rec)
+                except Exception:
+                    self._fallback = _cached_op.FunctionalForward(
+                        apply_fn, plist, spec)
+
+            call = G.__call__
+
+            def run(self, leaves, recording):
+                fb = getattr(self, "_fallback", None)
+                return fb(leaves, recording) if fb is not None else \
+                    call(self, leaves, recording)
+
+            stack.enter_context(patched(G, "__init__", fallback))
+            stack.enter_context(patched(G, "__call__", run))
+        elif fault == "stale_generator":
+            stack.enter_context(patched(rnd, "epoch", lambda: 0))
+        elif fault == "stale_grad_req":
+            prop = parameter.Parameter.grad_req
+
+            def unnoticed(self, req):
+                n = parameter._REBINDS[0]
+                prop.fset(self, req)
+                parameter._REBINDS[0] = n
+
+            stack.enter_context(patched(parameter.Parameter, "grad_req",
+                                        property(prop.fget, unnoticed)))
+        elif fault == "one_capture":
+            stack.enter_context(patched(G, "_busy", lambda self: False))
+        yield
+
+
+def fault_net(ctx, seed):
+    """A small net with Dropout for the planted-fault checks."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+
+    mx.random.seed(seed)
+    net = nn.HybridSequential()
+    net.add(nn.Dense(256, in_units=128, activation="relu"), nn.Dropout(0.5),
+            nn.Dense(64, in_units=256))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def hybrid_grad_gaps(ctx, seed):
+    """The largest gaps, relative to max(1, |eager|), between the
+    hybridized and the eager gradients of a 128 -> 256 -> 64 MLP in
+    two recorded sequences: "grad_req" (a step with the first layer at
+    grad_req 'null', then a step after it is set back to 'write', as
+    when a frozen backbone is unfrozen) and "two calls" (two recorded
+    calls of the block on different inputs, then one backward, as a
+    discriminator run on real and on fake data)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+
+    r = np.random.RandomState(seed + 5)
+    x1 = mx.nd.array(r.randn(32, 128), ctx=ctx)
+    x2 = mx.nd.array(r.randn(32, 128), ctx=ctx)
+    mx.random.seed(seed)
+    net = nn.HybridSequential()
+    net.add(nn.Dense(256, in_units=128, activation="relu"),
+            nn.Dense(64, in_units=256))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    params = sorted(net.collect_params().items())
+
+    def grads(hybrid, sequence):
+        net.hybridize(hybrid)
+        if sequence == "grad_req":
+            for req in ("null", "write"):
+                for p in net[0].collect_params().values():
+                    p.grad_req = req
+                with autograd.record():
+                    loss = (net(x1) ** 2).sum()
+                loss.backward()
+        else:
+            with autograd.record():
+                y1 = net(x1)
+                y2 = net(x2)
+                loss = (y1 ** 2).sum() + (y1 * y2).sum() + y2.sum()
+            loss.backward()
+        return [p.grad().asnumpy() for _, p in params]
+
+    gaps = {}
+    for sequence in ("grad_req", "two calls"):
+        got, want = grads(True, sequence), grads(False, sequence)
+        gaps[sequence] = max(float(np.abs(g - w).max()) /
+                             max(1.0, float(np.abs(w).max()))
+                             for g, w in zip(got, want))
+    return gaps
+
+
+def frontend_fault_checks(seed, device="cuda", fault=None):
+    """The six checks the planted faults must fail; returns the names of
+    those that failed ({} on a sound port): "kept output" (an output kept
+    across a later call stays as it was), "reload" (parameters moved to
+    new tensors and rewritten after hybridize(): the cached forward
+    follows them), "host read" (a block reading asscalar() in its forward
+    raises MXNetError and returns nothing), "reseed" (after random.seed,
+    the hybridized train-mode forward draws the masks an eager one draws
+    after the same seed), and "grad_req" and "two calls"
+    (:func:`hybrid_grad_gaps` within FRONT_TOL)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    ctx = mx.Context.from_device(torch.device(device))
+    failed = {}
+    planted = planted_frontend_fault(fault) if fault else \
+        contextlib.nullcontext()
+    with planted:
+        net = fault_net(ctx, seed)
+        net.hybridize()
+        r = np.random.RandomState(seed)
+        x1 = mx.nd.array(r.randn(32, 128), ctx=ctx)
+        x2 = mx.nd.array(r.randn(32, 128), ctx=ctx)
+        a = net(x1)
+        kept = a.asnumpy().copy()
+        net(x2)
+        if not np.array_equal(a.asnumpy(), kept):
+            failed["kept output"] = "a kept output changed on the next call"
+        net.collect_params().reset_ctx(ctx)
+        for p in net.collect_params().values():
+            p.set_data(mx.nd.array(r.randn(*p.shape) * 0.1, ctx=ctx))
+        got = net(x1).asnumpy()
+        net.hybridize(False)
+        want = net(x1).asnumpy()
+        net.hybridize()
+        if not np.array_equal(got, want):
+            failed["reload"] = f"stale weights: {np.abs(got - want).max()}"
+
+        class ReadsHost(gluon.HybridBlock):
+            def hybrid_forward(self, F, x):
+                return x * float(x.sum().asscalar())
+
+        reads = ReadsHost()
+        reads.hybridize()
+        try:
+            reads(x1)
+            if torch.device(device).type == "cuda":
+                failed["host read"] = "a host read ran (eagerly)"
+        except mx.MXNetError:
+            pass
+        outs = []
+        for hybrid in (True, False):
+            net.hybridize(hybrid)
+            with autograd.record():
+                net(x1)                        # the entry, and some draws
+            mx.random.seed(seed + 11)
+            with autograd.record():
+                outs.append(net(x1).asnumpy())
+        if not np.array_equal(outs[0], outs[1]):
+            failed["reseed"] = "a reseeded graph drew other masks"
+        for name, gap in hybrid_grad_gaps(ctx, seed).items():
+            if not gap <= FRONT_TOL:
+                failed[name] = f"hybrid gradients off eager's by {gap:.3g}"
+    return failed
+
+
+def frontend_phase(seed):
+    """Phase 11: (a) to (e) and the planted faults; returns flash_attn_fwd's
+    launches over (e)'s hybridized steps, the gluon_bert_lamb_hybrid
+    path."""
+    t0 = time.perf_counter()
+    log(f"== frontend 1: autograd.grad and create_graph (a gradient penalty "
+        f"through {GP_WIDTHS[0]} -> {GP_WIDTHS[1]} -> {GP_WIDTHS[0]} at "
+        f"batch {GP_BATCH}, eager and hybridized), a Function, foreach, "
+        f"while_loop and cond at {FLOW_SHAPE}: card vs CPU within "
+        f"{FRONT_TOL:g} of max(1, |CPU|)")
+    autograd_checks(seed)
+    t1 = time.perf_counter()
+    log(f"  (a) {t1 - t0:.1f} s")
+
+    log(f"== frontend 2: the vision zoo, eager against hybrid (CUDA graphs) "
+        f"at batch {ZOO_BATCH}, fp32, 1000 classes, and the card's "
+        f"hybridized step against the CPU's fp64 step at batch "
+        f"{ZOO_CPU_BATCH}")
+    zoo_checks(seed)
+    t2 = time.perf_counter()
+    log(f"  (b) {t2 - t1:.1f} s")
+
+    log(f"== frontend 3: GluonCV's train_imagenet.py, eager and --mode "
+        f"hybrid, bf16 AMP, batch {ZOO_TIMED_BATCH}, NAG")
+    speed = zoo_timing(seed)
+    log("  hybrid over eager, img/s: " + ", ".join(
+        f"{n} {v['hybrid'] / v['eager']:.2f}x" for n, v in speed.items()))
+    t3 = time.perf_counter()
+    log(f"  (c) {t3 - t2:.1f} s")
+
+    log(f"== frontend 4: GluonNLP's word LM through gluon.rnn (medium PTB "
+        f"LSTM, {LM_CFG})")
+    lm_checks(seed)
+    lm_hybrid_timing(seed)
+    t4 = time.perf_counter()
+    log(f"  (d) {t4 - t3:.1f} s")
+
+    log(f"== frontend 5: GluonNLP's BERT-base LAMB recipe with the model "
+        f"and the loss hybridized")
+    bert_hybrid_checks(seed)
+    launches = bert_hybrid_timing(seed)
+    t5 = time.perf_counter()
+    log(f"  (e) {t5 - t4:.1f} s")
+
+    log("== frontend 6: planted faults")
+    import mxnet_tpu_torch as mx
+    gaps = hybrid_grad_gaps(mx.gpu(0), seed)
+    log("  hybridized gradients vs eager, of max(1, |eager|): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in gaps.items()) + f"; bound {FRONT_TOL:g}")
+    check(not frontend_fault_checks(seed), "the sound port fails a "
+          "planted-fault check")
+    caught = {}
+    for fault in FRONT_FAULTS:
+        caught[fault] = frontend_fault_checks(seed, fault=fault)
+        log(f"  planted {fault}: fails {sorted(caught[fault]) or 'nothing'}")
+    check(all(caught.values()), f"a planted fault passes: "
+          f"{[f for f, c in caught.items() if not c]}")
+    log(f"  faults {time.perf_counter() - t5:.1f} s; phase 11 "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -6846,6 +7861,9 @@ def parse_args(argv=None):
     parser.add_argument("--persistence", action="store_true",
                         help="run only the build and phase 10, persistence "
                              "and preemption")
+    parser.add_argument("--frontend", action="store_true",
+                        help="run only the build and phase 11, the Gluon "
+                             "frontend (hybridize() as CUDA graphs)")
     parser.add_argument("--resume-worker", action="store_true",
                         help="run the fp16 BERT recipe under "
                              "run_with_recovery, a step a line to "
@@ -6956,6 +7974,14 @@ def main():
         log(f"== done in {time.perf_counter() - t_all:.1f} s")
         return 0
 
+    if args.frontend:
+        log("== the Gluon frontend (phase 11 alone)")
+        n = frontend_phase(args.seed)
+        check(n > 0, "flash_attn_fwd never ran on the "
+                     "gluon_bert_lamb_hybrid path")
+        log(f"== done in {time.perf_counter() - t_all:.1f} s")
+        return 0
+
     if args.op_table:
         log("== the mx.nd op table (phase 8 alone)")
         n = op_table_phase(args.seed)
@@ -7021,7 +8047,15 @@ def main():
         "TrainStep.run, Estimator.fit")
     launches["gluon_bert_resume"] = persistence_phase(args.seed)
     torch.cuda.empty_cache()
-    log(f"  persistence phase took {time.perf_counter() - t6:.1f} s")
+    t7 = time.perf_counter()
+    log(f"  persistence phase took {t7 - t6:.1f} s")
+
+    log("== the Gluon frontend: autograd.grad / Function / control flow, "
+        "the vision zoo, gluon.rnn and the BERT recipe hybridized as CUDA "
+        "graphs")
+    launches["gluon_bert_lamb_hybrid"] = frontend_phase(args.seed)
+    torch.cuda.empty_cache()
+    log(f"  frontend phase took {time.perf_counter() - t7:.1f} s")
     for path, n in launches.items():
         check(n > 0, f"flash_attn_fwd never ran on the {path} path")
         row["by_path"][path]["launches"] = n

@@ -27,7 +27,9 @@ from . import autograd, initializer, ndarray, random
 from . import initializer as init
 from . import ndarray as nd
 from .base import MXNetError
-from .context import Context, cpu, current_context, gpu, resolve_device
+from . import context
+from .context import (Context, cpu, cpu_pinned, current_context, gpu,
+                      num_gpus, num_tpus, resolve_device, tpu)
 from . import contrib, gluon, lr_scheduler, metric, optimizer  # noqa: E402
 from . import parallel  # noqa: E402
 from . import env, fault, flight_recorder, lifecycle, telemetry  # noqa: E402
@@ -35,7 +37,8 @@ from . import callback, checkpoint  # noqa: E402
 
 env.apply_env()
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
+           "current_context", "num_gpus", "num_tpus", "context",
            "resolve_device", "nd", "ndarray", "autograd", "init",
            "initializer", "random", "gluon", "optimizer", "lr_scheduler",
            "metric", "parallel",

@@ -124,3 +124,28 @@ def load(name):
     if name not in _loaded:
         raise MXNetError(f"no kernel source csrc/{name}.cu")
     return _loaded[name]
+
+
+# kernel name -> the wrapper whose ``launches`` counts its launches: a
+# cached CUDA graph (``HybridBlock.hybridize``) reads what its capture
+# recorded and adds it again at every replay, so a count is the kernel's
+# runs whether the wrapper or a graph launched it
+_COUNTERS = {}
+
+
+def count_launches(name, wrapper):
+    """Register ``wrapper.launches`` as the launch count of kernel
+    ``name``."""
+    _COUNTERS[name] = wrapper
+
+
+def launch_counts():
+    """{kernel name: launches so far}."""
+    return {name: w.launches for name, w in _COUNTERS.items()}
+
+
+def add_launches(counts):
+    """Add {kernel name: n} to the counts (a graph's replay, or minus a
+    capture, which records the launches without running them)."""
+    for name, n in counts.items():
+        _COUNTERS[name].launches += n

@@ -7,6 +7,9 @@ here.  ``None`` means the first CUDA card (the default context is
 ``gpu(0)``); on a machine without one that is an error, never a quiet
 move to the CPU.  A caller that wants the CPU asks for it by name
 (``device="cpu"``, ``ctx=mx.cpu()``), as the tests do.
+
+``cpu_pinned`` and ``cpu_shared`` are CPU contexts, as in the reference.
+``tpu()`` names no device of the port: it raises, pointing at ``gpu()``.
 """
 from __future__ import annotations
 
@@ -16,14 +19,15 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "resolve_device"]
+__all__ = ["Context", "cpu", "gpu", "tpu", "cpu_pinned", "current_context",
+           "num_gpus", "num_tpus", "resolve_device"]
 
 
 class Context:
     """Device context: hashable, comparable; ``with ctx:`` makes it the
     default.  ``gpu`` contexts resolve to CUDA cards."""
 
-    devtype2str = {1: "cpu", 2: "gpu"}
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned", 4: "cpu_shared"}
     devstr2type = {v: k for k, v in devtype2str.items()}
     _default_ctx = threading.local()
 
@@ -31,6 +35,9 @@ class Context:
         if isinstance(device_type, Context):
             device_type, device_id = device_type.device_type, \
                 device_type.device_id
+        if device_type == "tpu":
+            raise MXNetError("the port runs on CUDA cards: there is no tpu "
+                             "context; use mx.gpu()")
         if device_type not in self.devstr2type:
             raise MXNetError(f"unknown device type {device_type!r}")
         self.device_typeid = self.devstr2type[device_type]
@@ -45,7 +52,7 @@ class Context:
     def device(self):
         """The ``torch.device`` of this context (raises for a gpu context
         on a machine without a CUDA card)."""
-        if self.device_type == "cpu":
+        if self.device_type != "gpu":
             return torch.device("cpu")
         return resolve_device(torch.device("cuda", self.device_id))
 
@@ -89,6 +96,27 @@ def cpu(device_id=0):
 
 def gpu(device_id=0):
     return Context("gpu", device_id)
+
+
+def cpu_pinned(device_id=0):
+    """A CPU context (reference: the pinned-memory context, which maps to
+    the CPU there too)."""
+    return Context("cpu_pinned", device_id)
+
+
+def tpu(device_id=0):
+    """Raises MXNetError: the port's accelerator contexts are ``gpu()``."""
+    return Context("tpu", device_id)
+
+
+def num_gpus():
+    """The number of CUDA cards (``torch.cuda.device_count()``)."""
+    return torch.cuda.device_count()
+
+
+def num_tpus():
+    """0: the port runs on no TPU."""
+    return 0
 
 
 def current_context():

@@ -1,12 +1,15 @@
-"""Gluon of the port: parameters, blocks, layers, losses, the Trainer, the
-model zoo (``torch.nn`` modules underneath) and the device prefetcher
+"""Gluon of the port: parameters, blocks (``hybridize()`` caching the
+forward, as CUDA graphs on the card), layers, recurrent layers and cells
+(``gluon.rnn``), the contrib layers, losses, the Trainer, the model zoo
+(``torch.nn`` modules underneath) and the device prefetcher
 (``gluon.data``)."""
-from . import contrib, data, loss, model_zoo, nn, utils
+from . import contrib, data, loss, model_zoo, nn, rnn, utils
 from .block import Block, HybridBlock
-from .parameter import (DeferredInitializationError, Parameter,
+from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict, load_reference_params)
 from .trainer import Trainer
 
-__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError",
-           "Block", "HybridBlock", "Trainer", "nn", "loss", "model_zoo",
-           "utils", "data", "contrib", "load_reference_params"]
+__all__ = ["Parameter", "Constant", "ParameterDict",
+           "DeferredInitializationError", "Block", "HybridBlock", "Trainer",
+           "nn", "rnn", "loss", "model_zoo", "utils", "data", "contrib",
+           "load_reference_params"]

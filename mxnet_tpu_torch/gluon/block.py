@@ -8,21 +8,44 @@ prefix from a per-class counter (process-global outside a
 ``name_scope()``, per parent inside one), and its Parameters are named
 ``prefix + attribute``.
 
-``hybridize()`` is accepted and changes nothing: the forward runs eagerly
-either way, so a hybridized net computes exactly what the plain one does.
+``hybridize()`` caches the forward of a HybridBlock called at the top
+(not from inside another cached forward), as the reference caches a
+jit-compiled op: one entry a key (the inputs' shapes, dtypes and devices,
+train and record mode, the AMP target and ``_cache_version``), built from
+the block's functionalized forward (:mod:`._cached_op`).  On CUDA tensors
+an entry is a captured CUDA graph, forward and, under ``record()``,
+backward; on CPU tensors it runs the functionalized forward as it is.  The
+first call while parameter shapes are deferred runs eagerly and resolves
+them.  ``hybridize()`` empties the cache.  So does, at the next call,
+any parameter tensor or storage replaced by another (``cast``,
+``initialize(force_reinit=True)``, ``reset_ctx``, ``.to()``), any
+``grad_req`` changed (a graph captures which parameters it
+differentiates) and a reseed of the port's generators
+(``random.seed``/``set_state``), since a graph draws from the generator
+it was captured with.  ``set_data`` and ``load_parameters`` write in place
+and need no new entry.  ``export`` and ``SymbolBlock`` are not ported.
 """
 from __future__ import annotations
 
 import re
 import threading
+import time
+import weakref
 from contextlib import contextmanager
 
+import numpy as _np
 import torch
 
 from .. import autograd as _ag
 from .. import ndarray as _F
+from .. import _tree
+from .. import random as _random
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..context import cpu as _cpu
+from ..ndarray.ndarray import _AMP, NDArray
+from . import _cached_op
+from . import parameter as _parameter
 from .parameter import (_TRACE, DeferredInitializationError, Parameter,
                         ParameterDict, load_params)
 
@@ -45,6 +68,11 @@ class _BlockScope(threading.local):
 
 
 _NAME_SCOPE = _BlockScope()
+
+# > 0 while a hybridized block's first call runs eagerly (deferred
+# shapes): the hybridized blocks it calls run eagerly too, instead of each
+# building a cache of its own
+_EAGER = threading.local()
 
 
 class Block(torch.nn.Module):
@@ -165,16 +193,15 @@ class Block(torch.nn.Module):
 
     def cast(self, dtype):
         """Cast every parameter of self and its descendants to ``dtype``
-        (reference: Block.cast; HybridBlock needs no override, as the
-        port keeps no staged graph to drop)."""
+        (reference: Block.cast); the next cached call sees the new
+        tensors and empties the cache."""
         for child in self._children.values():
             child.cast(dtype)
         for _, p in self._params.items():
             p.cast(dtype)
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted for compatibility: the forward stays eager, so the net
-        computes exactly what it did (a staged graph is not ported)."""
+        """Hybridize every HybridBlock child (reference: Block.hybridize)."""
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
@@ -184,13 +211,79 @@ class Block(torch.nn.Module):
             p._sync_device()
         return out
 
+    def summary(self, *inputs):
+        """Run ``inputs`` through the block and print a row for each
+        child: its name, type, output shape and the number of its own
+        parameters, then their total (reference: Block.summary)."""
+        rows = {}
+
+        def make_hook(name):
+            def hook(blk, inp, out):
+                if name in rows:
+                    return
+                shape = out.shape if hasattr(out, "shape") else \
+                    [o.shape for o in out] \
+                    if isinstance(out, (list, tuple)) else "?"
+                n_params = sum(int(_np.prod(p.shape)) for p in
+                               blk._reg_params.values() if p._shape_known())
+                rows[name] = (name or "self", type(blk).__name__, shape,
+                              n_params)
+            return hook
+
+        handles = [child.register_forward_hook(make_hook(name))
+                   for name, child in self._children.items()]
+        try:
+            self(*inputs)
+        finally:
+            for h in handles:
+                h.remove()
+        header = f"{'Layer':<24}{'Type':<20}{'Output shape':<24}" \
+            f"{'Params':<12}"
+        print(header)
+        print("-" * len(header))
+        total = 0
+        for name in self._children:
+            if name not in rows:
+                continue
+            name, typ, shape, n = rows[name]
+            print(f"{name:<24}{typ:<20}{str(shape):<24}{n:<12}")
+            total += n
+        print("-" * len(header))
+        print(f"Total params (shown layers): {total}")
+
     def forward(self, *args):
         raise NotImplementedError
 
 
 class HybridBlock(Block):
     """Block with ``hybrid_forward(F, x, *args, **params)``: F is the
-    ``nd`` namespace and the registered parameters come as keywords."""
+    ``nd`` namespace and the registered parameters come as keywords.
+    ``hybridize()`` caches its forward (module docstring)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._cached_graph = {}
+        self._cache_version = 0
+        self._cached_plist = None
+        self._bound = None        # (rebinds, rng epoch, tensors) validated
+
+    def _bump_cache_version(self):
+        self._cache_version += 1
+        self._cached_graph = {}
+        self._cached_plist = None
+        self._bound = None
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        """Cache the forward from the next call on (module docstring).
+        ``static_alloc`` and ``static_shape`` are accepted, as no-ops: a
+        CUDA graph's memory and shapes are static anyway (reference: the
+        same flags, no-ops there too)."""
+        self._active = active
+        self._bump_cache_version()
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
 
     def infer_shape(self, *args):
         """Resolve deferred parameter shapes from the input shapes;
@@ -221,8 +314,88 @@ class HybridBlock(Block):
                 param.data()._set(new_value_nd)
 
     def forward(self, x, *args):
+        if self._active and _TRACE.ctx is None and \
+                not getattr(_EAGER, "depth", 0):
+            return self._call_cached_op(x, *args)
         return self.hybrid_forward(_F, x, *args,
                                    **self._resolve_params(x, *args))
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+    # -- the cached forward ----------------------------------------------
+    def _valid_params(self):
+        """The parameters, sorted by name, after dropping the cache if,
+        since it was built, a parameter's tensor or its storage was
+        replaced, its ``requires_grad`` changed (``grad_req``) or the
+        generators were reseeded; None while a shape is deferred.  The
+        check runs when ``parameter._REBINDS`` or ``random.epoch()`` has
+        moved, which every such path makes it do."""
+        plist = self._cached_plist
+        if plist is None:
+            plist = sorted(self.collect_params().items())
+            if any(p._nd is None for _, p in plist):
+                return None
+            self._cached_plist = plist
+        stamp = (_parameter._REBINDS[0], _random.epoch())
+        if self._bound is None or self._bound[0] != stamp:
+            bound = [(t, t.data_ptr(), t.requires_grad)
+                     for t in (p._nd._data for _, p in plist)]
+            if self._bound is not None and (
+                    self._bound[0][1] != stamp[1] or any(
+                        a[0] is not b[0] or a[1:] != b[1:]
+                        for a, b in zip(self._bound[1], bound))):
+                self._bump_cache_version()
+                self._cached_plist = plist
+            self._bound = (stamp, bound)
+        return plist
+
+    def _call_cached_op(self, *args):
+        """The reference's ``_call_cached_op``: look the key up, build the
+        entry if it is new, run it."""
+        plist = self._valid_params()
+        if plist is None:        # deferred shapes: this call runs eagerly
+            _EAGER.depth = getattr(_EAGER, "depth", 0) + 1
+            try:
+                return self.hybrid_forward(_F, *args,
+                                           **self._resolve_params(*args))
+            finally:
+                _EAGER.depth -= 1
+        leaves, spec = _tree.flatten(args)
+        recording = _ag.is_recording()
+        key = (spec, tuple((tuple(t.shape), t.dtype, t.device,
+                            t.requires_grad) for t in leaves),
+               _ag.is_training(), recording, self._cache_version,
+               _AMP["target"] if _AMP["on"] else None)
+        entry = self._cached_graph.get(key)
+        if entry is None:
+            entry = self._build_cache(key, plist, leaves, spec)
+        outs, out_spec = entry(leaves, recording)
+        return _tree.unflatten(out_spec, outs, NDArray._wrap)
+
+    def _build_cache(self, key, plist, leaves, spec):
+        """The reference's ``_build_cache``: the entry for ``key``, and its
+        compile event (cause ``new_block`` for the first entry, else
+        ``new_signature``; the build's seconds)."""
+        from ..parallel.functional import functionalize
+
+        t0 = time.perf_counter()
+        cause = "new_signature" if self._cached_graph else "new_block"
+        # through a weak proxy: the entry is the block's, and must not keep
+        # the block (and its graphs' memory) alive once the net is dropped
+        apply_fn, _ = functionalize(weakref.proxy(self),
+                                    train_mode=_ag.is_training(),
+                                    with_state=True)
+        device = leaves[0].device if leaves else \
+            plist[0][1]._nd._data.device
+        if device.type == "cuda":
+            entry = _cached_op.GraphForward(self.name, apply_fn, plist,
+                                            leaves, spec, key[3])
+            kind = "cuda_graph"
+        else:
+            entry = _cached_op.FunctionalForward(apply_fn, plist, spec)
+            kind = "functional"
+        self._cached_graph[key] = entry
+        _telemetry.compile_event("block", self.name,
+                                 time.perf_counter() - t0, cause, graph=kind)
+        return entry

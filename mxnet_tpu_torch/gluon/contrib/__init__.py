@@ -1,5 +1,6 @@
-"""Gluon contrib of the port: the ``Estimator`` training loop (the
-contrib layers of ``gluon.contrib.nn`` are not ported yet)."""
+"""Gluon contrib of the port: the contrib layers (``gluon.contrib.nn``)
+and the ``Estimator`` training loop."""
+from . import nn
 from .estimator import Estimator
 
-__all__ = ["Estimator"]
+__all__ = ["nn", "Estimator"]

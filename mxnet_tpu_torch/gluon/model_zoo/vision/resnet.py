@@ -3,8 +3,11 @@
 order and parameter names, in ``layout="NCHW"`` (the MXNet default) or
 ``"NHWC"`` (channel-last: activations (N, H, W, C), convolution weights
 (O, kh, kw, I), BatchNorm over axis -1).  ``thumbnail=True`` is the
-3x3-stem variant for small (CIFAR-size) inputs.  Pretrained weights and
-the ``stem="s2d"`` space-to-depth stem are not ported."""
+3x3-stem variant for small (CIFAR-size) inputs; ``stem="s2d"`` (v1) puts
+a space-to-depth rearrangement and a 5x5 stride-1 convolution in place of
+the 7x7 stride-2 stem, with the same channel order in both layouts, so
+that a stem weight carries across them by the usual OIHW <-> OHWI
+transpose.  Pretrained weights are not in the repository."""
 from __future__ import annotations
 
 from ....base import MXNetError
@@ -16,6 +19,11 @@ __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
            "resnet152_v1", "resnet18_v2", "resnet34_v2", "resnet50_v2",
            "resnet101_v2", "resnet152_v2"]
+
+
+_NO_PRETRAINED = ("pretrained weights are not in the repository; load "
+                  "reference weights with "
+                  "gluon.parameter.load_reference_params")
 
 
 def _bn_axis(layout):
@@ -138,6 +146,24 @@ class BottleneckV2(HybridBlock):
         return x + residual
 
 
+class _SpaceToDepthInput(HybridBlock):
+    """(N, C, H, W) -> (N, 4C, H/2, W/2) (or the NHWC form), channels in
+    (row in the 2x2 block, column, channel) order in both layouts: the
+    NCHW form is the space_to_depth op, whose order this is."""
+
+    def __init__(self, layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        self._cl = layout.endswith("C")
+
+    def hybrid_forward(self, F, x):
+        if self._cl:
+            n, h, w, c = x.shape
+            x = F.reshape(x, shape=(n, h // 2, 2, w // 2, 2, c))
+            x = F.transpose(x, axes=(0, 1, 3, 2, 4, 5))
+            return F.reshape(x, shape=(n, h // 2, w // 2, 4 * c))
+        return F.space_to_depth(x, block_size=2)
+
+
 class ResNetV1(HybridBlock):
     def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
                  layout="NCHW", stem="conv7", **kwargs):
@@ -145,16 +171,20 @@ class ResNetV1(HybridBlock):
         if len(layers) != len(channels) - 1:
             raise MXNetError("ResNetV1: need one channel count per stage "
                              "plus the stem's")
-        if stem != "conv7":
-            raise MXNetError(f"ResNetV1: stem {stem!r} is not ported "
-                             f"(conv7 only)")
+        if stem not in ("conv7", "s2d"):
+            raise MXNetError(f"ResNetV1: stem {stem!r} is not conv7 or s2d")
         ax = _bn_axis(layout)
         self.features = nn.HybridSequential(prefix="")
         if thumbnail:
             self.features.add(_conv3x3(channels[0], 1, 0, layout))
         else:
-            self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
-                                        use_bias=False, layout=layout))
+            if stem == "s2d":
+                self.features.add(_SpaceToDepthInput(layout=layout))
+                self.features.add(nn.Conv2D(channels[0], 5, 1, 2,
+                                            use_bias=False, layout=layout))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False, layout=layout))
             self.features.add(nn.BatchNorm(axis=ax))
             self.features.add(nn.Activation("relu"))
             self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
@@ -237,9 +267,7 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
     if num_layers not in resnet_spec:
         raise MXNetError(f"invalid resnet depth {num_layers}")
     if pretrained:
-        raise MXNetError("pretrained weights are not in the repository; "
-                         "load reference weights with "
-                         "gluon.parameter.load_reference_params")
+        raise MXNetError(_NO_PRETRAINED)
     block_type, layers, channels = resnet_spec[num_layers]
     resnet_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]

@@ -31,8 +31,8 @@ from ..context import Context, current_context
 from ..context import cpu as _cpu
 from ..ndarray.ndarray import NDArray
 
-__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError",
-           "load_reference_params"]
+__all__ = ["Parameter", "Constant", "ParameterDict",
+           "DeferredInitializationError", "load_reference_params"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -45,6 +45,12 @@ class _TraceState(threading.local):
 
 
 _TRACE = _TraceState()
+
+# how many times a parameter's tensor, its storage or its requires_grad may
+# have changed (_bind, grad_req, Module._apply): a hybridized block's cached
+# forward reads its parameters' tensors by address and captures which of
+# them are differentiated, and checks them again when this moves
+_REBINDS = [0]
 
 
 class _TraceContext:
@@ -183,6 +189,7 @@ class Parameter:
             block._parameters[attr] = self._nd._data
 
     def _init_grad(self):
+        _REBINDS[0] += 1
         var = self._nd._data
         var.requires_grad_(self._grad_req != "null")
         if self._grad_req == "null":
@@ -255,12 +262,34 @@ class Parameter:
             data = self._nd._data.detach().to(torch_dtype(dtype))
         self._bind(torch.nn.Parameter(data, requires_grad=False))
 
+    def reset_ctx(self, ctx):
+        """Move the data to ``ctx`` (one context; reference:
+        Parameter.reset_ctx): a new tensor, so cached forwards that read
+        the old one are rebuilt."""
+        if isinstance(ctx, (list, tuple)):
+            if len(ctx) != 1:
+                raise MXNetError(f"Parameter {self.name}: one device per "
+                                 f"parameter (got {list(ctx)})")
+            ctx = ctx[0]
+        device = ctx.device if isinstance(ctx, Context) else \
+            torch.device(ctx)
+        if self._nd is None:
+            if self._deferred_init:
+                init, _, default = self._deferred_init
+                self._deferred_init = (init, device, default)
+            return
+        with torch.no_grad():
+            data = self._nd._data.detach().to(device, copy=True)
+        self._bind(torch.nn.Parameter(data, requires_grad=False))
+
     def _sync_device(self):
         """After ``Module._apply`` (``.to()``, ``.float()``...): rebind to
         the owner's tensor if torch replaced it, and move the gradient
         buffer beside the data."""
         if self._nd is None:
             return
+        # torch may have swapped the storage under the same tensor object
+        _REBINDS[0] += 1
         block, attr = next((ref(), attr) for ref, attr in self._owners
                            if ref() is not None)
         var = block._parameters.get(attr)
@@ -274,6 +303,39 @@ class Parameter:
     def __repr__(self):
         return f"Parameter {self.name} (shape={self._shape}, " \
             f"dtype={self.dtype})"
+
+
+class _ConstantInit(init_mod.Initializer):
+    """Fills a Constant with its value, in the parameter's dtype."""
+
+    def __init__(self, value):
+        super().__init__()
+        self._value = value
+
+    def __call__(self, desc, arr):
+        arr._set(self._value._data.to(arr._data.dtype))
+
+
+class Constant(Parameter):
+    """A parameter that holds a fixed value (reference: gluon.Constant):
+    never differentiated (``grad_req`` stays ``"null"``), so ``Trainer``
+    never updates it, and saved and loaded with the other parameters.
+    ``initialize()`` fills it with ``value`` whatever initializer it is
+    given."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = NDArray._wrap(torch.as_tensor(_np.asarray(
+                value, dtype=_np.float32) if not hasattr(value, "dtype")
+                else _np.asarray(value)))
+        self.value = value
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=_ConstantInit(value),
+                         differentiable=False)
+
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False):
+        super().initialize(None, ctx, self.init, force_reinit)
 
 
 class ParameterDict:
@@ -326,6 +388,21 @@ class ParameterDict:
                     param.init = v
         return param
 
+    def get_constant(self, name, value=None):
+        """Get-or-create the :class:`Constant` ``prefix + name`` (shared
+        dict first); ``value`` is needed to create it."""
+        name = self._prefix + name
+        param = self._params.get(name)
+        if param is None and self._shared is not None and \
+                name in self._shared:
+            param = self._params[name] = self._shared[name]
+        if param is None:
+            if value is None:
+                raise MXNetError(f"no constant named {name} and no value "
+                                 f"given")
+            param = self._params[name] = Constant(name, value)
+        return param
+
     def update(self, other):
         for k, v in other.items():
             if k in self._params and self._params[k] is not v:
@@ -341,6 +418,11 @@ class ParameterDict:
     def zero_grad(self):
         for v in self.values():
             v.zero_grad()
+
+    def reset_ctx(self, ctx):
+        """Move every parameter here to ``ctx``."""
+        for v in self.values():
+            v.reset_ctx(ctx)
 
     def setattr(self, name, value):
         """Set attribute ``name`` of every Parameter here to ``value``,

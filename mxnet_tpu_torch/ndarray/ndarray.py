@@ -10,6 +10,7 @@ into the handle's tensor in place, so every alias sees them.
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as _np
 import torch
@@ -19,12 +20,21 @@ from ..base import MXNetError, dtype_name, numeric_types, torch_dtype
 from ..context import Context, current_context
 from ..ops.registry import get_op
 
-__all__ = ["NDArray", "invoke", "array", "waitall"]
+__all__ = ["NDArray", "invoke", "apply_fn", "array", "waitall"]
 
 # mixed-precision state, owned by contrib.amp: "wrap" is a callable
 # (opdef, fn) -> fn installed by amp.init() (reference: the same dict in
 # mxnet_tpu/ndarray/ndarray.py)
 _AMP = {"on": False, "wrap": None, "target": None}
+
+class _CaptureState(threading.local):
+    """``block``: the hybridized block whose forward this thread is
+    capturing in a CUDA graph, or None; a host read there is refused with
+    its name (HybridBlock.hybridize)."""
+    block = None
+
+
+_CAPTURE = _CaptureState()
 
 
 def waitall():
@@ -105,6 +115,11 @@ class NDArray:
         """A numpy copy (bfloat16 comes back as float32: numpy has no
         bfloat16).  A copy on the CPU too, where ``Tensor.numpy()`` would
         share the tensor's memory and see its later in-place updates."""
+        if _CAPTURE.block is not None:
+            raise MXNetError(
+                f"hybridized block {_CAPTURE.block!r} reads an array "
+                f"back to the host (asnumpy/asscalar) in its forward: a "
+                f"CUDA graph cannot capture a host read")
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -474,6 +489,30 @@ def invoke(opname, nd_args, attrs, out=None, ctx=None):
             t._set(o)
         return out
     return outs if multi else outs[0]
+
+
+def apply_fn(fn, nd_args, name="custom_fn", ctx=None):
+    """Run ``fn`` (torch tensors in, a tensor or a tuple of them out) over
+    NDArray inputs as one computation on the autograd tape: torch records
+    it while ``autograd.record()`` is on, as :func:`invoke` records an op,
+    through its inputs and through any recorded tensor ``fn`` closes over
+    (a loop body's parameters).  Non-NDArray inputs become tensors on the device of the NDArray
+    inputs; the outputs are on ``ctx`` (default: the first NDArray input's
+    context).  ``name`` is the reference's label for the tape node."""
+    device = next((a._data.device for a in nd_args
+                   if isinstance(a, NDArray)), None)
+    if device is None:
+        device = (ctx or current_context()).device
+    vals = [a._data if isinstance(a, NDArray) else
+            torch.as_tensor(_np.asarray(a), device=device) for a in nd_args]
+    with torch.set_grad_enabled(_ag.is_recording()):
+        res = fn(*vals)
+    multi = isinstance(res, (tuple, list))
+    outs = list(res) if multi else [res]
+    if ctx is not None:
+        outs = [o.to(ctx.device) for o in outs]
+    nd_outs = [NDArray._wrap(o) for o in outs]
+    return nd_outs if multi else nd_outs[0]
 
 
 def _sanitize_key(key):

@@ -165,6 +165,7 @@ def _flash_fwd_cuda(q, k, v, causal, sm_scale):
 _COUNT_LOCK = threading.Lock()
 _flash_fwd_cuda.launches = 0
 _flash_fwd_cuda.launches_by_len = {}
+_kernels.count_launches("flash_attn_fwd", _flash_fwd_cuda)
 
 
 def _causal_mask(lq, lk, k0, bk, device):

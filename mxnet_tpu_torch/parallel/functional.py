@@ -14,6 +14,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import autograd as _ag
 from .. import random as _random
+from .._tree import flatten, unflatten
 from ..gluon.parameter import (_TRACE, DeferredInitializationError,
                                _TraceContext)
 from ..ndarray.ndarray import _AMP, NDArray
@@ -35,7 +36,8 @@ def functionalize(net, train_mode=False, with_state=False):
     its new value.  The net's own Parameters are never written.
     ``apply_fn(..., read=names)`` adds to the set ``names`` the name of
     every parameter the forward read (a block that is never called reads
-    none of its parameters).
+    none of its parameters).  Inputs and outputs may be nested lists and
+    tuples of tensors (a recurrent net's states).
     """
     plist = sorted(net.collect_params().items())
     try:
@@ -54,16 +56,14 @@ def functionalize(net, train_mode=False, with_state=False):
         try:
             with _ag._scope(recording=torch.is_grad_enabled(),
                             training=train_mode):
-                out = net.forward(*(NDArray._wrap(t) for t in inputs))
+                leaves, spec = flatten(inputs)
+                out = net.forward(*unflatten(spec, leaves, NDArray._wrap))
         finally:
             _TRACE.ctx = prev
         if read is not None:
             read.update(name_of[id(p)] for p in tc.read)
-        if isinstance(out, NDArray):
-            out = out._data
-        elif isinstance(out, (list, tuple)):
-            out = tuple(o._data if isinstance(o, NDArray) else o
-                        for o in out)
+        leaves, spec = flatten(out)
+        out = unflatten(spec, leaves)
         if not with_state:
             return out
         return out, OrderedDict((name_of[id(p)], v)

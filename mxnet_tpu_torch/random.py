@@ -5,7 +5,12 @@ draw of the port (the samplers, the initializers, dropout, the random image
 ops) takes its generator from :func:`generator`; nothing uses torch's
 global generator.  The streams are torch's (Philox on the card), not the
 reference's threefry keys: a seed fixes the draws of each package, not the
-same draws in both."""
+same draws in both.
+
+``seed`` and ``set_state`` replace generator objects, and a CUDA graph
+captured by a hybridized block draws from the generator it was captured
+with: :func:`epoch` counts the replacements, and a block whose cache was
+built at another epoch drops it."""
 from __future__ import annotations
 
 import threading
@@ -14,8 +19,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["seed", "generator", "get_state", "set_state", "uniform",
-           "normal", "randint"]
+__all__ = ["seed", "generator", "get_state", "set_state", "epoch",
+           "uniform", "normal", "randint"]
 
 
 class _RngState(threading.local):
@@ -25,6 +30,13 @@ class _RngState(threading.local):
 
 
 _S = _RngState()
+_EPOCH = [0]     # generator replacements, in every thread
+
+
+def epoch():
+    """How many times ``seed``/``set_state`` replaced or reseeded the
+    generators."""
+    return _EPOCH[0]
 
 
 def _key(device):
@@ -37,6 +49,7 @@ def _key(device):
 def seed(seed_state, ctx="all"):
     """Seed the generator of ``ctx`` (a Context), or of every device with
     ``ctx="all"`` (reference: mx.random.seed)."""
+    _EPOCH[0] += 1
     if ctx == "all":
         _S.seed = int(seed_state)
         _S.generators.clear()
@@ -56,6 +69,21 @@ def generator(device):
     return gen
 
 
+def _renew(device):
+    """Replace ``device``'s generator by a fresh one at the same state (a
+    CUDA-graph capture that ends in an error can leave a generator it
+    registered unusable outside a capture); graphs captured with the old
+    one are rebuilt (``epoch``)."""
+    key = _key(device)
+    old = _S.generators.get(key)
+    if old is None:
+        return
+    gen = torch.Generator(device=key)
+    gen.set_state(old.get_state())
+    _S.generators[key] = gen
+    _EPOCH[0] += 1
+
+
 def get_state():
     """A JSON-able snapshot of this thread's random state: the seed and
     each created generator's state bytes, by device.  With
@@ -73,6 +101,7 @@ def set_state(state):
         raise MXNetError("set_state takes a state of this package's "
                          "get_state(); the reference's (its threefry key "
                          "words) cannot seed torch's generators")
+    _EPOCH[0] += 1
     _S.generators.clear()
     if state is None:
         _S.seed = 0

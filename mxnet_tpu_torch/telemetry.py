@@ -23,9 +23,14 @@ and the flight recorder use it).
   serving ``/metrics``, ``/snapshot`` and ``/healthz``, on which the
   serving engine mounts its routes (``register_http_route``).
 
-Not ported yet: the compile-event tracer and the dispatch-cache collector
-(the port traces no ``jax.jit``; CUDA-graph capture will be their
-counterpart), the snapshot's graph section, the Chrome-trace spans (the
+- **Compile events**: ``compile_event()`` / ``compile_events()``, a bounded
+  ring (``MXNET_TELEMETRY_COMPILE_EVENTS``, default 512) of the cached
+  forwards a hybridized block builds (its CUDA-graph captures, the port's
+  counterpart of the reference's jit traces), with their cause and
+  seconds.
+
+Not ported yet: the dispatch-cache collector (the port has no eager jit
+cache), the snapshot's graph section, the Chrome-trace spans (the
 profiler plane) and the cross-rank aggregation tick (``_agg_tick``, which
 ``check_stop`` calls in the reference: it comes with ``telemetry_agg``).
 """
@@ -44,7 +49,8 @@ __all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge", "histogram",
            "register_http_route", "unregister_http_route",
            "step_begin", "step_end", "step_abort", "step_scope", "phase",
            "maybe_phase", "timeline", "heartbeat", "last_heartbeat",
-           "goodput_note", "goodput_summary", "reset"]
+           "goodput_note", "goodput_summary", "compile_event",
+           "compile_events", "reset"]
 
 _LOCK = threading.RLock()
 _FAMILIES: dict = {}        # name -> _Family
@@ -720,9 +726,48 @@ def reset():
             if not fam.labelnames:
                 fam._children.setdefault((), fam._new_child())
         _STEPS.clear()
+        _COMPILE_EVENTS.clear()
         _CUR = None
         _STEP_SEQ[0] = 0
         _SLO_STATE.update(last=None, below=0, fired=False)
+
+
+# --------------------------------------------------------------------------
+# compile events: the cached forwards of hybridized blocks
+# --------------------------------------------------------------------------
+_COMPILE_CAP = max(1, _env.get_int("MXNET_TELEMETRY_COMPILE_EVENTS", 512))
+_COMPILE_EVENTS: deque = deque(maxlen=_COMPILE_CAP)
+_COMPILES_TOTAL = counter(
+    "mxnet_compile_events_total",
+    "cached forwards built by kind (block) and cause",
+    labelnames=("kind", "cause"))
+_COMPILE_HIST = histogram(
+    "mxnet_compile_seconds",
+    "seconds to build a cached forward (warm-up and CUDA-graph capture)",
+    labelnames=("kind",))
+
+
+def compile_event(kind, name, elapsed_s, cause, **extra):
+    """Record one cached forward built.  ``kind``: ``block`` (a hybridized
+    Gluon block's cache entry); ``cause``: ``new_block`` (its first entry)
+    or ``new_signature`` (another input signature, train or record mode,
+    AMP target, or an invalidated cache); ``extra`` (``graph=
+    "cuda_graph"`` or ``"functional"``) lands on the record as is."""
+    with _LOCK:
+        _COMPILE_EVENTS.append(dict({"kind": kind, "name": name,
+                                     "elapsed_s": float(elapsed_s),
+                                     "cause": cause, "time": time.time()},
+                                    **extra))
+    _COMPILES_TOTAL.labels(kind=kind, cause=cause).inc()
+    _COMPILE_HIST.labels(kind=kind).observe(elapsed_s)
+    _flight_note("compile", name=str(name), compile_kind=str(kind),
+                 cause=str(cause), elapsed_s=float(elapsed_s))
+
+
+def compile_events():
+    """The recorded compile events, oldest first."""
+    with _LOCK:
+        return [dict(e) for e in _COMPILE_EVENTS]
 
 
 # --------------------------------------------------------------------------

@@ -41,6 +41,15 @@ Serving over HTTP (phase 4b): the client's checks pass a correct port
 and fail a route that drops a token and a drain that serves the queued
 request instead of rejecting it.
 
+The Gluon frontend (phase 11): (a) autograd.grad, create_graph, a
+Function and the control flow, (b) a zoo family's hybridized forward and
+step against the eager ones and the fp32 step against the fp64 step, (d)
+the hybridized gluon.rnn word LM's step (two planted faults of the fused
+LSTM fail it) and the cells' unroll against the layer, and (e) the BERT
+recipe with the model and the loss hybridized, all at tiny sizes, CPU
+against CPU.  The six planted faults of the cache need a CUDA graph and
+are caught on the card.
+
 The serving fleet (phase 4c): the local-mode checks pass a correct port
 and fail a ``join_replica`` that copies the weights, a router that
 delivers a completion twice, a request lost after the crash and a replica
@@ -908,3 +917,93 @@ def test_resnet_recipe_check_catches_an_ignored_warmup():
     ratio, fault = chip_smoke.resnet_recipe_check(
         _tiny_resnet, 0, "cpu", batch=4, size=32, classes=10)
     assert ratio <= chip_smoke.FP32_STEP_BOUND < fault
+
+
+# -- the Gluon frontend (phase 11) -----------------------------------------------
+def test_frontend_flag_needs_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py", "--frontend"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_frontend_path_is_on_the_kernels_line():
+    assert chip_smoke.PATH_SHAPES["gluon_bert_lamb_hybrid"] == \
+        chip_smoke.BERT_SHAPE
+
+
+def test_frontend_autograd_checks_run_on_the_cpu():
+    """(a) in miniature, CPU against CPU: every reading exactly 0 (the
+    hybridized penalty runs the same ops on the CPU)."""
+    out = chip_smoke.autograd_checks(0, "cpu", widths=(16, 32), batch=4,
+                                     flow_shape=(5, 3, 8))
+    assert set(out) == {"grad", "create_graph", "hybrid grad",
+                        "hybrid create_graph", "control flow and Function"}
+    assert all(v == 0.0 for v in out.values())
+
+
+def test_frontend_zoo_checks_run_on_the_cpu():
+    """(b) in miniature: the hybridized forward and step equal the eager
+    ones, and the fp32 step lies within phase 5's bound of the fp64 step
+    (fp64 against itself: 0)."""
+    out = chip_smoke.zoo_checks(
+        0, "cpu", families=(("squeezenet1_1", 31, {}),
+                            ("resnet18_v1", 32, {"stem": "s2d"})),
+        batch=2, cpu_batch=2, classes=10)
+    for r in out.values():
+        assert r["forward"] == r["step"] == r["fp64"] == 0.0
+        assert 0.0 < r["fp32"] <= chip_smoke.FP32_STEP_BOUND
+
+
+TINY_WORD_LM = dict(vocab=50, embed=8, hidden=8, layers=2, steps=5, batch=3,
+                    dropout=0.5)
+
+
+@pytest.mark.parametrize("fault", [None, "gates_if", "first_h"])
+def test_frontend_lm_check_catches_planted_faults(fault):
+    """(d): the hybridized gluon.rnn LM's fp32 step passes, and each
+    planted fault of the fused LSTM fails it."""
+    if fault is None:
+        ratio, unroll = chip_smoke.lm_checks(0, "cpu", TINY_WORD_LM)
+        assert 0.0 < ratio <= chip_smoke.LM_BOUND
+        assert unroll <= chip_smoke.UNROLL_TOL
+    else:
+        with pytest.raises(SystemExit, match="LM step"):
+            chip_smoke.lm_checks(0, "cpu", TINY_WORD_LM, fault=fault)
+
+
+def test_frontend_bert_checks_run_on_the_cpu():
+    """(e) in miniature: the recipe with the model and the loss hybridized
+    equals the eager recipe, and its fp32 step lies within phase 9 (b)'s
+    bound of the fp64 step."""
+    out = chip_smoke.bert_hybrid_checks(0, "cpu", cfg=_tiny_bert_cfg(),
+                                        batch=2, seq=8)
+    assert out["vs eager"] == 0.0
+    assert out["vs CPU"] <= chip_smoke.GLUON_FP32_NOISE_FACTOR
+
+
+@pytest.mark.parametrize("fault", chip_smoke.FRONT_FAULTS)
+def test_frontend_fault_checks_pass_the_port(fault):
+    """The planted-fault checks pass the port on the CPU.  Every planted
+    fault needs a CUDA graph (an output returned without a copy, a graph
+    reading a replaced tensor, a failed capture answered eagerly, a graph
+    on a replaced generator, a graph differentiating a stale set of
+    parameters, a graph whose kept activations a second call overwrites),
+    and a CPU entry captures nothing: they are caught on the card.  Here
+    each fault's scope restores what it patched."""
+    from mxnet_tpu_torch import random as rnd
+    from mxnet_tpu_torch.gluon import _cached_op, block, parameter
+
+    def state():
+        G = _cached_op.GraphForward
+        return (G.replay, G.__init__, G.__call__, G._busy,
+                block.HybridBlock._bump_cache_version,
+                block.HybridBlock._valid_params, rnd.epoch,
+                parameter.Parameter.__dict__["grad_req"])
+
+    saved = state()
+    assert chip_smoke.frontend_fault_checks(0, "cpu") == {}
+    with chip_smoke.planted_frontend_fault(fault):
+        pass
+    assert state() == saved

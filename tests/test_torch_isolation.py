@@ -75,6 +75,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import mxnet_tpu_torch.parallel, mxnet_tpu_torch.contrib.amp\n"
         "import mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.callback\n"
         "import mxnet_tpu_torch.gluon.contrib, mxnet_tpu_torch.gluon.data\n"
+        "import mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.gluon.contrib.nn\n"
+        "import mxnet_tpu_torch.gluon._cached_op, mxnet_tpu_torch._tree\n"
+        "import mxnet_tpu_torch.ndarray.contrib, mxnet_tpu_torch.context\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'\n"
         "             or m.split('.')[0] == 'mxnet_tpu')\n"
         "print(bad)\n")

@@ -941,9 +941,22 @@ def test_linalg_and_contrib_namespaces():
     np.testing.assert_array_equal(
         port_nd.contrib.index_array(port_array(a)).asnumpy(),
         ref_nd.contrib.index_array(ref_array(a)).asnumpy())
-    for name in ("foreach", "while_loop", "cond"):
-        with pytest.raises(MXNetError, match="apply_fn"):
-            getattr(port_nd.contrib, name)(lambda *x: x, [], [])
+    # the control-flow operators run (over apply_fn) and agree with the
+    # reference; tests/test_torch_control_flow.py holds their gradients
+    x, s = np.ones((3, 2), "f"), np.zeros(2, "f")
+    for nd_, arr in ((port_nd, port_array), (ref_nd, ref_array)):
+        out, st = nd_.contrib.foreach(lambda v, h: (v + h, v + h), arr(x),
+                                      arr(s))
+        wl, wst = nd_.contrib.while_loop(lambda h: h.sum() < 3,
+                                         lambda h: (h, h + 1), arr(s),
+                                         max_iterations=4)
+        c = nd_.contrib.cond(lambda v: v.sum() > 0, lambda v: v * 2,
+                             lambda v: v * 3, arr(x))
+        got = [a.asnumpy() for a in (out, st, wl, wst, c)]
+        if nd_ is port_nd:
+            port_got = got
+    for p, r in zip(port_got, got):
+        np.testing.assert_array_equal(p, r)
 
 
 METHOD_CALLS = {
