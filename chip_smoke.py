@@ -8,8 +8,8 @@ Run from the repository root, with no arguments:
 (``--bert-step-seeds 1 2 3`` runs only the build and the BERT-base step
 check of phase 6 (b), once for each seed, and ``--gluon-bert-seeds 1 2
 3`` the same for phase 9 (b); ``--op-table``, ``--gluon-train``,
-``--persistence`` and ``--frontend`` run only the build and phase 8, 9,
-10 or 11.)
+``--persistence``, ``--frontend`` and ``--data`` run only the build and
+phase 8, 9, 10, 11 or 12.)
 
 Phases (any failed check exits nonzero; nothing runs on the CPU):
 
@@ -214,7 +214,31 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    replaced, an eager fallback for a host read, a graph left on the
    generator a reseed replaced, a grad_req change not noticed, two
    pending calls sharing one capture) each failing its check.  ``--frontend`` runs only the build and this phase;
-12. the kernels line (its times and launches at the main path's shape,
+12. the data path: (a) a Criteo-shaped factorization machine (13 integer
+   and 26 categorical fields hashed into 2^20 features, rank 16, batch
+   1024): a LibSVM file read by io.LibSVMIter into CSR batches on the
+   card, nd.dot of a CSR and a dense operand, its transpose_a form and the
+   gradient to the dense operand card against CPU within 1e-4 of max(1,
+   |CPU|) (a shifted row pointer planted beyond it), then 20 steps of the
+   FM example's local mode with SGD's lazy row-sparse update (the loss
+   falling, the first 5 within 1e-4 of the CPU's; ms a step); (b) 2816
+   ImageNet-shaped records (256 x 256 x 3 uint8 .npy, ~554 MB with an
+   index) read by io.ImageRecordIter at 224 x 224 (shuffle, crop,
+   mirror, ImageNet mean/std, no resize: no PIL on the card's machine,
+   os.cpu_count() decode threads): the first batch at 1 thread and at N
+   equal bit for bit and to the per-record seeds written out (a shared
+   decode stream planted and failing), the iterator's img/s alone, and
+   ResNet-50 v1 in bf16 through TrainStep.run at prefetch 0 and 2 in
+   turns (img/s beside the synthetic batch's, equal losses, a profiled
+   run of each for the busy share); (c) BERT-base samples through
+   DataLoader(4 spawned process workers, prefetch_to_device) into phase
+   9 (d)'s recipe for 10 steps: the losses bit for bit those of the same
+   batches fed from a list, every worker reporting CUDA uninitialised,
+   flash_attn_fwd 12 a step; the loader's state captured after step 5
+   restores a fresh loader to the same next batches (the restore skipped,
+   planted, fails), and a worker that reaches for the card raises.
+   ``--data`` runs only the build and this phase;
+13. the kernels line (its times and launches at the main path's shape,
    the serving fleet, 4c;
    each path's shape, times and launches under ``by_path``, the op table
    with none), then the device line.
@@ -332,7 +356,8 @@ PATH_SHAPES = {"serving": SERVING_SHAPE, "serve_http": SERVING_SHAPE,
                "llama_proxy_train": PROXY_SHAPE,
                "gluon_bert_lamb": BERT_SHAPE,
                "gluon_bert_resume": RESUME_SHAPE,
-               "gluon_bert_lamb_hybrid": BERT_SHAPE}
+               "gluon_bert_lamb_hybrid": BERT_SHAPE,
+               "gluon_bert_dataloader": BERT_SHAPE}
 # each path's attention dtype where it is not bf16
 PATH_DTYPES = {"gluon_bert_resume": RESUME_DTYPE}
 KERNEL_CASES = BUCKET_SHAPES + [PROXY_SHAPE] + [
@@ -2295,6 +2320,7 @@ def training_phase(seed):
     log(f"  hand-written kernel launches on the training path: "
         f"flash_attn_fwd {launches} (the path has no TPU kernel)")
     check(launches == 0, "the training path launched flash_attn_fwd")
+    return img_s
 
 
 # ---------------------------------------------------------------------------
@@ -7830,6 +7856,708 @@ def frontend_phase(seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the data path (LibSVM -> CSR -> a factorization machine;
+# RecordIO -> ImageRecordIter -> ResNet-50; DataLoader process workers ->
+# the BERT-LAMB recipe)
+# ---------------------------------------------------------------------------
+# (a) a Criteo-shaped factorization machine: 13 integer and 26 categorical
+# fields a row, hashed into 2^20 features (the hashing space of the FM
+# examples on Criteo), rank 16, batch 1024, SGD's lazy update
+FM_FEATURES = 2 ** 20
+FM_FIELDS = (13, 26)
+FM_RANK, FM_BATCH, FM_STEPS, FM_CPU_STEPS = 16, 1024, 20, 5
+FM_LR = 0.05
+DATA_TOL = 1e-4
+# (b) ImageNet-shaped records: 11 batches of 256 images, each a 256 x 256 x 3
+# uint8 .npy (the machine with the card has no PIL: no JPEG, no resize),
+# read at ResNet-50's 224 x 224 with a random crop and mirror
+REC_BATCH, REC_BATCHES, REC_SIDE = 256, 11, 256
+REC_SHAPE = (3, 224, 224)
+IMAGENET_NORM = dict(mean_r=123.68, mean_g=116.28, mean_b=103.53,
+                     std_r=58.395, std_g=57.12, std_b=57.375)
+REC_PREFETCH = 2
+# (c) BERT-base pretraining samples through DataLoader process workers into
+# phase 9 (d)'s recipe: 10 steps of 64 x 128, resumed after step 5
+DL_BATCH, DL_STEPS, DL_WORKERS, DL_RESUME_AT = 64, 10, 4, 5
+
+
+def _load_example(name, rel):
+    """A module of the repository's ``example/`` tree, by file path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fm_example():
+    return _load_example("fm_torch",
+                         "example/sparse/factorization_machine_torch.py")
+
+
+def write_criteo_libsvm(path, rows, seed, features=FM_FEATURES,
+                        fields=FM_FIELDS):
+    """``rows`` Criteo-shaped LibSVM lines from ``seed``: each integer
+    field a count (geometric) at its own hashed slot, valued log(1 +
+    count); each categorical field a heavy-tailed (Zipf) category hashed
+    with its field into ``features`` slots, valued 1; the label from a
+    planted linear model, so half the rows are clicks."""
+    r = np.random.RandomState(seed)
+    n_int, n_cat = fields
+    u64 = np.uint64
+    ivals = np.log1p(r.geometric(0.15, size=(rows, n_int)) - 1).astype("f")
+    islot = ((np.arange(n_int, dtype=u64) + u64(1)) * u64(0x9E3779B1)) \
+        % u64(features)
+    cats = (r.zipf(1.3, size=(rows, n_cat)) % 1000003).astype(u64)
+    field = np.arange(n_cat, dtype=u64)[None, :] + u64(n_int + 1)
+    cslot = ((field * u64(0x9E3779B1)) ^ (cats * u64(0x85EBCA77))) \
+        % u64(features)
+    idx = np.concatenate([np.broadcast_to(islot, (rows, n_int)), cslot],
+                         axis=1).astype(np.int64)
+    vals = np.concatenate([ivals, np.ones((rows, n_cat), "f")], axis=1)
+    w_true = r.randn(features).astype("f") * 0.5
+    logit = (vals * w_true[idx]).sum(axis=1) + 0.5 * r.randn(rows)
+    labels = (logit > np.median(logit)).astype(int)
+    with open(path, "w") as f:
+        for k in range(rows):
+            f.write(f"{labels[k]} " + " ".join(
+                f"{i}:{v:.6g}" for i, v in zip(idx[k], vals[k])) + "\n")
+
+
+def deviation(cand, ref):
+    """max |cand - ref| / max(1, |ref|), over every element (ref on the
+    CPU)."""
+    cand = cand.detach().to("cpu", torch.float64)
+    ref = ref.detach().to("cpu", torch.float64)
+    return float(((cand - ref).abs() / ref.abs().clamp(min=1)).max())
+
+
+def shifted_indptr(csr, row=None):
+    """The planted fault of (a): ``csr`` with one row pointer moved on by
+    one, so a nonzero changes rows."""
+    from mxnet_tpu_torch.ndarray.sparse import CSRNDArray
+
+    indptr = csr.indptr._data.clone()
+    row = csr.shape[0] // 2 if row is None else row
+    indptr[row] += 1
+    return CSRNDArray.create(csr.data._data, csr.indices._data, indptr,
+                             csr.shape, csr.context)
+
+
+def csr_dot_results(csr, dense, tdense, head):
+    """(dot(csr, dense), dot(csr, tdense, transpose_a=True), the gradient
+    of sum(dot(csr, dense) * head) to ``dense``), as tensors."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+
+    ctx = csr.context
+    v = mx.nd.array(dense, ctx=ctx)
+    v.attach_grad()
+    with autograd.record():
+        y = mx.nd.dot(csr, v)
+        loss = (y * mx.nd.array(head, ctx=ctx)).sum()
+    loss.backward()
+    yt = mx.nd.dot(csr, mx.nd.array(tdense, ctx=ctx), transpose_a=True)
+    return y._data, yt._data, v.grad._data
+
+
+def csr_dot_check(cand_csr, ref_csr, seed, rank=FM_RANK):
+    """(a)'s products on ``cand_csr``'s device against ``ref_csr``'s (the
+    CPU): {name: deviation}."""
+    r = np.random.RandomState(seed)
+    rows, cols = ref_csr.shape
+    dense = r.randn(cols, rank).astype("f")
+    tdense = r.randn(rows, rank).astype("f")
+    head = r.randn(rows, rank).astype("f")
+    cand = csr_dot_results(cand_csr, dense, tdense, head)
+    ref = csr_dot_results(ref_csr, dense, tdense, head)
+    return {name: deviation(c, w) for name, c, w in zip(
+        ("dot", "dot transpose_a", "gradient to the dense operand"),
+        cand, ref)}
+
+
+def fm_run(it, ctx, steps, seed, rank=FM_RANK, lr=FM_LR):
+    """The FM example's local mode over the LibSVMIter ``it`` (made on
+    ``ctx``) from its start, SGD's lazy update: (losses, ms a step, the
+    batches' nonzeros)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import optimizer
+
+    fm = fm_example()
+    rs = np.random.RandomState(seed)
+    features = it.data_shape[0]
+    it.reset()
+    with ctx:
+        w0 = mx.nd.zeros((1,))
+        w0.attach_grad()
+        w = mx.nd.zeros((features, 1))
+        V = mx.nd.array((rs.randn(features, rank) * 0.01).astype("f"))
+        for p in (w, V):
+            p.attach_grad()
+    updater = optimizer.get_updater(optimizer.create(
+        "sgd", learning_rate=lr, lazy_update=True))
+    batches = []
+    for b in it:
+        batches.append((b.data[0], b.label[0]))
+        if len(batches) == steps:
+            break
+    cuda = ctx.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [fm.sgd_step(x, y, w0, (w, V), lr, updater) for x, y in batches]
+    losses = [v.asscalar() for v in losses]
+    ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    return losses, ms, sum(int(x.data.shape[0]) for x, _ in batches)
+
+
+def data_fm(seed, device="cuda", features=FM_FEATURES, batch=FM_BATCH,
+            steps=FM_STEPS, cpu_steps=FM_CPU_STEPS, directory=None):
+    """(a): the LibSVM file written, read by LibSVMIter on the card and on
+    the CPU; the CSR products and the gradient card against CPU within
+    DATA_TOL of max(1, |CPU|), a shifted row pointer beyond it; ``steps``
+    lazy-SGD steps of the FM example's local mode on the card, the loss
+    falling, the first ``cpu_steps`` within DATA_TOL of the CPU's.
+    Returns the figures."""
+    import mxnet_tpu_torch as mx
+
+    card = mx.Context.from_device(torch.device(device))
+    with tempfile.TemporaryDirectory(dir=directory) as tmp:
+        path = os.path.join(tmp, "criteo.libsvm")
+        t0 = time.perf_counter()
+        write_criteo_libsvm(path, batch * steps, seed, features)
+        t1 = time.perf_counter()
+        its = []
+        for ctx in (card, mx.cpu()):
+            with ctx:
+                its.append(mx.io.LibSVMIter(data_libsvm=path,
+                                            data_shape=(features,),
+                                            batch_size=batch))
+        first, first_cpu = (next(it) for it in its)
+        csr = first.data[0]
+        check(csr.stype == "csr" and csr.context == card,
+              "LibSVMIter's batch is not a CSR array on the card")
+        devs = csr_dot_check(csr, first_cpu.data[0], seed)
+        fault = max(csr_dot_check(shifted_indptr(csr), first_cpu.data[0],
+                                  seed).values())
+        losses, ms, nnz = fm_run(its[0], card, steps, seed)
+        cpu_losses, cpu_ms, _ = fm_run(its[1], mx.cpu(), cpu_steps, seed)
+    gaps = [abs(a - b) / max(1.0, abs(b))
+            for a, b in zip(losses, cpu_losses)]
+    return {"devs": devs, "fault": fault, "losses": losses,
+            "cpu_losses": cpu_losses, "gaps": gaps, "ms": ms,
+            "cpu_ms": cpu_ms, "nnz": nnz, "write_s": t1 - t0,
+            "nnz_first": int(csr.data.shape[0])}
+
+
+def write_image_records(directory, count, side, seed):
+    """``count`` random ``side`` x ``side`` x 3 uint8 images as .npy
+    records (``recordio.pack_img``'s default) with an index; returns the
+    .rec path and its bytes."""
+    from mxnet_tpu_torch import recordio
+
+    rec = os.path.join(directory, "images.rec")
+    w = recordio.MXIndexedRecordIO(os.path.join(directory, "images.idx"),
+                                   rec, "w")
+    r = np.random.RandomState(seed)
+    for i in range(count):
+        img = np.frombuffer(r.bytes(side * side * 3), np.uint8).reshape(
+            side, side, 3)
+        w.write_idx(i, recordio.pack_img(
+            recordio.IRHeader(0, float(i % 1000), i, 0), img))
+    w.close()
+    return rec, os.path.getsize(rec)
+
+
+def image_iter(rec, threads, batch=REC_BATCH, shape=REC_SHAPE, seed=0):
+    """ImageRecordIter as a ResNet-50 ImageNet job reads: shuffled, random
+    crop and mirror, ImageNet's mean and std, no resize."""
+    import mxnet_tpu_torch as mx
+
+    return mx.io.ImageRecordIter(
+        path_imgrec=rec, data_shape=shape, batch_size=batch, shuffle=True,
+        rand_crop=True, rand_mirror=True, resize=-1, seed=seed,
+        preprocess_threads=threads, **IMAGENET_NORM)
+
+
+def decoded_batch_oracle(rec, batch=REC_BATCH, shape=REC_SHAPE, seed=0):
+    """The first batch of :func:`image_iter`, decoded here from the native
+    reader's payloads with the per-record seeding written out (numpy
+    only, no iterator)."""
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.native import NativeRecordReader
+
+    reader = NativeRecordReader(rec, batch, shuffle=True, seed=seed)
+    payloads = reader.next_batch()
+    reader.close()
+    c, h, w = shape
+    mean = np.array([IMAGENET_NORM[f"mean_{k}"] for k in "rgb"], "f")
+    std = np.array([IMAGENET_NORM[f"std_{k}"] for k in "rgb"], "f")
+    out = []
+    for index, payload in enumerate(payloads):
+        rng = np.random.RandomState((seed * 1000003 + index) % (2 ** 31))
+        img = recordio.unpack_img(payload)[1]
+        y0 = rng.randint(0, img.shape[0] - h + 1)
+        x0 = rng.randint(0, img.shape[1] - w + 1)
+        img = img[y0:y0 + h, x0:x0 + w]
+        if rng.rand() < 0.5:
+            img = img[:, ::-1]
+        out.append(((img.astype("f") - mean) / std).transpose(2, 0, 1))
+    return np.stack(out)
+
+
+@contextlib.contextmanager
+def planted_decode_fault():
+    """(b)'s planted fault: every record's crop and mirror drawn from one
+    shared stream instead of the record's own seed."""
+    from mxnet_tpu_torch import io as mio
+
+    shared = np.random.RandomState(0)
+
+    def decode(self, payload, index, out=None):
+        header, img = self._rio.unpack_img(payload)
+        return self._augment(img, shared, out), header.label
+
+    with patched(mio.ImageRecordIter, "_decode", decode):
+        yield
+
+
+def record_batch_checks(rec, threads, batch=REC_BATCH, shape=REC_SHAPE,
+                        one_thread=True):
+    """The first batch at 1 decode thread and at ``threads``, and the
+    oracle's: (1 == N bit for bit, or None without ``one_thread``; N ==
+    oracle bit for bit)."""
+    import mxnet_tpu_torch as mx
+
+    firsts = []
+    for n in ((1, threads) if one_thread else (threads,)):
+        with mx.cpu():
+            it = image_iter(rec, n, batch, shape)
+            firsts.append(next(it).data[0].asnumpy())
+        it.close()
+    oracle = decoded_batch_oracle(rec, batch, shape)
+    return (bool(np.array_equal(firsts[0], firsts[1])) if one_thread
+            else None, bool(np.array_equal(firsts[-1], oracle)))
+
+
+def loader_img_s(rec, threads, batch=REC_BATCH, shape=REC_SHAPE):
+    """ImageRecordIter alone: one epoch on the host, img/s."""
+    import mxnet_tpu_torch as mx
+
+    with mx.cpu():
+        it = image_iter(rec, threads, batch, shape)
+        t0 = time.perf_counter()
+        n = sum(b.data[0].shape[0] - b.pad for b in it)
+        dt = time.perf_counter() - t0
+    it.close()
+    return n / dt, n
+
+
+def nchw_front(net):
+    """``net`` (NHWC) behind a transpose from the iterator's NCHW, on the
+    card, so the loader's batches feed bench.py's NHWC ResNet-50."""
+    from mxnet_tpu_torch.gluon import HybridBlock
+
+    class NCHWFront(HybridBlock):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def hybrid_forward(self, F, x):
+            return self.inner(F.transpose(x, axes=(0, 2, 3, 1)))
+
+    return NCHWFront(net)
+
+
+def record_training_runs(rec, net, threads, order, device="cuda",
+                         profile=False):
+    """One epoch of ``rec`` through ``TrainStep.run`` (SGD 0.1 / 0.9, bf16)
+    for each prefetch depth in ``order``, each run from ``net``'s weights
+    and a fresh iterator (the same batches): [(prefetch, losses, seconds,
+    images)].  ``profile``: under the profiler (its busy share)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    out = []
+    for prefetch in order:
+        step = TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                         optimizer="sgd", optimizer_params=TRAIN_OPT,
+                         dtype="bfloat16", device=device)
+        with mx.cpu():      # host batches: TrainStep stages them
+            it = image_iter(rec, threads)
+        batches = ((b.data[0], b.label[0]) for b in it)
+
+        def run():
+            return step.run(batches, prefetch=prefetch)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profile:
+            holder = []
+            log(f"  prefetch {prefetch}, profiled:")
+            log_device_profile(lambda: holder.append(run()),
+                               TRAIN_KERNEL_GROUPS, n_top=4)
+            losses = holder[0]
+        else:
+            losses = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        it.close()
+        out.append((prefetch, [v.item() for v in losses], dt,
+                    REC_BATCH * len(losses)))
+        del step
+    return out
+
+
+def synthetic_img_s(net, steps=10, warmup=2):
+    """bench.py's configuration on one synthetic batch already on the card
+    (phase 5 (4)'s measure, fewer steps)."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    x, y = train_batch(0, REC_BATCH)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().cuda()
+    yt = torch.from_numpy(y).cuda()
+    step = TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                     optimizer="sgd", optimizer_params=TRAIN_OPT,
+                     dtype="bfloat16")
+    for _ in range(warmup):
+        step(xt, yt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(xt, yt)
+    torch.cuda.synchronize()
+    return REC_BATCH * steps / (time.perf_counter() - t0)
+
+
+def data_records(seed, synthetic_phase5=None):
+    """(b): the records written, their first batch at 1 thread and at
+    os.cpu_count() equal bit for bit and equal to the oracle (a planted
+    shared-stream decode must fail it), the iterator's img/s alone, then
+    ResNet-50 v1 (bench.py's bf16 configuration) through TrainStep.run at
+    prefetch 0 and REC_PREFETCH in turns (0, 2, 2, 0) over the same
+    batches, each run's img/s beside the synthetic batch's, the losses
+    equal, and a profiled run of each for the card's busy share."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+
+    threads = os.cpu_count() or 1
+    out = {"threads": threads}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rec, nbytes = write_image_records(tmp, REC_BATCH * REC_BATCHES,
+                                          REC_SIDE, seed)
+        out["write_s"], out["bytes"] = time.perf_counter() - t0, nbytes
+        log(f"  {REC_BATCH * REC_BATCHES} records of {REC_SIDE}x{REC_SIDE}"
+            f"x3 uint8 .npy, {nbytes / 1e6:.1f} MB, written in "
+            f"{out['write_s']:.2f} s")
+        t1 = time.perf_counter()
+        same, oracle = record_batch_checks(rec, threads)
+        log(f"  first batch: 1 thread == {threads} threads bit for bit: "
+            f"{same}; == the oracle (per-record seeds written out): "
+            f"{oracle}")
+        check(same and oracle, "ImageRecordIter's batch depends on its "
+                               "thread count or differs from the oracle")
+        with planted_decode_fault():
+            f_oracle = record_batch_checks(rec, threads,
+                                           one_thread=False)[1]
+        log(f"  planted shared-stream decode: {threads} threads == the "
+            f"oracle {f_oracle}")
+        check(not f_oracle, "the record check passes a shared-stream "
+                            "decode")
+        t2 = time.perf_counter()
+        out["loader_img_s"], n = loader_img_s(rec, threads)
+        log(f"  [{gpu_line()}] ImageRecordIter alone ({threads} decode "
+            f"threads, batches on the host): {out['loader_img_s']:.1f} "
+            f"img/s over {n} images")
+
+        t3 = time.perf_counter()
+        net = init_net(resnet50, seed, mx.gpu(0))
+        front = nchw_front(net)
+        fa_mod._flash_fwd_cuda.launches = 0
+        out["synthetic_img_s"] = synthetic_img_s(front)
+        t4 = time.perf_counter()
+        runs = record_training_runs(rec, front, threads,
+                                    (0, REC_PREFETCH, REC_PREFETCH, 0))
+        t5 = time.perf_counter()
+        record_training_runs(rec, front, threads, (0, REC_PREFETCH),
+                             profile=True)
+        out["launches"] = fa_mod._flash_fwd_cuda.launches
+        log(f"  seconds: the checks {t2 - t1:.1f}, the iterator alone "
+            f"{t3 - t2:.1f}, the net and the synthetic batch {t4 - t3:.1f}, "
+            f"4 runs {t5 - t4:.1f}, 2 profiled {time.perf_counter() - t5:.1f}")
+    base = [r for r in runs if r[0] == 0]
+    allowed, gap = resume_rule(dict(enumerate(base[0][1])),
+                               dict(enumerate(base[1][1])))
+    worst = max(abs(a - b) for r in runs for a, b in zip(r[1], base[0][1]))
+    out["img_s"] = {}
+    for p, losses, secs, n in runs:
+        out["img_s"].setdefault(p, []).append(n / secs)
+    ph5 = "not run" if synthetic_phase5 is None else \
+        f"{synthetic_phase5:.1f}"
+    log(f"  losses (prefetch 0): {' '.join(f'{v:.4f}' for v in base[0][1])}"
+        f"; largest gap between runs {worst:.3e} (prefetch 0 against "
+        f"itself {gap:.3e}, allowed {allowed:.3e})")
+    log(f"  [{gpu_line()}] ResNet-50 bf16 from the records, img/s: "
+        + ", ".join(f"prefetch {p} " + " / ".join(f"{v:.1f}" for v in vs)
+                    for p, vs in out["img_s"].items())
+        + f"; synthetic batch on the card {out['synthetic_img_s']:.1f} "
+          f"(phase 5 in this run: {ph5})")
+    check(all(len(r[1]) == REC_BATCHES for r in runs), "a run lost a batch")
+    check(all(math.isfinite(v) for r in runs for v in r[1]),
+          "non-finite loss from the records")
+    check(worst <= allowed, f"TrainStep.run with prefetch {REC_PREFETCH} "
+                            f"gives other losses ({worst:.3e} > "
+                            f"{allowed:.3e})")
+    check(out["launches"] == 0, "the record path launched flash_attn_fwd")
+    del net, front
+    torch.cuda.empty_cache()
+    return out
+
+
+class BertSamples:
+    """BERT-base pretraining samples (ids, MLM labels, NSP label) as a
+    Dataset; each item also records whether its process had initialised
+    CUDA (``torch.cuda.is_initialized()``), the field (c) reads from the
+    workers.  ``touch_card`` makes the item reach for the card (the
+    check that such a worker fails loudly)."""
+
+    def __init__(self, ids, mlm, nsp, touch_card=False):
+        self.ids, self.mlm, self.nsp = ids, mlm, nsp
+        self.touch_card = touch_card
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __getitem__(self, i):
+        if self.touch_card:
+            torch.zeros(1, device="cuda")
+        return (self.ids[i], self.mlm[i], self.nsp[i],
+                torch.cuda.is_initialized())
+
+
+def bert_samples(seed, n, seq, vocab):
+    ids, labels = bert_batch(seed, n, seq, vocab)
+    mlm, nsp = bert_labels(labels)
+    return ids, mlm, nsp
+
+
+def bert_loader(samples, seed, workers, device, batch=DL_BATCH):
+    """The DataLoader of (c): shuffled from ``seed``, ``workers`` spawned
+    process workers, batches prefetched to ``device``."""
+    from mxnet_tpu_torch.gluon import data
+
+    return data.DataLoader(
+        samples, batch_size=batch,
+        sampler=data.RandomSampler(len(samples), seed=seed),
+        num_workers=workers, thread_pool=False,
+        prefetch_to_device=torch.device(device))
+
+
+def _host_batch(batch):
+    return tuple(a.asnumpy() for a in batch[:3])
+
+
+def dataloader_recipe(seed, device="cuda", cfg=None, steps=DL_STEPS,
+                      workers=DL_WORKERS, seq=BERT_SEQ, batch=DL_BATCH,
+                      resume_at=DL_RESUME_AT):
+    """(c): phase 9 (d)'s recipe (AMP bf16, dropout 0.1, LAMB, clip) for
+    ``steps`` steps fed by the DataLoader, and again fed the same batches
+    from a list; then the loader's next epoch, its state captured by
+    ``capture_train_state`` after DL_RESUME_AT batches and the batches
+    after it kept (``resume_at`` of them).  Returns the figures."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import lifecycle
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+
+    cfg = cfg or bert.BertConfig()
+    ctx = mx.Context.from_device(torch.device(device))
+    samples = BertSamples(*bert_samples(seed, batch * steps, seq,
+                                        cfg.vocab_size))
+    order = np.random.RandomState(seed).permutation(len(samples))
+
+    def recipe(feed, timed=False):
+        """(losses, batches, flash_attn_fwd launches over the steps, the
+        seconds to the first batch and for the steps after it)."""
+        net = init_bert(cfg, seed, ctx, seq)
+        trainer = bert_recipe_trainer(net, GLUON_TIMED_OPT,
+                                      GLUON_TIMED_SCHEDULE)
+        amp.init()
+        try:
+            amp.init_trainer(trainer)
+            mx.random.seed(seed + 1)
+            fa_mod._flash_fwd_cuda.launches = 0
+            losses, batches, t = [], [], [time.perf_counter()]
+            for b in feed:
+                if not batches:
+                    t.append(time.perf_counter())
+                batches.append(b)
+                losses.append(bert_recipe_step(net, trainer, *b[:3])[0])
+                if len(losses) == steps:
+                    break
+            losses = [v.asscalar() for v in losses]
+            t.append(time.perf_counter())
+            return (losses, batches, fa_mod._flash_fwd_cuda.launches,
+                    t[1] - t[0], t[2] - t[1])
+        finally:
+            amp.disable()
+
+    as_list = [tuple(mx.nd.array(a[order[k * batch:(k + 1) * batch]],
+                                 ctx=ctx, dtype="int32")
+                     for a in (samples.ids, samples.mlm, samples.nsp))
+               for k in range(steps)]
+    want, _, _, _, list_secs = recipe(as_list)
+    loader = bert_loader(samples, seed, workers, device, batch)
+    with loader:
+        feed = iter(loader)
+        got, batches, launches, first_secs, secs = recipe(feed)
+        feed.close()
+        inited = [bool(v) for b in batches for v in b[3].asnumpy()]
+        on_card = all(a.context == ctx for b in batches for a in b)
+        it = iter(loader)
+        for _ in range(resume_at):
+            next(it)
+        state = lifecycle.capture_train_state(step=resume_at,
+                                              dataloader=loader)
+        tail = [_host_batch(b) for b in it]
+    return {"losses": got, "list_losses": want, "launches": launches,
+            "seconds": secs, "list_seconds": list_secs,
+            "first_seconds": first_secs, "inited": inited,
+            "on_card": on_card,
+            "state": state, "tail": tail, "samples": samples,
+            "batch": batch}
+
+
+def resume_checks(out, seed, device="cuda", workers=DL_WORKERS):
+    """A fresh loader (another sampler seed, as a relaunched job makes
+    it) against the batches of (c)'s first loader after the capture: its
+    first epoch as it comes (the planted fault: the restore skipped), then
+    after ``restore_train_state`` of the captured state.  Returns (the
+    unrestored batches equal, the restored ones equal), bit for bit; one
+    pool serves both."""
+    from mxnet_tpu_torch import lifecycle
+
+    def equal(loader):
+        got = [_host_batch(b) for b in loader][:len(out["tail"])]
+        return len(got) == len(out["tail"]) > 0 and all(
+            np.array_equal(a, b) for r, t in zip(got, out["tail"])
+            for a, b in zip(r, t))
+
+    with bert_loader(out["samples"], seed + 17, workers, device,
+                     out["batch"]) as fresh:
+        unrestored = equal(fresh)
+        lifecycle.restore_train_state(out["state"], dataloader=fresh)
+        return unrestored, equal(fresh)
+
+
+def touching_worker_fails(seed, device="cuda", vocab=30522, seq=BERT_SEQ):
+    """A dataset that reaches for the card inside a worker: the loader
+    raises MXNetError (the worker sees no card), naming the batch."""
+    import mxnet_tpu_torch as mx
+
+    samples = BertSamples(*bert_samples(seed, DL_BATCH, seq, vocab),
+                          touch_card=True)
+    loader = bert_loader(samples, seed, 1, device)
+    try:
+        with loader:
+            next(iter(loader))
+    except mx.MXNetError as e:
+        return str(e).splitlines()[0]
+    return None
+
+
+def data_phase(seed, synthetic_phase5=None):
+    """Phase 12: (a) to (c); returns flash_attn_fwd's launches over (c)'s
+    loader-fed steps, the gluon_bert_dataloader path."""
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+
+    t0 = time.perf_counter()
+    log(f"== data 1: a Criteo-shaped factorization machine ({FM_FIELDS[0]} "
+        f"integer + {FM_FIELDS[1]} categorical fields hashed into "
+        f"{FM_FEATURES} features, rank {FM_RANK}, batch {FM_BATCH}): "
+        f"LibSVM -> LibSVMIter -> CSR -> nd.dot -> SGD's lazy update")
+    fm = data_fm(seed)
+    log(f"  LibSVM file of {FM_BATCH * FM_STEPS} rows written in "
+        f"{fm['write_s']:.2f} s; the first batch {fm['nnz_first']} "
+        f"nonzeros")
+    log("  card vs CPU, of max(1, |CPU|): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in fm["devs"].items())
+        + f"; bound {DATA_TOL:g}; a shifted row pointer: "
+          f"{fm['fault']:.3e}")
+    check(max(fm["devs"].values()) <= DATA_TOL,
+          "the CSR product on the card is off the CPU's")
+    check(fm["fault"] > DATA_TOL, "the CSR check misses a shifted row "
+                                  "pointer")
+    log(f"  losses: {' '.join(f'{v:.4f}' for v in fm['losses'])}")
+    log(f"  the first {FM_CPU_STEPS} against the CPU's: " + " ".join(
+        f"{g:.2e}" for g in fm["gaps"]) + f"; bound {DATA_TOL:g}")
+    check(all(math.isfinite(v) for v in fm["losses"]), "non-finite FM loss")
+    check(fm["losses"][-1] < fm["losses"][0], "the FM loss did not fall")
+    check(max(fm["gaps"]) <= DATA_TOL, "the FM steps on the card are off "
+                                       "the CPU's")
+    log(f"  [{gpu_line()}] {fm['ms']:.2f} ms a step on the card over "
+        f"{FM_STEPS} steps ({fm['nnz']} nonzeros), the CPU "
+        f"{fm['cpu_ms']:.2f} ms")
+    t1 = time.perf_counter()
+    log(f"  (a) {t1 - t0:.1f} s")
+
+    log(f"== data 2: {REC_BATCHES} batches of {REC_BATCH} ImageNet-shaped "
+        f"records -> ImageRecordIter {REC_SHAPE} (shuffle, crop, mirror, "
+        f"ImageNet mean/std) -> ResNet-50 v1 bf16 through TrainStep.run")
+    data_records(seed, synthetic_phase5)
+    t2 = time.perf_counter()
+    log(f"  (b) {t2 - t1:.1f} s")
+
+    cfg = bert.BertConfig()
+    log(f"== data 3: BERT-base samples ({DL_BATCH} x {BERT_SEQ} a batch) "
+        f"through DataLoader({DL_WORKERS} spawned process workers, "
+        f"prefetch_to_device) into phase 9 (d)'s recipe, {DL_STEPS} steps")
+    out = dataloader_recipe(seed, cfg=cfg)
+    t3 = time.perf_counter()
+    planted, same_tail = resume_checks(out, seed)
+    t4 = time.perf_counter()
+    gap = max(abs(a - b) for a, b in zip(out["losses"], out["list_losses"]))
+    log(f"  losses: {' '.join(f'{v:.6f}' for v in out['losses'])}; fed "
+        f"from a list: largest gap {gap:.3e}")
+    log(f"  workers' torch.cuda.is_initialized(): {sorted(set(out['inited']))}"
+        f" over {len(out['inited'])} samples; batches on the card: "
+        f"{out['on_card']}; flash_attn_fwd launches {out['launches']}; "
+        f"the first batch after {out['first_seconds']:.2f} s (the pool's "
+        f"start), the steps after it {out['seconds']:.2f} s (fed from a "
+        f"list {out['list_seconds']:.2f} s)")
+    check(gap == 0, "the loader-fed recipe's losses differ from the "
+                    "list-fed ones")
+    check(out["inited"] and not any(out["inited"]),
+          "a DataLoader worker initialised CUDA")
+    check(out["on_card"], "the loader's batches are not on the card")
+    check(out["launches"] == cfg.num_layers * DL_STEPS,
+          f"flash_attn_fwd launched {out['launches']} times in {DL_STEPS} "
+          f"steps, expected {cfg.num_layers * DL_STEPS}")
+    log(f"  resume after step {DL_RESUME_AT}: a fresh loader restored by "
+        f"restore_train_state gives the next {DL_STEPS - DL_RESUME_AT} "
+        f"batches bit for bit: {same_tail}; planted, the restore skipped: "
+        f"{planted} (state {json.dumps(out['state']['dataloader'])}; "
+        f"{t4 - t3:.1f} s)")
+    check(same_tail, "the restored loader's batches differ")
+    check(not planted, "the resume check passes a loader that was not "
+                       "restored")
+    t5 = time.perf_counter()
+    err = touching_worker_fails(seed)
+    log(f"  a dataset that reaches for the card in a worker: "
+        f"{err or 'no error'} ({time.perf_counter() - t5:.1f} s)")
+    check(err is not None, "a worker reached the card without an error")
+    log(f"  (c) {time.perf_counter() - t2:.1f} s; phase 12 "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out["launches"]
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -7864,6 +8592,9 @@ def parse_args(argv=None):
     parser.add_argument("--frontend", action="store_true",
                         help="run only the build and phase 11, the Gluon "
                              "frontend (hybridize() as CUDA graphs)")
+    parser.add_argument("--data", action="store_true",
+                        help="run only the build and phase 12, the data "
+                             "path")
     parser.add_argument("--resume-worker", action="store_true",
                         help="run the fp16 BERT recipe under "
                              "run_with_recovery, a step a line to "
@@ -7974,6 +8705,14 @@ def main():
         log(f"== done in {time.perf_counter() - t_all:.1f} s")
         return 0
 
+    if args.data:
+        log("== the data path (phase 12 alone)")
+        n = data_phase(args.seed)
+        check(n > 0, "flash_attn_fwd never ran on the "
+                     "gluon_bert_dataloader path")
+        log(f"== done in {time.perf_counter() - t_all:.1f} s")
+        return 0
+
     if args.frontend:
         log("== the Gluon frontend (phase 11 alone)")
         n = frontend_phase(args.seed)
@@ -8009,7 +8748,7 @@ def main():
     log(f"  serving phase took {t1 - t0:.1f} s")
 
     log("== training: ResNet-50 v1 widths")
-    training_phase(args.seed)
+    resnet_img_s = training_phase(args.seed)
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
     log(f"  resnet phase took {t2 - t1:.1f} s")
@@ -8055,7 +8794,15 @@ def main():
         "graphs")
     launches["gluon_bert_lamb_hybrid"] = frontend_phase(args.seed)
     torch.cuda.empty_cache()
-    log(f"  frontend phase took {time.perf_counter() - t7:.1f} s")
+    t8 = time.perf_counter()
+    log(f"  frontend phase took {t8 - t7:.1f} s")
+
+    log("== the data path: LibSVM -> CSR -> a factorization machine, "
+        "RecordIO -> ImageRecordIter -> ResNet-50, DataLoader process "
+        "workers -> the BERT-LAMB recipe")
+    launches["gluon_bert_dataloader"] = data_phase(args.seed, resnet_img_s)
+    torch.cuda.empty_cache()
+    log(f"  data phase took {time.perf_counter() - t8:.1f} s")
     for path, n in launches.items():
         check(n > 0, f"flash_attn_fwd never ran on the {path} path")
         row["by_path"][path]["launches"] = n

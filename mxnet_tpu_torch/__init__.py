@@ -18,7 +18,11 @@ dumps) and ``lifecycle`` (graceful stop and exit codes).  Persistence:
 ``nd.save``/``nd.load``, ``save_parameters``, ``Trainer.save_states`` and
 ``checkpoint.CheckpointManager`` / ``run_with_recovery`` read and write
 the reference's files, and a training loop that polls
-``lifecycle.check_stop()`` resumes exactly after a preemption.  The package
+``lifecycle.check_stop()`` resumes exactly after a preemption.  Data:
+``gluon.data`` (datasets, samplers, the DataLoader with thread or process
+workers, ``vision``), ``io`` (ImageRecordIter over a native C++ RecordIO
+reader, CSVIter, LibSVMIter, MNISTIter), ``recordio``, ``image`` and
+``nd.sparse`` (row_sparse and csr storage, the CSR product).  The package
 imports ``torch`` and numpy, never ``jax`` and nothing of ``mxnet_tpu``.
 """
 from __future__ import annotations
@@ -34,6 +38,7 @@ from . import contrib, gluon, lr_scheduler, metric, optimizer  # noqa: E402
 from . import parallel  # noqa: E402
 from . import env, fault, flight_recorder, lifecycle, telemetry  # noqa: E402
 from . import callback, checkpoint  # noqa: E402
+from . import image, io, native, recordio  # noqa: E402
 
 env.apply_env()
 
@@ -43,4 +48,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "initializer", "random", "gluon", "optimizer", "lr_scheduler",
            "metric", "parallel",
            "contrib", "env", "fault", "telemetry", "flight_recorder",
-           "lifecycle", "checkpoint", "callback"]
+           "lifecycle", "checkpoint", "callback", "io", "recordio",
+           "image", "native"]

@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its native host
+libraries.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, ``_build/<name>-<hash>.so`` (the
@@ -7,8 +8,13 @@ sources and the flags, so an edited source rebuilds and an unchanged one is
 reused.  Nothing is built when the module is imported: :func:`load` builds
 at first use, and :func:`build_all` builds every stale source in turn.
 
-A missing ``nvcc`` or a failed build raises :class:`MXNetError`; there is
-no other route to a kernel.
+A ``csrc/<name>.cc`` is host code (the data path's RecordIO reader): the
+host compiler builds it the same way, with ``HOST_FLAGS``, when
+:func:`load_host` first asks for it.  It is no kernel: :func:`sources` and
+:func:`build_all` leave it out.
+
+A missing compiler or a failed build raises :class:`MXNetError`; there is
+no other route to a kernel or a reader.
 """
 from __future__ import annotations
 
@@ -23,12 +29,13 @@ from pathlib import Path
 
 from .base import MXNetError
 
-__all__ = ["load", "build_all", "sources", "build_log"]
+__all__ = ["load", "load_host", "build_all", "sources", "build_log"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 # ctypes signatures of each library's exported C functions
 _SIGNATURES = {
@@ -39,6 +46,23 @@ _SIGNATURES = {
             + [ctypes.c_float, ctypes.c_int,
                ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]),
         "mxt_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
+    "recordio_reader": {
+        "mxtpu_reader_create": (
+            ctypes.c_void_p,
+            [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_uint64, ctypes.c_int]),
+        "mxtpu_reader_free": (None, [ctypes.c_void_p]),
+        "mxtpu_reader_num_records": (ctypes.c_int64, [ctypes.c_void_p]),
+        "mxtpu_reader_reset": (None, [ctypes.c_void_p, ctypes.c_uint64]),
+        "mxtpu_reader_next_batch": (
+            ctypes.c_int,
+            [ctypes.c_void_p,
+             ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+             ctypes.POINTER(ctypes.POINTER(ctypes.c_uint64)),
+             ctypes.POINTER(ctypes.c_uint64),
+             ctypes.POINTER(ctypes.c_uint64)]),
+        "mxtpu_reader_read_errors": (ctypes.c_int64, [ctypes.c_void_p]),
     },
 }
 
@@ -61,9 +85,26 @@ def _nvcc():
                      "port's CUDA kernels cannot be built")
 
 
+def _gxx():
+    for cand in (os.environ.get("CXX"), shutil.which("g++")):
+        if cand and shutil.which(cand):
+            return cand
+    raise MXNetError("g++ not found (on PATH or as CXX); the port's native "
+                     "host libraries cannot be built")
+
+
+def _host(name):
+    return (_CSRC / f"{name}.cc").exists()
+
+
 def _target(name):
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{name}.cu"]:
+    if _host(name):
+        h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+        deps = [_CSRC / f"{name}.cc"]
+    else:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        deps = sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{name}.cu"]
+    for path in deps:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return _BUILD / f"{name}-{h.hexdigest()[:16]}.so"
@@ -85,13 +126,19 @@ def _build(name):
         return
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+    if _host(name):
+        src = f"{name}.cc"
+        cmd = [_gxx(), *HOST_FLAGS, str(_CSRC / src), "-o", str(tmp)]
+    else:
+        src = f"{name}.cu"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise MXNetError(f"nvcc failed to build csrc/{name}.cu "
-                         f"(exit {proc.returncode}):\n{proc.stdout}")
+        raise MXNetError(f"{os.path.basename(cmd[0])} failed to build "
+                         f"csrc/{src} (exit {proc.returncode}):\n"
+                         f"{proc.stdout}")
     so.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, so)
 
@@ -115,6 +162,18 @@ def build_all():
                 _build(name)
                 _loaded[name] = _open(name)
     return time.perf_counter() - t0
+
+
+def load_host(name):
+    """The ctypes library of the host source ``csrc/<name>.cc``, built
+    with the host compiler first if needed."""
+    if not _host(name):
+        raise MXNetError(f"no host source csrc/{name}.cc")
+    with _lock:
+        if name not in _loaded:
+            _build(name)
+            _loaded[name] = _open(name)
+    return _loaded[name]
 
 
 def load(name):

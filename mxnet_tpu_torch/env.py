@@ -53,9 +53,13 @@ Wired vars:
   ``async_`` (default 0).
 - ``MXNET_PREFETCH_BUFFER``: ``PrefetchIterator``'s depth (default 2; 0 =
   staged on the caller's thread).
+- ``MXNET_CPU_WORKER_NTHREADS``: ``io.ImageRecordIter``'s decode-pool
+  width (default 4).
+- ``MXNET_MP_START_METHOD``: the DataLoader's process-worker start method
+  (default spawn; forkserver or fork on request).
 
 The knobs of planes not ported yet (planner, graph, guard, ZeRO, compile
-cache, tuning, the rest of the data path), of the lifecycle's watchdog
+cache, tuning), of the lifecycle's watchdog
 (``MXNET_WATCHDOG_TIMEOUT_S``) and of the cross-process stop agreement
 (``MXNET_STOP_SYNC_EVERY``) wait for their code.
 """
@@ -76,6 +80,7 @@ __all__ = ["get_str", "get_int", "get_bool", "get_float",
            "fleet_probe_interval_ms", "fleet_eject_threshold",
            "preemption_checkpoint_default",
            "checkpoint_async_default", "prefetch_buffer",
+           "cpu_worker_nthreads",
            "describe", "apply_env"]
 
 
@@ -175,6 +180,12 @@ def checkpoint_async_default():
     """Default for CheckpointManager.save(async_=None)
     (MXNET_CHECKPOINT_ASYNC, default off)."""
     return get_bool("MXNET_CHECKPOINT_ASYNC", False)
+
+
+def cpu_worker_nthreads():
+    """Default worker-pool width of the data path's decode and augment
+    stages (MXNET_CPU_WORKER_NTHREADS, default 4)."""
+    return max(1, get_int("MXNET_CPU_WORKER_NTHREADS", 4))
 
 
 def prefetch_buffer():
@@ -317,6 +328,10 @@ _WIRED = (
      "(default 0)"),
     ("MXNET_PREFETCH_BUFFER", "PrefetchIterator depth (default 2; 0 = "
      "synchronous staging)"),
+    ("MXNET_CPU_WORKER_NTHREADS", "ImageRecordIter decode-pool width "
+     "(default 4)"),
+    ("MXNET_MP_START_METHOD", "DataLoader process-worker start method "
+     "(default spawn)"),
     ("MXNET_SERVING_PORT", "serving.serve HTTP endpoint port (default 0 = "
      "pick free; routes mount beside /metrics)"),
     ("MXNET_SERVING_MAX_BATCH", "serving decode-batch admission cap "

@@ -1,8 +1,8 @@
 """Gluon of the port: parameters, blocks (``hybridize()`` caching the
 forward, as CUDA graphs on the card), layers, recurrent layers and cells
 (``gluon.rnn``), the contrib layers, losses, the Trainer, the model zoo
-(``torch.nn`` modules underneath) and the device prefetcher
-(``gluon.data``)."""
+(``torch.nn`` modules underneath) and the data path (``gluon.data``:
+datasets, samplers, the DataLoader, the device prefetcher, ``vision``)."""
 from . import contrib, data, loss, model_zoo, nn, rnn, utils
 from .block import Block, HybridBlock
 from .parameter import (Constant, DeferredInitializationError, Parameter,

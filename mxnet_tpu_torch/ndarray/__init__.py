@@ -3,9 +3,10 @@ import (counterpart of ``mxnet_tpu/ndarray/__init__.py``), the helpers
 with MXNet's positional signatures (``array``, ``zeros``, ``ones``,
 ``full``, ``empty``, ``arange``, ``eye``, ``concat``, ``stack``,
 ``add_n``, the ``*_like`` ops, the scalar-tolerant ``maximum`` /
-``minimum`` / ``power`` and ``dot``), ``save`` / ``load`` (the ``.params``
-container), and the ``linalg``, ``contrib``, ``image`` and ``random``
-namespaces."""
+``minimum`` / ``power`` and the storage-dispatching ``dot``),
+``cast_storage`` / ``sparse_retain``, ``save`` / ``load`` (the ``.params``
+container), and the ``linalg``, ``contrib``, ``image``, ``random`` and
+``sparse`` namespaces."""
 from __future__ import annotations
 
 import inspect as _inspect
@@ -23,7 +24,8 @@ __all__ = ["NDArray", "array", "invoke", "waitall", "zeros", "ones", "full",
            "empty", "arange", "eye", "concat", "stack", "add_n",
            "zeros_like", "ones_like", "maximum", "minimum", "power", "dot",
            "list_ops", "save", "load", "linalg", "contrib", "image",
-           "random"]
+           "random", "sparse", "RowSparseNDArray", "CSRNDArray",
+           "cast_storage", "sparse_retain"]
 
 
 def _make_op_func(opname, od):
@@ -129,14 +131,34 @@ _dense_dot = dot   # generated from the op table above
 
 
 def dot(lhs, rhs, transpose_a=False, transpose_b=False, out=None, **kw):
-    """The dense product of the op table.  A sparse operand (the CSR
-    product) waits for the port of ``ndarray/sparse.py`` and raises."""
-    for a in (lhs, rhs):
-        if getattr(a, "stype", "default") != "default":
-            raise MXNetError("dot: sparse storage is not ported yet (it "
-                             "waits for ndarray/sparse.py)")
+    """The product of the op table; a CSR ``lhs`` with a dense ``rhs``
+    takes the sparse product (``sparse.dot_csr_dense``: a gather and an
+    index_add over the nonzeros), as the reference's dot FComputeEx does.
+    Other sparse operands are materialized."""
+    from . import sparse
+
+    if isinstance(lhs, sparse.CSRNDArray) and \
+            not isinstance(rhs, sparse._SparseBase):
+        res = sparse.dot(lhs, rhs, transpose_a=transpose_a,
+                         transpose_b=transpose_b)
+        if out is not None:
+            out._set(res._data.to(out._data.dtype))
+            return out
+        return res
     return _dense_dot(lhs, rhs, transpose_a=transpose_a,
                       transpose_b=transpose_b, out=out, **kw)
+
+
+def cast_storage(arr, stype):
+    """``arr`` in storage ``stype`` (reference: the cast_storage op)."""
+    return arr.tostype(stype)
+
+
+def sparse_retain(arr, row_ids):
+    """The rows of a row_sparse ``arr`` listed in ``row_ids``."""
+    from . import sparse
+
+    return sparse.retain(arr, row_ids)
 
 
 def _scalar_tolerant(opname, scalar_op):
@@ -195,4 +217,5 @@ def load(fname, ctx=None):
 
     return _load(fname, ctx=ctx)
 
-from . import contrib, image, linalg, random  # noqa: E402,F401
+from . import contrib, image, linalg, random, sparse  # noqa: E402,F401
+from .sparse import CSRNDArray, RowSparseNDArray  # noqa: E402,F401

@@ -98,6 +98,12 @@ class NDArray:
     ctx = context
 
     @property
+    def stype(self):
+        """The storage type: "default" (dense); the sparse arrays of
+        ``nd.sparse`` say "row_sparse" or "csr"."""
+        return "default"
+
+    @property
     def grad(self):
         return self._grad
 
@@ -185,6 +191,19 @@ class NDArray:
 
     def astype(self, dtype, copy=True):
         return invoke("cast", [self], {"dtype": dtype})
+
+    def tostype(self, stype):
+        """This array in storage ``stype`` ("default", "row_sparse" or
+        "csr"; reference: cast_storage)."""
+        if stype == "default":
+            return self
+        from .sparse import CSRNDArray, RowSparseNDArray
+
+        if stype == "row_sparse":
+            return RowSparseNDArray.from_dense(self._data.detach())
+        if stype == "csr":
+            return CSRNDArray.from_dense(self._data.detach())
+        raise MXNetError(f"unknown storage type {stype!r}")
 
     # -- indexing ----------------------------------------------------------
     def __getitem__(self, key):

@@ -14,7 +14,9 @@ One deliberate difference: ``_get_lr``/``_get_wd`` look a parameter up in
 ``param_dict`` by its index first, as MXNet 1.x does.  ``gluon.Trainer``
 keys ``param_dict`` by index, so a Parameter's ``lr_mult``/``wd_mult``
 reach its update; the reference looks up by name there and ignores them.
-Row-sparse updates are not ported.
+A row-sparse gradient (``nd.sparse.RowSparseNDArray``) goes through
+``update_row_sparse``: SGD's lazy update changes only the rows it holds,
+every other optimizer densifies it and runs its dense update.
 
 States files: ``Updater.get_states`` pickles the states as numpy arrays
 (and the optimizer with ``dump_optimizer=True``) in the reference's
@@ -99,6 +101,12 @@ class Optimizer:
 
     def update_multi_precision(self, index, weight, grad, state):
         self.update(index, weight, grad, state)
+
+    def update_row_sparse(self, index, weight, grad, state):
+        """A row-sparse gradient's update.  Here: densify it and run the
+        dense update (the reference's fallback for an op without a sparse
+        kernel); SGD overrides it with the lazy update."""
+        self.update(index, weight, NDArray._wrap(grad._data), state)
 
     # -- lr / wd ------------------------------------------------------------
     def set_learning_rate(self, lr):
@@ -200,6 +208,29 @@ class SGD(Optimizer):
                                     dict(momentum=self.momentum, **kw))
             weight._set(new_w)
             state._set(new_mom)
+
+    def update_row_sparse(self, index, weight, grad, state):
+        """The lazy update (``lazy_update=True``): only the rows the
+        gradient holds change, each by the dense rule with its own weight
+        decay and momentum row (reference: sgd_update's FComputeEx)."""
+        if not self.lazy_update:
+            return super().update_row_sparse(index, weight, grad, state)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        idx = grad._rs_indices.long()
+        w = weight._data
+        with torch.no_grad():
+            g = grad._rs_values.to(w.dtype) * self.rescale_grad
+            if self.clip_gradient is not None:
+                g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+            g = g + wd * w[idx]
+            if state is None:
+                w.index_add_(0, idx, -lr * g)
+            else:
+                m = state._data
+                rows = self.momentum * m[idx] - lr * g
+                m[idx] = rows
+                w.index_add_(0, idx, rows)
 
 
 @register
@@ -688,8 +719,12 @@ class Updater:
             self.states[index] = _state_arrays(self.states[index],
                                                weight._data.device)
             self.states_synced[index] = True
-        self.optimizer.update_multi_precision(index, weight, grad,
-                                              self.states[index])
+        if getattr(grad, "stype", "default") == "row_sparse":
+            self.optimizer.update_row_sparse(index, weight, grad,
+                                             self.states[index])
+        else:
+            self.optimizer.update_multi_precision(index, weight, grad,
+                                                  self.states[index])
 
     def get_states(self, dump_optimizer=False):
         """The pickled states (numpy arrays), with the optimizer when

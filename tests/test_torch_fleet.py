@@ -59,6 +59,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon.model_zoo.language import llama as port_llama
 from mxnet_tpu_torch.serving import ServingEngine
 from mxnet_tpu_torch.serving import fleet as port_fleet
+from mxnet_tpu_torch.serving.fleet import health as port_health
 from mxnet_tpu_torch.serving.scheduler import QueueFullError as PortQueueFull
 from test_torch_serving import assert_greedy_match, full_logits
 
@@ -1255,14 +1256,34 @@ def test_process_fleet_survives_a_sigkill():
                                manager=mgr)
     mgr.attach_router(router)
     children = []
+
+    def answered_a_probe(replica, since):
+        # a child still slow to answer its first probes (on a loaded host)
+        # is SUSPECT and sinks below its peer: the router would not send it
+        # the work this test places by prefix affinity
+        return replica.health.last_heartbeat > since and \
+            replica.health.state == port_health.HEALTHY
+
     try:
         mgr.ensure(2)
         children = list(router.replicas())
+        t_start = time.monotonic()
         router.start()
+        _wait_until(lambda: all(answered_a_probe(c, t_start)
+                                for c in children), "the first probes")
         victim = children[0]
         reqs = [router.submit(p, max_new_tokens=40, deadline_ms=90_000)
                 for p in PROMPTS]
-        _wait_until(lambda: victim.inflight_count() > 0, "victim work")
+        # freeze the victim with work in flight (an answer already on its
+        # way may still land: then let it go on and freeze it again), so
+        # that work is still in flight when it dies
+        while True:
+            _wait_until(lambda: victim.inflight_count() > 0, "victim work")
+            os.kill(victim.proc.pid, signal.SIGSTOP)
+            time.sleep(0.1)
+            if victim.inflight_count() > 0:
+                break
+            os.kill(victim.proc.pid, signal.SIGCONT)
         victim.kill()
         results = [r.response(timeout=TIMEOUT) for r in reqs]
         assert [r["token_ids"] for r in results] == want
@@ -1276,6 +1297,9 @@ def test_process_fleet_survives_a_sigkill():
         repl = [r for r in router.replicas() if r not in children]
         assert len(repl) == 1 and repl[0].rid == "replica-3"
         children.append(repl[0])
+        t_repl = time.monotonic()
+        _wait_until(lambda: answered_a_probe(repl[0], t_repl),
+                    "the replacement's first probe")
         p = next(p.tolist() for p in PROMPTS if home_and_other(
             PKGS["port"], p.tolist(), ("replica-2", "replica-3"))[0]
             == "replica-3")

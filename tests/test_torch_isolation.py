@@ -1,5 +1,6 @@
-"""The port stands alone: no module of mxnet_tpu_torch/, and not
-chip_smoke.py, imports JAX or the reference package ``mxnet_tpu``.
+"""The port stands alone: no module of mxnet_tpu_torch/, and neither
+chip_smoke.py nor the port's FM example (which chip_smoke.py runs), imports
+JAX or the reference package ``mxnet_tpu``.
 
 Checked twice: statically, over every import statement and every string
 handed to ``__import__``/``importlib.import_module``; and at run time, by
@@ -24,7 +25,9 @@ def _forbidden(name):
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "example", "sparse",
+                        "factorization_machine_torch.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -78,6 +81,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.gluon.contrib.nn\n"
         "import mxnet_tpu_torch.gluon._cached_op, mxnet_tpu_torch._tree\n"
         "import mxnet_tpu_torch.ndarray.contrib, mxnet_tpu_torch.context\n"
+        "import mxnet_tpu_torch.io, mxnet_tpu_torch.recordio\n"
+        "import mxnet_tpu_torch.image, mxnet_tpu_torch.native\n"
+        "import mxnet_tpu_torch.ndarray.sparse\n"
+        "import mxnet_tpu_torch.gluon.data.vision.transforms\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'\n"
         "             or m.split('.')[0] == 'mxnet_tpu')\n"
         "print(bad)\n")

@@ -913,11 +913,16 @@ def test_two_scalars_and_sparse_dot():
         port_nd.maximum(2, 3.5, ctx=CPU).asnumpy(),
         ref_nd.maximum(2, 3.5).asnumpy())
 
-    class _Sparse:
-        stype = "csr"
-
-    with pytest.raises(MXNetError, match="sparse"):
-        port_nd.dot(_Sparse(), port_array(np.ones((2, 2), "f")))
+    # a CSR lhs takes the sparse product (nd.sparse), as the reference's
+    # dot does; a shape that does not fit raises
+    dense = np.array([[0, 2, 0], [1, 0, 3]], "f")
+    rhs = np.arange(6, dtype="f").reshape(3, 2)
+    csr = port_nd.sparse.csr_matrix(dense, ctx=CPU)
+    np.testing.assert_array_equal(
+        port_nd.dot(csr, port_array(rhs)).asnumpy(),
+        ref_nd.dot(ref_nd.sparse.csr_matrix(dense), ref_array(rhs)).asnumpy())
+    with pytest.raises(MXNetError):
+        port_nd.dot(csr, port_array(np.ones((2, 2), "f")))
 
 
 def test_linalg_and_contrib_namespaces():
