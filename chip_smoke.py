@@ -8,8 +8,8 @@ Run from the repository root, with no arguments:
 (``--bert-step-seeds 1 2 3`` runs only the build and the BERT-base step
 check of phase 6 (b), once for each seed, and ``--gluon-bert-seeds 1 2
 3`` the same for phase 9 (b); ``--op-table``, ``--gluon-train``,
-``--persistence``, ``--frontend`` and ``--data`` run only the build and
-phase 8, 9, 10, 11 or 12.)
+``--persistence``, ``--frontend``, ``--data`` and ``--planes`` run only
+the build and phase 8, 9, 10, 11, 12 or 13.)
 
 Phases (any failed check exits nonzero; nothing runs on the CPU):
 
@@ -21,7 +21,9 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
 3. kernels: each kernel held against its plain PyTorch version on the card
    at the serving path's shapes and a coverage grid (contiguous inputs and
    transposed (B, L, H, D) views), in bf16, fp16 (within FP16_NOISE_FACTOR
-   x the plain fp16 version's own deviation from fp32) and fp32, then
+   x the plain fp16 version's own deviation from fp32) and fp32, every
+   other tile of D = 64 and 128 (the flash_block_q / flash_block_kv
+   knobs' instances) the same way in bf16 and fp16, then
    timed at every prefill bucket beside one PyTorch library call and the
    bound, at the largest beside the plain version, and in fp16 at the BERT
    shapes beside SDPA in fp16;
@@ -238,10 +240,40 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    restores a fresh loader to the same next batches (the restore skipped,
    planted, fails), and a worker that reaches for the card raises.
    ``--data`` runs only the build and this phase;
-13. the kernels line (its times and launches at the main path's shape,
+13. the runtime planes on phase 9 (d)'s recipe (GluonNLP's BERT-base,
+   LAMB, batch 64 x 128, bf16 AMP, 12 launches a step): (a) 3 steps under
+   ``mx.profiler`` with profile_all and the device trace: one device event
+   of flash_attn_fwd's kernel per launch counted, op spans, a marker and
+   a counter, a ``dumps()`` row for every op invoked, the losses those of
+   the same steps unprofiled bit for bit, ms a step with and without; (b)
+   a step's FLOPs counted once (``introspection.counting``) within 1% of
+   the analytic count of its products and the attention's forward and
+   backward, the attention's report left out (planted) beyond it; the
+   recipe hybridized: the graphs' count taken once at the capture, 100
+   timed steps, the MFU gauge within 2% of FLOPs x steps / (window x
+   peak), bench.py's MFU beside it; the serving engine's prefill and
+   decode FLOPs over phase 4's requests within 1% of the analytic count
+   (in phase 4; alone, at 2 layers); (c) the guard attached: clean losses
+   bit for bit, ms a step with and without, a NaN gradient skipped
+   (parameters, LAMB's moments and the update count untouched bit for
+   bit), a loss spike caught, the planted guard fault (one parameter left
+   out) missing the NaN, and a persistent NaN weight escalating to
+   ``GuardRewind``: ``run_with_recovery`` restores the checkpoint,
+   charges ``rewind``, and the steps after it give the unguarded losses
+   bit for bit; (d) a child (``--watchdog-worker``, the recipe at a tiny
+   size) arms ``watchdog.stall``: exit 45 within the deadline plus a poll,
+   the black box written; (e) successive halving over the four tiles at
+   BERT's shape and a causal GQA prefill at 2048, winners in a DB, every
+   tile's time beside the bound, a second process (``--tune-replay``)
+   replaying the winners with no trial; (f) rank 0's snapshot published
+   and merged.  The two children run beside (b) and (c).
+   ``--planes`` runs only the build, the tiles' checks, the serving FLOP
+   check and this phase;
+14. the kernels line (its times and launches at the main path's shape,
    the serving fleet, 4c;
    each path's shape, times and launches under ``by_path``, the op table
-   with none), then the device line.
+   with none, the tile pairs' times and the tuned winners), then the
+   device line.
 """
 from __future__ import annotations
 
@@ -272,6 +304,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 # factor of the plain fp16 version's own (phase 6's rule for bf16 gradients)
 FP16_NOISE_FACTOR = 3.0
 PEAK_BYTES = 3.35e12
+# the (query rows, keys) tiles the kernel is built at for D = 64 and 128,
+# the default first (ops/flash_attention.KERNEL_TILES)
+KERNEL_TILE_PAIRS = ((128, 128), (128, 64), (64, 128), (64, 64))
 
 
 def log(*args):
@@ -357,7 +392,8 @@ PATH_SHAPES = {"serving": SERVING_SHAPE, "serve_http": SERVING_SHAPE,
                "gluon_bert_lamb": BERT_SHAPE,
                "gluon_bert_resume": RESUME_SHAPE,
                "gluon_bert_lamb_hybrid": BERT_SHAPE,
-               "gluon_bert_dataloader": BERT_SHAPE}
+               "gluon_bert_dataloader": BERT_SHAPE,
+               "gluon_bert_planes": BERT_SHAPE}
 # each path's attention dtype where it is not bf16
 PATH_DTYPES = {"gluon_bert_resume": RESUME_DTYPE}
 KERNEL_CASES = BUCKET_SHAPES + [PROXY_SHAPE] + [
@@ -462,6 +498,9 @@ def kernel_phase(gen):
                   f"o at {shape} is not the (B, Hq, Lq, D) view of a "
                   f"(B, Lq, Hq, D) tensor")
             del q, k, v, o, lse, o_ref, lse_ref
+    # the other tiles of D = 64 and 128 (the tuning knobs' instances)
+    worst = max(worst, check_tiles(
+        gen, [sh for sh in KERNEL_CASES if sh[5] in (64, 128)]))
 
     # timing at the serving path's prefill shapes and the BERT shape,
     # bf16, and the fp16 recipe's shapes: device time from a replayed CUDA
@@ -520,9 +559,9 @@ def kernel_phase(gen):
 
 def build_checks(kernels):
     """ptxas's report for every instance, and the SASS of the bf16 and
-    fp16 D = 128 instances.  A wgmma instance (bf16 or fp16) that spills
-    or whose wgmma ptxas serialises fails; so does a D = 128 instance
-    without HGMMA and UTMALDG or with HMMA (mma.sync)."""
+    fp16 D = 128 instances at each tile.  A wgmma instance (bf16 or fp16)
+    that spills or whose wgmma ptxas serialises fails; so does a D = 128
+    instance without HGMMA and UTMALDG or with HMMA (mma.sync)."""
     import re
 
     for name in kernels.sources():
@@ -533,9 +572,11 @@ def build_checks(kernels):
                 fn = m.group(1)
                 continue
             tag = re.search(r"fa_fwd_(f32|wgmma)I(?:\d+(__nv_bfloat16|__half))?"
-                            r"Li(\d+)E", fn or "")
+                            r"Li(\d+)E(?:Li(\d+)ELi(\d+)E)?", fn or "")
+            tile = f", {tag.group(4)}x{tag.group(5)}" \
+                if tag and tag.group(4) else ""
             inst = (f"{tag.group(1)}<{tag.group(2) + ', ' if tag.group(2) else ''}"
-                    f"{tag.group(3)}>") if tag else (fn or name)
+                    f"{tag.group(3)}{tile}>") if tag else (fn or name)
             if "serializ" in line:
                 log(f"  {name} {inst}: {line.strip()}")
                 check(False, f"ptxas serialises wgmma: {line.strip()}")
@@ -554,16 +595,19 @@ def build_checks(kernels):
                           capture_output=True, text=True, check=True).stdout
     funcs = re.split(r"\n\s*Function : ", sass)[1:]
     for elem in ("13__nv_bfloat16", "6__half"):
-        main = [f for f in funcs
-                if f"fa_fwd_wgmmaI{elem}Li128E" in f.split("\n", 1)[0]]
-        check(len(main) == 1, f"no {elem} D = 128 instance in the SASS")
-        counts = {op: len(re.findall(rf"\b{op}\b", main[0]))
-                  for op in ("HGMMA", "UTMALDG", "HMMA")}
-        log(f"  SASS of fa_fwd_wgmma<{elem[2:].lstrip('_')}, 128>: {counts}")
-        check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
-              and counts["HMMA"] == 0,
-              f"the {elem} D = 128 instance is not wgmma + TMA without "
-              f"mma.sync")
+        for bq, bk in KERNEL_TILE_PAIRS:
+            sym = f"fa_fwd_wgmmaI{elem}Li128ELi{bq}ELi{bk}EE"
+            main = [f for f in funcs if sym in f.split("\n", 1)[0]]
+            check(len(main) == 1, f"no {elem} D = 128 {bq} x {bk} instance "
+                                  f"in the SASS")
+            counts = {op: len(re.findall(rf"\b{op}\b", main[0]))
+                      for op in ("HGMMA", "UTMALDG", "HMMA")}
+            log(f"  SASS of fa_fwd_wgmma<{elem[2:].lstrip('_')}, 128, "
+                f"{bq}x{bk}>: {counts}")
+            check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
+                  and counts["HMMA"] == 0,
+                  f"the {elem} D = 128 {bq} x {bk} instance is not wgmma + "
+                  f"TMA without mma.sync")
 
 
 # ---------------------------------------------------------------------------
@@ -1694,10 +1738,12 @@ def serving_phase(seed):
     fa_mod._flash_fwd_cuda.launches = 0          # counts of this run only
     fa_mod._flash_fwd_cuda.launches_by_len = {}
     telemetry.reset()
+    flops0 = serving_flops_totals()
     t0 = time.perf_counter()
     results, rows = serve(engine, prompts, temps, seed)
     wall = time.perf_counter() - t0
     fill = occupancy()
+    serving_flops_check(engine, cfg, flops0)
     launches = fa_mod._flash_fwd_cuda.launches
     by_bucket = dict(sorted(fa_mod._flash_fwd_cuda.launches_by_len.items()))
     peak = torch.cuda.max_memory_allocated()
@@ -5583,15 +5629,18 @@ def bert_recipe_trainer(net, opt=GLUON_BERT_OPT,
 
 
 def bert_recipe_step(net, trainer, ids, mlm, nsp, metrics=(), times=None,
-                     loss_block=None):
+                     loss_block=None, before_step=None, clip_check=None):
     """One GluonNLP step: record -> amp.scale_loss -> backward ->
     amp.unscale -> clip_global_norm(GLUON_CLIP) -> trainer.step; the MLM
     and NSP accuracies and the loss into ``metrics``.  With ``times`` (a
     dict), the card is synchronised between the parts and each part's
     wall ms is added to ``times[part]``.  ``loss_block`` (a
     BertRecipeLoss over ``net``, hybridized) computes the model and the
-    loss in one call.  Returns (the loss NDArray, the global norm before
-    the clip)."""
+    loss in one call.  ``before_step(loss)`` runs between the clip and
+    ``trainer.step`` (phase 13's guard: a planted gradient, the staged
+    loss).  ``clip_check=False`` turns the clip's finiteness check off (a
+    guarded loop leaves the non-finite verdict to the guard).  Returns
+    (the loss NDArray, the global norm before the clip)."""
     from mxnet_tpu_torch import autograd, gluon
     from mxnet_tpu_torch.contrib import amp
 
@@ -5622,10 +5671,14 @@ def bert_recipe_step(net, trainer, ids, mlm, nsp, metrics=(), times=None,
     # it and skips the step, as GluonNLP's fp16 trainer does
     scaler = getattr(trainer, "_amp_loss_scaler", None)
     with torch.profiler.record_function(GLUON_RANGES[1]):
+        if clip_check is None:
+            clip_check = scaler is None or not scaler._dynamic
         norm = gluon.utils.clip_global_norm(
             [p.grad() for p in params], GLUON_CLIP,
-            check_isfinite=scaler is None or not scaler._dynamic)
+            check_isfinite=clip_check)
     lap("unscale and clip_global_norm")
+    if before_step is not None:
+        before_step(loss)
     with torch.profiler.record_function(GLUON_RANGES[0]):
         trainer.step(1)
     lap("trainer.step")
@@ -8558,6 +8611,991 @@ def data_phase(seed, synthetic_phase5=None):
     return out["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the runtime planes
+# ---------------------------------------------------------------------------
+PLANES_PROFILED_STEPS = 3       # (a): 3 profiled steps, 12 launches each
+PLANES_MFU_STEPS = 100          # (b): timed hybridized steps (gauge window)
+PLANES_FLOP_TOL = 0.01          # (b): counted FLOPs vs the analytic count
+PLANES_MFU_TOL = 0.02           # (b): the gauge vs FLOPs x steps / window
+PLANES_GUARD_STEPS, PLANES_NAN_AT, PLANES_SPIKE_AT = 10, 9, 10   # (c)
+PLANES_SPIKE = 1e3              # (c): the planted loss spike's factor
+# (c) rewind: a checkpoint after step 3, a persistent NaN weight from step
+# 5 on, GuardRewind at the second anomalous step (rewind_after 2)
+PLANES_REWIND_STEPS, PLANES_SAVE_AT, PLANES_FAULT_AT = 6, 3, 5
+PLANES_REWIND_AFTER = 2
+# (d): the watchdog child's deadline and poll, the step that arms the seam
+PLANES_WD_TIMEOUT, PLANES_WD_POLL, PLANES_WD_ARM_AT = 5.0, 0.25, 3
+PLANES_WD_STEPS = 40
+# the child's recipe at its tiny size (head dim 32, which the kernel takes)
+PLANES_WD_TINY = dict(vocab_size=96, hidden_size=64, num_layers=2,
+                      num_heads=2, intermediate_size=128, max_position=32)
+PLANES_WD_TINY_SEQ, PLANES_WD_TINY_BATCH = 16, 2
+# (e): the shapes the tiles are tuned at (BERT's attention, bf16, and a
+# causal GQA prefill at L 2048), and the shapes every tile is checked at
+PLANES_TUNE_SHAPES = {"bert": BERT_SHAPE,
+                      "l2048": (1, 32, 8, 2048, 2048, 128, True, False)}
+PLANES_TILE_CASES = [BERT_SHAPE, PLANES_TUNE_SHAPES["l2048"],
+                     (1, 32, 8, 1000, 1000, 128, True, False),
+                     (1, 32, 8, 100, 1100, 128, True, False),
+                     (2, 32, 8, 300, 700, 128, True, True),
+                     (2, 12, 12, 384, 384, 64, True, True),
+                     (1, 8, 2, 200, 300, 64, False, False)]
+PLANES_TUNE_ITERS = 10          # graph replays a unit of search budget
+
+
+def planes_build(cfg, seed, device, seq):
+    """Phase 9 (d)'s recipe (LAMB under its timed schedule, clip, bf16 AMP
+    on the card: ``amp.init()`` must be on there) on a net from ``seed``;
+    the steps' dropout stream seeded from ``seed`` + 1, so two builds run
+    the same steps."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+
+    net = init_bert(cfg, seed, _resume_ctx(device), seq)
+    trainer = bert_recipe_trainer(net, GLUON_TIMED_OPT, GLUON_TIMED_SCHEDULE)
+    if torch.device(device).type == "cuda":
+        amp.init_trainer(trainer)
+    mx.random.seed(seed + 1)
+    return net, trainer
+
+
+def planes_args(seed, k, batch, seq, vocab, device):
+    """Step ``k``'s batch (ids, MLM labels, NSP labels) on the device."""
+    import mxnet_tpu_torch as mx
+
+    ids, labels = bert_batch(seed * 1000 + k, batch, seq, vocab)
+    mlm, nsp = bert_labels(labels)
+    return [mx.nd.array(a, ctx=_resume_ctx(device), dtype="int32")
+            for a in (ids, mlm, nsp)]
+
+
+def planes_steps(net, trainer, seed, first, last, cfg, batch, seq, device,
+                 before_step=None, after_step=None, loss_block=None,
+                 guarded=False):
+    """Steps ``first``..``last`` of the recipe; returns their losses
+    (NDArrays, read by the caller).  ``before_step(k, loss)`` runs between
+    the clip and ``trainer.step``, ``after_step(k, loss)`` after it.
+    ``guarded``: the clip's finiteness check is off, the guard owns the
+    verdict."""
+    losses = {}
+    for k in range(first, last + 1):
+        args = planes_args(seed, k, batch, seq, cfg.vocab_size, device)
+        hook = None if before_step is None else \
+            (lambda loss, k=k: before_step(k, loss))
+        losses[k], _ = bert_recipe_step(
+            net, trainer, *args, before_step=hook, loss_block=loss_block,
+            clip_check=False if guarded else None)
+        if after_step is not None:
+            after_step(k, losses[k])
+    return losses
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def planes_timed(net, trainer, seed, first, last, cfg, batch, seq, device,
+                 **kw):
+    """planes_steps timed: (losses as floats, ms a step); the card is
+    synchronised before and after."""
+    _sync(device)
+    t0 = time.perf_counter()
+    losses = planes_steps(net, trainer, seed, first, last, cfg, batch, seq,
+                          device, **kw)
+    _sync(device)
+    ms = 1e3 * (time.perf_counter() - t0) / (last - first + 1)
+    return {k: float(v.asscalar()) for k, v in losses.items()}, ms
+
+
+def _dumps_rows(table):
+    """{op name: count} of the profiler's dumps() op rows."""
+    rows = {}
+    for line in table.splitlines()[2:]:
+        parts = line.split()
+        if len(parts) < 7 or not parts[1].isdigit():
+            break
+        rows[parts[0]] = int(parts[1])
+    return rows
+
+
+def planes_profiler(seed, directory, device="cuda", cfg=None,
+                    batch=BERT_BATCH, seq=BERT_SEQ,
+                    steps=PLANES_PROFILED_STEPS):
+    """(a) The recipe's steps 2..1+steps twice from the same weights and
+    dropout stream: plain, then under ``profiler`` with profile_all (the
+    device trace on the card).  The Chrome dump holds one device event of
+    flash_attn_fwd's kernel per launch counted over the profiled steps,
+    the op spans, a marker and a counter; ``dumps()`` has a row for every
+    op the steps invoked, with its count; the profiled losses equal the
+    plain ones bit for bit.  Returns the numbers."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _kernels, profiler
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+
+    cfg = cfg or bert.BertConfig()
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for profiled in (False, True):
+        net, trainer = planes_build(cfg, seed, device, seq)
+        planes_timed(net, trainer, seed, 1, 1, cfg, batch, seq, device)
+        if profiled:
+            path = os.path.join(directory, "profile.json")
+            profiler.set_config(profile_all=True, filename=path,
+                                device_trace=cuda)
+            profiler.dumps(reset=True)
+            mx.nd.reset_dispatch_stats()
+            before = _kernels.launch_counts().get("flash_attn_fwd", 0)
+            profiler.start()
+        try:
+            losses, ms = planes_timed(net, trainer, seed, 2, 1 + steps, cfg,
+                                      batch, seq, device)
+            if profiled:
+                profiler.Marker(name="planes_steps_done").mark()
+                profiler.Counter(name="planes_steps", value=steps)
+        finally:
+            if profiled:
+                profiler.stop()
+        if profiled:
+            launches = _kernels.launch_counts().get("flash_attn_fwd",
+                                                    0) - before
+            trace = json.load(open(profiler.dump()))
+            rows = _dumps_rows(profiler.dumps(reset=True))
+            calls = {name: c["calls"] for name, c in
+                     mx.nd.dispatch_stats()["per_op"].items()}
+            profiler.set_config()
+            evs = trace["traceEvents"]
+            kernels = [e for e in evs if e.get("cat") == "kernel"]
+            attn = [e for e in kernels if "fa_fwd_wgmma" in e["name"]]
+            out.update(
+                profiled_losses=losses, profiled_ms=ms, launches=launches,
+                attention_events=len(attn), kernel_events=len(kernels),
+                attention_device_ms=sum(e["dur"] for e in attn) / 1e3,
+                op_events=sum(e.get("cat") == "operator" for e in evs),
+                markers=[e["name"] for e in evs if e.get("ph") == "i"],
+                counters=[e["name"] for e in evs if e.get("ph") == "C"],
+                rows=rows, calls=calls, bytes=os.path.getsize(path))
+        else:
+            out.update(losses=losses, ms=ms)
+        del net, trainer
+    return out
+
+
+def check_planes_profiler(out, cfg, steps=PLANES_PROFILED_STEPS,
+                          cuda=True):
+    log(f"  [{gpu_line() if cuda else 'cpu'}] profiled steps: "
+        f"{out['profiled_ms']:.2f} ms a step against {out['ms']:.2f} "
+        f"without the profiler ({out['profiled_ms'] / out['ms']:.2f}x: "
+        f"profile_all syncs the card after every op); trace "
+        f"{out['bytes'] / 1e6:.2f} MB, {out['op_events']} op spans, "
+        f"{out['kernel_events']} device events, "
+        f"{out['attention_events']} of flash_attn_fwd's kernel "
+        f"({out['attention_device_ms']:.3f} ms of device time); "
+        f"launches counted {out['launches']}; {len(out['rows'])} dumps() "
+        f"rows")
+    check(out["profiled_losses"] == out["losses"],
+          f"(a) the profiled losses {out['profiled_losses']} differ from "
+          f"the plain ones {out['losses']}")
+    if cuda:
+        check(out["launches"] == cfg.num_layers * steps,
+              f"(a) flash_attn_fwd launched {out['launches']} times over "
+              f"{steps} steps, expected {cfg.num_layers * steps}")
+        check(out["attention_events"] == out["launches"],
+              f"(a) {out['attention_events']} device events of the "
+              f"kernel in the trace, {out['launches']} launches")
+    check(out["op_events"] > 0 and out["markers"] == ["planes_steps_done"]
+          and "planes_steps" in out["counters"],
+          "(a) the trace lacks op spans, the marker or the counter")
+    check(out["rows"] == out["calls"],
+          "(a) dumps() rows differ from the ops the steps invoked: "
+          f"{sorted(set(out['rows']) ^ set(out['calls']))}")
+
+
+def planes_flops(seed, device="cuda", cfg=None, batch=BERT_BATCH,
+                 seq=BERT_SEQ, steps=PLANES_MFU_STEPS):
+    """(b) One recipe step's FLOPs counted (``introspection.counting``)
+    against ``bert_step_flops``, and with the attention's report left out
+    (planted).  On the card, the recipe with the model and the loss
+    hybridized: its graphs' counts (taken once, at the capture) against
+    the eager count, then ``steps`` timed steps with the window reset:
+    the MFU gauge against FLOPs x steps / (window x peak), and bench.py's
+    MFU.  Returns the numbers."""
+    from mxnet_tpu_torch import introspection
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+
+    cfg = cfg or bert.BertConfig()
+    net, trainer = planes_build(cfg, seed, device, seq)
+    args = planes_args(seed, 1, batch, seq, cfg.vocab_size, device)
+    with introspection.counting() as rec:
+        bert_recipe_step(net, trainer, *args)
+    with patched(fa_mod, "_report", lambda *a, **k: None):
+        with introspection.counting() as planted:
+            bert_recipe_step(net, trainer, *args)
+    out = {"want": bert_step_flops(cfg, batch, seq), "eager": rec["flops"],
+           "attention": rec["reported"].get("attention", 0.0),
+           "planted": planted["flops"]}
+    if torch.device(device).type != "cuda":
+        return out
+    block = bert_recipe_loss(net)
+    block.hybridize()
+    introspection.reset()
+    planes_steps(net, trainer, seed, 2, 4, cfg, batch, seq, device,
+                 loss_block=block)
+    _sync(device)
+    warm_passes = introspection.count_passes()
+    introspection.reset()
+    t0 = time.perf_counter()
+    planes_steps(net, trainer, seed, 5, 4 + steps, cfg, batch, seq, device,
+                 loss_block=block)
+    _sync(device)
+    window = time.perf_counter() - t0
+    ws = introspection.window_stats()
+    gauge = metric_total("mxnet_model_flops_utilization")
+    n_mm = sum(p.data()._data.numel()
+               for k, p in net.collect_params().items()
+               if "embed" not in k and p.data()._data.dim() >= 2)
+    out.update(warm_passes=warm_passes,
+               passes=introspection.count_passes(),
+               graph=ws["flops"] / steps, events=ws["events"],
+               window=window, steps=steps, peak=ws["peak"], gauge=gauge,
+               util_now=introspection.utilization(),
+               expected=ws["flops"] / (window * ws["peak"]),
+               bench_mfu=batch * steps / window * 6.0 * n_mm * seq
+               / ws["peak"])
+    del net, trainer, block
+    return out
+
+
+def check_planes_flops(out, cuda=True):
+    dev = abs(out["eager"] - out["want"]) / out["want"]
+    miss = abs(out["planted"] - out["want"]) / out["want"]
+    log(f"  one step counted: {out['eager'] / 1e9:.6g} GFLOP (attention "
+        f"{out['attention'] / 1e9:.6g} of it, reported by the op) against "
+        f"the analytic {out['want'] / 1e9:.6g} GFLOP: {dev:.2e} apart "
+        f"(bound {PLANES_FLOP_TOL:g}); the report left out (planted): "
+        f"{out['planted'] / 1e9:.6g} GFLOP, {miss:.2e} apart")
+    check(dev <= PLANES_FLOP_TOL, f"(b) the counted step is {dev:.3e} from "
+                                  f"the analytic count")
+    check(miss > PLANES_FLOP_TOL, f"(b) the planted omission is within the "
+                                  f"bound ({miss:.3e})")
+    if not cuda:
+        return
+    gdev = abs(out["graph"] - out["eager"]) / out["eager"]
+    gauge_dev = abs(out["gauge"] / out["expected"] - 1)
+    log(f"  [{gpu_line()}] hybridized: the graphs' count "
+        f"{out['graph'] / 1e9:.6g} GFLOP a step ({gdev:.2e} from the "
+        f"eager count), taken in {out['warm_passes']} pass over the 3 "
+        f"warm-up steps (the capture) and {out['passes']} over the "
+        f"{out['steps']} timed ones ({out['events']} accounted events); "
+        f"{out['steps']} steps in {out['window']:.3f} s: MFU gauge "
+        f"{100 * out['gauge']:.3f}%, counted FLOPs x steps / (window x "
+        f"peak {out['peak'] / 1e12:.0f} TFLOP/s) {100 * out['expected']:.3f}"
+        f"% ({gauge_dev:.2e} apart, bound {PLANES_MFU_TOL:g}); "
+        f"utilization() read after the sync {100 * out['util_now']:.3f}%; "
+        f"bench.py's MFU {100 * out['bench_mfu']:.3f}% (6 x matmul "
+        f"parameters x tokens: no attention products, and the pooler and "
+        f"NSP head over every token where they run over the batch)")
+    check(out["gauge"] > 0, "(b) the MFU gauge is absent on the card")
+    check(gdev <= PLANES_FLOP_TOL, f"(b) the graphs' count is {gdev:.3e} "
+                                   f"from the eager count")
+    check(out["warm_passes"] == 1 and out["passes"] == 0,
+          f"(b) FLOPs counted in {out['warm_passes']} + {out['passes']} "
+          f"passes, expected once")
+    check(gauge_dev <= PLANES_MFU_TOL, f"(b) the gauge is {gauge_dev:.3e} "
+                                       f"from FLOPs x steps / window")
+
+
+def llama_serving_flops(cfg, key, page_size):
+    """The analytic FLOPs of one serving call of the signature ``key``
+    (``ServingEngine._exec_calls``' keys): a prefill at bucket Lb (every
+    projection over Lb rows, the attention's 4 x D per (query, key) pair
+    and head over Lb x Lb, the LM head at the last position), a decode of
+    B rows over P pages (the projections over B rows, the attention over
+    P x page_size keys, the LM head over B rows); sampling multiplies
+    nothing."""
+    h, hd = cfg.hidden_size, cfg.head_dim
+    per_row = cfg.num_layers * (
+        2 * h * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+        + 2 * cfg.num_heads * hd * h + 6 * h * cfg.intermediate_size)
+    head = 2 * h * cfg.vocab_size
+    if key[0] == "prefill":
+        lb = key[1]
+        return lb * per_row + cfg.num_layers * 4 * cfg.num_heads * lb * \
+            lb * hd + head
+    if key[0] == "decode":
+        b, s = key[1], key[2] * page_size
+        return b * per_row + cfg.num_layers * 4 * b * cfg.num_heads * s * \
+            hd + b * head
+    return 0
+
+
+def serving_flops_check(engine, cfg, before):
+    """(b)'s serving half: ``mxnet_executable_flops_total`` for prefill and
+    decode since ``before`` (a dict of the two totals) against the
+    analytic FLOPs of the calls the engine made, by signature, within
+    PLANES_FLOP_TOL; each signature counted once."""
+    out = {}
+    for kind in ("prefill", "decode"):
+        got = metric_total("mxnet_executable_flops_total",
+                           kind=f"serving_{kind}") - before[kind]
+        want = sum(n * llama_serving_flops(cfg, key, engine._page_size)
+                   for key, n in engine._exec_calls.items()
+                   if key[0] == kind)
+        calls = sum(n for key, n in engine._exec_calls.items()
+                    if key[0] == kind)
+        sigs = sum(1 for key in engine._exec_flops if key[0] == kind)
+        dev = abs(got - want) / want
+        log(f"  serving {kind}: {got / 1e9:.6g} GFLOP accounted over "
+            f"{calls} calls of {sigs} signatures, analytic "
+            f"{want / 1e9:.6g}: {dev:.2e} apart (bound "
+            f"{PLANES_FLOP_TOL:g})")
+        check(dev <= PLANES_FLOP_TOL, f"(b) serving {kind} FLOPs "
+                                      f"{dev:.3e} from the analytic count")
+        out[kind] = dev
+    return out
+
+
+def serving_flops_totals():
+    return {kind: metric_total("mxnet_executable_flops_total",
+                               kind=f"serving_{kind}")
+            for kind in ("prefill", "decode")}
+
+
+def planes_serving(seed, device="cuda", layers=2, cfg_kw=None):
+    """(b)'s serving half on its own (``--planes`` alone): the 8 requests
+    of phase 4 at Llama-3-8B widths cut to ``layers`` layers."""
+    from mxnet_tpu_torch.gluon.model_zoo.language import llama
+    from mxnet_tpu_torch.serving import ServingEngine
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        net = llama.init_random_(llama.llama3_8b(
+            dtype="bfloat16", num_layers=layers, **(cfg_kw or {})), seed)
+        kw = SERVING_ENGINE_KW
+    else:
+        net = llama.llama_tiny(device=device, num_layers=layers,
+                               **(cfg_kw or {}))
+        kw = dict(prefill_buckets=[16, 32, 64], page_size=8, kv_pages=64)
+    engine = ServingEngine(net, device=device, **kw).start()
+    try:
+        prompts = make_prompts(seed, net.config.vocab_size)
+        if not cuda:
+            prompts = [p[:2 + p.size % 60] for p in prompts]
+        before = serving_flops_totals()
+        serve(engine, prompts, [0.0] * len(prompts), seed)
+        return serving_flops_check(engine, net.config, before)
+    finally:
+        engine.close()
+
+
+def planes_snapshot(net, trainer):
+    """Host copies of the parameters and the optimizer's states."""
+    from mxnet_tpu_torch.ndarray.serialization import host_copies
+
+    states = trainer._updater.states
+    moments = [t._data for i in sorted(states) for t in states[i]]
+    return (host_copies([p.data()._data
+                         for p in net.collect_params().values()]),
+            host_copies(moments), trainer.step_count)
+
+
+def planes_guard(seed, device="cuda", cfg=None, batch=BERT_BATCH,
+                 seq=BERT_SEQ, steps=PLANES_GUARD_STEPS, nan_at=PLANES_NAN_AT,
+                 spike_at=PLANES_SPIKE_AT):
+    """(c) The recipe without the guard (U), then with ``guard.attach``:
+    the clean steps before ``nan_at`` give U's losses bit for bit (ms a
+    step beside U's); a NaN planted in one gradient at ``nan_at`` gives
+    ``nonfinite`` and a skipped step (the parameters, LAMB's moments and
+    the update count as before it, bit for bit); the loss staged x
+    PLANES_SPIKE at ``spike_at`` gives ``loss_spike``.  The planted guard
+    fault: the integrity vector without the poisoned parameter misses the
+    NaN.  Returns U's losses and the readings."""
+    from mxnet_tpu_torch import guard
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+
+    cfg = cfg or bert.BertConfig()
+    net, trainer = planes_build(cfg, seed, device, seq)
+    # step 1 (the optimizer's states, first launches) is not timed
+    u_losses, _ = planes_timed(net, trainer, seed, 1, 1, cfg, batch, seq,
+                               device)
+    mid, u_ms = planes_timed(net, trainer, seed, 2, nan_at - 1, cfg, batch,
+                             seq, device)
+    rest, _ = planes_timed(net, trainer, seed, nan_at, steps, cfg, batch,
+                           seq, device)
+    u_losses.update(mid)
+    u_losses.update(rest)
+    del net, trainer
+    net, trainer = planes_build(cfg, seed, device, seq)
+    g = guard.attach(trainer, guard.Guard())._guard
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    out = {"u_losses": u_losses, "u_ms": u_ms, "verdicts": {}}
+
+    def before(k, loss):
+        staged = loss.mean()
+        if k == spike_at:
+            staged = staged * PLANES_SPIKE
+        trainer._guard.observe_loss(staged)
+        if k == nan_at:
+            out["before"] = planes_snapshot(net, trainer)
+            params[0].grad()._data.view(-1)[0] = float("nan")
+            full = guard.integrity_stats(params)
+            skipped = guard.integrity_stats(params[1:])
+            out["nf_full"] = float(full[0].item())
+            out["nf_planted"] = float(skipped[0].item())
+
+    def after(k, loss):
+        out["verdicts"][k] = g._agreed
+        out["last_loss"] = loss
+        if k in (nan_at, spike_at):
+            out[f"after_{k}"] = planes_snapshot(net, trainer)
+
+    g_losses, _ = planes_timed(net, trainer, seed, 1, 1, cfg, batch, seq,
+                               device, before_step=before, after_step=after,
+                               guarded=True)
+    mid, g_ms = planes_timed(net, trainer, seed, 2, nan_at - 1, cfg, batch,
+                             seq, device, before_step=before,
+                             after_step=after, guarded=True)
+    g_losses.update(mid)
+    # the check's own cost: the integrity pass over step 8's gradients and
+    # loss, and its one host read
+    loss = out.pop("last_loss")
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        guard.integrity_stats(params, loss).cpu()
+    out["check_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+    planes_timed(net, trainer, seed, nan_at, steps, cfg, batch, seq, device,
+                 before_step=before, after_step=after, guarded=True)
+    out.update(g_losses=g_losses, g_ms=g_ms)
+    del net, trainer
+    return out
+
+
+def _same_snapshot(a, b):
+    return a[2] == b[2] and all(
+        len(x) == len(y) and all(torch.equal(s, t) for s, t in zip(x, y))
+        for x, y in zip(a[:2], b[:2]))
+
+
+def check_planes_guard(out, nan_at=PLANES_NAN_AT, spike_at=PLANES_SPIKE_AT,
+                       cuda=True):
+    clean = {k: v for k, v in out["u_losses"].items() if k < nan_at}
+    log(f"  [{gpu_line() if cuda else 'cpu'}] guarded clean steps 2-"
+        f"{nan_at - 1} {out['g_ms']:.2f} ms a step against "
+        f"{out['u_ms']:.2f} without the guard; the check alone (the "
+        f"integrity pass and its host read) {out['check_ms']:.3f} ms; "
+        f"verdicts "
+        + ", ".join(f"{k}: {v}" for k, v in out["verdicts"].items()
+                    if v != "ok") + f"; the planted guard fault (one "
+        f"parameter skipped) reads {out['nf_planted']:.0f} non-finite "
+        f"elements where the full pass reads {out['nf_full']:.0f}: it "
+        f"misses the NaN, as a fault must")
+    check(out["g_losses"] == clean, "(c) the guarded clean losses differ "
+                                    "from the unguarded ones")
+    check(out["verdicts"].get(nan_at) == "nonfinite",
+          f"(c) the planted NaN gave {out['verdicts'].get(nan_at)}")
+    check(out["verdicts"].get(spike_at) == "loss_spike",
+          f"(c) the planted spike gave {out['verdicts'].get(spike_at)}")
+    check(all(v == "ok" for k, v in out["verdicts"].items()
+              if k not in (nan_at, spike_at)), "(c) a clean step's verdict "
+                                               "is not ok")
+    check(_same_snapshot(out[f"after_{nan_at}"], out["before"]),
+          "(c) the skipped step moved a parameter, a moment or the update "
+          "count")
+    check(out["nf_full"] == 1 and out["nf_planted"] == 0,
+          f"(c) the planted guard fault read {out['nf_planted']} (the "
+          f"full pass {out['nf_full']})")
+
+
+def planes_rewind(seed, directory, u_losses, device="cuda", cfg=None,
+                  batch=BERT_BATCH, seq=BERT_SEQ):
+    """(c) rewind: the recipe under ``run_with_recovery`` with a
+    CheckpointManager, a synchronous checkpoint after step PLANES_SAVE_AT,
+    the loss sentinel (``Guard.poll_loss``) after every step, and a
+    persistent fault from step PLANES_FAULT_AT on (an element of the first
+    Dense weight set to NaN, first attempt only): the ladder climbs to ``GuardRewind``,
+    run_with_recovery restores the checkpoint and charges the ``rewind``
+    bucket (not ``restart``), and the steps after it give U's losses (the
+    rule of phase 10: bit for bit, as U repeats)."""
+    from mxnet_tpu_torch import guard, lifecycle, telemetry
+    from mxnet_tpu_torch.checkpoint import CheckpointManager, \
+        run_with_recovery
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+
+    cfg = cfg or bert.BertConfig()
+    mgr = CheckpointManager(directory, max_to_keep=2)
+    g = guard.Guard(rewind_after=PLANES_REWIND_AFTER)
+    attempts, raised = [], []
+
+    def train_fn(start, manager):
+        attempts.append(start)
+        net, trainer = planes_build(cfg, seed, device, seq)
+        scaler = getattr(trainer, "_amp_loss_scaler", None)
+        if start:
+            check(manager.restore(net, trainer) == start,
+                  "(c) the rewind restored another step")
+            lifecycle.restore_train_state(manager.read_train_state(start),
+                                          scaler=scaler, guard=g)
+        losses = {}
+        for k in range(start + 1, PLANES_REWIND_STEPS + 1):
+            if len(attempts) == 1 and k == PLANES_FAULT_AT:
+                w = next(p for name, p in net.collect_params().items()
+                         if "dense" in name).data()._data
+                with torch.no_grad():
+                    w.view(-1)[0] = float("nan")
+            loss = planes_steps(net, trainer, seed, k, k, cfg, batch, seq,
+                                device, guarded=True)[k]
+            losses[k] = loss
+            try:
+                g.poll_loss(loss._data, step=k)
+            except guard.GuardRewind:
+                raised.append(k)
+                raise
+            if k == PLANES_SAVE_AT:
+                manager.save(k, net, trainer, async_=False,
+                             train_state=lifecycle.capture_train_state(
+                                 k, scaler=scaler, trainer=trainer,
+                                 guard=g))
+        return {k: float(v.asscalar()) for k, v in losses.items()}
+
+    before = dict(telemetry.goodput_summary()["buckets"])
+    t0 = time.perf_counter()
+    losses = run_with_recovery(train_fn, mgr, max_restarts=1, backoff_ms=0)
+    secs = time.perf_counter() - t0
+    after = telemetry.goodput_summary()["buckets"]
+    return {"attempts": attempts, "raised": raised, "losses": losses,
+            "u": {k: u_losses[k] for k in losses}, "secs": secs,
+            "rewind_s": after.get("rewind", 0) - before.get("rewind", 0),
+            "restart_s": after.get("restart", 0) - before.get("restart", 0)}
+
+
+def check_planes_rewind(out):
+    log(f"  rewind: GuardRewind at step {out['raised']}, attempts from "
+        f"steps {out['attempts']}, rewind bucket +{out['rewind_s']:.3f} s, "
+        f"restart +{out['restart_s']:.3f} s; steps after the rewind "
+        + ", ".join(f"{k}: {v:.6f} (U {out['u'][k]:.6f})"
+                    for k, v in out["losses"].items())
+        + f"; {out['secs']:.1f} s in all")
+    check(out["raised"] == [PLANES_FAULT_AT + PLANES_REWIND_AFTER - 1],
+          f"(c) GuardRewind at {out['raised']}")
+    check(out["attempts"] == [0, PLANES_SAVE_AT],
+          f"(c) attempts from {out['attempts']}")
+    check(out["rewind_s"] > 0 and out["restart_s"] == 0,
+          "(c) the rewind was not charged to the rewind bucket alone")
+    check(out["losses"] == out["u"], "(c) the losses after the rewind "
+                                     "differ from U's")
+
+
+def watchdog_worker_main(args):
+    """``--watchdog-worker``: the recipe (phase 10's batch, or with
+    ``--resume-tiny`` PLANES_WD_TINY) with the stall watchdog
+    (PLANES_WD_TIMEOUT, PLANES_WD_POLL) fed by ``check_stop`` at each step
+    boundary; after step PLANES_WD_ARM_AT it arms the ``watchdog.stall``
+    seam and writes the time to ``--watchdog-dir``/armed.txt.  The
+    watchdog must end it with 45 and a black box in the same directory;
+    returning is a failure (exit 1)."""
+    from mxnet_tpu_torch import fault, lifecycle
+    from mxnet_tpu_torch.contrib import amp
+
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+
+    device = args.resume_device
+    if args.resume_tiny:
+        cfg = bert.BertConfig(dropout=0.1, **PLANES_WD_TINY)
+        seq, batch = PLANES_WD_TINY_SEQ, PLANES_WD_TINY_BATCH
+    else:
+        cfg, seq, batch = resume_cfg()
+    if torch.device(device).type == "cuda":
+        amp.init()
+    net, trainer = planes_build(cfg, args.seed, device, seq)
+    # the first step (cuBLAS's set-up, the optimizer's states) before the
+    # deadline applies: it is not a stall
+    planes_steps(net, trainer, args.seed, 0, 0, cfg, batch, seq,
+                 device)[0].asscalar()
+    lifecycle.start_watchdog(timeout_s=PLANES_WD_TIMEOUT,
+                             poll_s=PLANES_WD_POLL,
+                             dump_dir=args.watchdog_dir)
+    armed = fault.inject("watchdog.stall")
+    for k in range(1, PLANES_WD_STEPS + 1):
+        lifecycle.check_stop()
+        planes_steps(net, trainer, args.seed, k, k, cfg, batch, seq,
+                     device)[k].asscalar()
+        if k == PLANES_WD_ARM_AT:
+            # armed from here on: the watchdog thread's next poll trips it
+            armed.__enter__()
+            with open(os.path.join(args.watchdog_dir, "armed.txt"),
+                      "w") as f:
+                f.write(repr(time.time()))
+    return 1
+
+
+def watchdog_worker_argv(seed, directory, device="cuda", tiny=False):
+    flags = ["--watchdog-worker", "--seed", str(seed), "--watchdog-dir",
+             directory, "--resume-device", device] + \
+        (["--resume-tiny"] if tiny else [])
+    if torch.device(device).type == "cuda":
+        return [sys.executable, os.path.abspath(__file__)] + flags
+    return [sys.executable, "-c",
+            "import sys, chip_smoke as c; sys.exit(c.watchdog_worker_main("
+            "c.parse_args(sys.argv[1:])))"] + flags
+
+
+def planes_watchdog_start(seed, directory, device="cuda", tiny=False):
+    """(d) Start a child that runs the recipe with the watchdog and arms
+    its ``watchdog.stall`` seam (it runs while the parent goes on)."""
+    os.makedirs(directory, exist_ok=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MXNET_FLIGHT_DIR=directory,
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in [os.environ.get("PYTHONPATH")]
+                             if p]))
+    err_path = os.path.join(directory, "stderr.txt")
+    with open(err_path, "w") as err:
+        child = subprocess.Popen(
+            watchdog_worker_argv(seed, directory, device, tiny), env=env,
+            stdout=err, stderr=err, cwd=here)
+    return {"child": child, "t0": time.time(), "directory": directory,
+            "err_path": err_path}
+
+
+def planes_watchdog_finish(run):
+    """(d) The child's exit code, the seconds from its arming to the
+    watchdog's fire (the black box's time, written just before the exit),
+    the black box's reason and the child's stderr."""
+    child = run["child"]
+    try:
+        rc = child.wait(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    armed = os.path.join(run["directory"], "armed.txt")
+    box = os.path.join(run["directory"], "blackbox.rank0.json")
+    doc = json.load(open(box)) if os.path.exists(box) else {}
+    return {"rc": rc, "total_s": time.time() - run["t0"],
+            "after_arm_s": doc["time"] - float(open(armed).read())
+            if doc and os.path.exists(armed) else None,
+            "reason": doc.get("reason"),
+            "stderr": open(run["err_path"]).read()[-3000:]}
+
+
+def planes_watchdog(seed, directory, device="cuda", tiny=False):
+    """(d) The child, start to finish: it must exit 45 within the deadline
+    plus one poll of the arming, with ``blackbox.rank0.json`` written."""
+    return planes_watchdog_finish(
+        planes_watchdog_start(seed, directory, device, tiny))
+
+
+def watchdog_poll_us(n=2000):
+    """The host cost of one watchdog poll (a heartbeat read, a seam check),
+    in microseconds: a Watchdog that is never started, polled by hand."""
+    from mxnet_tpu_torch import lifecycle, telemetry
+
+    wd = lifecycle.Watchdog(timeout_s=60.0, abort=False)
+    telemetry.heartbeat()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        wd.poll()
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def check_planes_watchdog(out):
+    bound = PLANES_WD_TIMEOUT + PLANES_WD_POLL
+    check(out["after_arm_s"] is not None,
+          f"(d) the watchdog child exited {out['rc']} before arming the "
+          f"seam: " + out["stderr"])
+    log(f"  watchdog child: exit {out['rc']}, fired "
+        f"{out['after_arm_s']:.3f} s after arming watchdog.stall (bound: "
+        f"the deadline "
+        f"{PLANES_WD_TIMEOUT:g} s + one poll {PLANES_WD_POLL:g} s), "
+        f"black box reason {out['reason']!r}; {out['total_s']:.1f} s in "
+        f"all; a poll costs the host {watchdog_poll_us():.2f} us")
+    check(out["rc"] == 45, f"(d) the watchdog child exited {out['rc']}: "
+                           + out["stderr"])
+    check(out["after_arm_s"] is not None and out["after_arm_s"] <= bound,
+          f"(d) the child exited {out['after_arm_s']} s after arming")
+    check(out["reason"] == "watchdog_stall",
+          f"(d) the black box's reason is {out['reason']!r}")
+
+
+def check_tiles(gen, shapes, dtypes=(torch.bfloat16, torch.float16)):
+    """Every tile instance but the default at ``shapes`` (D = 64 or 128)
+    against the plain version, with phase 3's bounds: bf16 BF16_TOL and
+    LSE_TOL, fp16 within FP16_NOISE_FACTOR x the plain fp16 version's
+    deviation.  Returns the worst o error."""
+    from mxnet_tpu_torch.ops.flash_attention import (KERNEL_TILES,
+                                                     _flash_fwd_cuda,
+                                                     _mha_with_lse)
+
+    worst = 0.0
+    for shape in shapes:
+        b, hq, hkv, lq, lk, d, causal, views = shape
+        for dtype in dtypes:
+            q, k, v = make_qkv(shape, dtype, gen)
+            scale = 1.0 / math.sqrt(d)
+            o_ref, lse_ref = _mha_with_lse(q.float(), k.float(), v.float(),
+                                           causal, scale)
+            plain = (_mha_with_lse(q, k, v, causal, scale)[0].float()
+                     - o_ref).abs().max().item()
+            errs = []
+            for tile in KERNEL_TILES[d][1:]:
+                o, lse = _flash_fwd_cuda(q, k, v, causal, scale, tile=tile)
+                err_o = (o.float() - o_ref).abs().max().item()
+                err_l = (lse - lse_ref).abs().max().item()
+                ok = err_l <= LSE_TOL and (
+                    torch.allclose(o.float(), o_ref, **BF16_TOL)
+                    if dtype == torch.bfloat16
+                    else err_o <= FP16_NOISE_FACTOR * plain)
+                worst = max(worst, err_o)
+                errs.append(f"{tile[0]}x{tile[1]} {err_o:.3e}/{err_l:.3e}")
+                check(ok, f"flash_attn_fwd tile {tile} {dtype} {shape} "
+                          f"disagrees with _mha_with_lse")
+                check(bool(torch.isfinite(o).all()),
+                      f"non-finite o at tile {tile} {shape}")
+            log(f"  tiles {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} Lq={lq} "
+                f"Lk={lk} D={d} causal={causal}"
+                f"{' views' if views else ''}: max|o err|/max|lse err| "
+                + ", ".join(errs) + f" (plain {str(dtype)[6:]} "
+                f"{plain:.3e}) ok")
+            del q, k, v, o_ref, lse_ref
+    return worst
+
+
+def planes_tuning(gen, directory):
+    """(e) successive halving over the four tile pairs at each of
+    PLANES_TUNE_SHAPES (bf16), scored by CUDA-graph replay time (the
+    query tile through ``tune_knob``; each of its trials times both key
+    tiles; then the key tile under the query winner), winners to a DB in
+    ``directory``; every pair timed again beside the bound.  Returns
+    {name: {"winner", "times", "bound", "trials"}}."""
+    from mxnet_tpu_torch import tuning
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+    from mxnet_tpu_torch.ops.flash_attention import (KERNEL_TILES,
+                                                     _flash_fwd_cuda)
+
+    db = tuning.TuningDB(directory)
+    out = {}
+    for name, shape in PLANES_TUNE_SHAPES.items():
+        b, hq, hkv, lq, lk, d, causal, _ = shape
+        q, k, v = make_qkv(shape, torch.bfloat16, gen)
+        scale = 1.0 / math.sqrt(d)
+        sig = fa_mod.tile_signature(q, k, causal)
+
+        def timed(budget):
+            return graph_time_ms(
+                lambda: _flash_fwd_cuda(q, k, v, causal, scale),
+                iters=PLANES_TUNE_ITERS * budget)
+
+        def measure_q(bq, budget):
+            best = float("inf")
+            for bk in tuning.get_knob("flash_block_kv").grid:
+                with tuning.trial_override("flash_block_kv", bk):
+                    best = min(best, timed(budget))
+            return best
+
+        rq = tuning.tune_knob("flash_block_q", measure_q, db=db,
+                              signature=sig, unit="ms")
+        with tuning.trial_override("flash_block_q", rq["winner"]):
+            rk = tuning.tune_knob("flash_block_kv",
+                                  lambda bk, budget: timed(budget), db=db,
+                                  signature=sig, unit="ms")
+        times = {}
+        for tile in KERNEL_TILES[d]:
+            times[f"{tile[0]}x{tile[1]}"] = graph_time_ms(
+                lambda: _flash_fwd_cuda(q, k, v, causal, scale, tile=tile))
+        bound, by = bound_ms(shape, torch.bfloat16)
+        out[name] = {"shape": list(shape[:7]),
+                     "winner": [rq["winner"], rk["winner"]],
+                     "times": times, "bound_ms": bound, "bound_by": by,
+                     "trials": rq["trials"] + rk["trials"],
+                     "stored": bool(rq.get("stored")) and
+                     bool(rk.get("stored"))}
+        del q, k, v
+    return out
+
+
+def check_planes_tuning(out):
+    for name, r in out.items():
+        log(f"  [{gpu_line()}] tuned {name} {r['shape']} bf16: winner "
+            f"{r['winner'][0]}x{r['winner'][1]} after {r['trials']} trials; "
+            + ", ".join(f"{t} {ms:.4f} ms" for t, ms in r["times"].items())
+            + f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        check(r["stored"], f"(e) the {name} winners were not stored")
+
+
+def tune_replay_main(args):
+    """``--tune-replay``: with MXNET_TUNE=1 and MXNET_TUNE_DB_DIR set by
+    the caller, launch the kernel once at each of PLANES_TUNE_SHAPES and
+    print one JSON line: the tile each launch took, the knobs' sources and
+    the search trials this process ran (a replay runs none)."""
+    from mxnet_tpu_torch import tuning
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    out = {"tiles": {}, "sources": {}}
+    for name, shape in PLANES_TUNE_SHAPES.items():
+        q, k, v = make_qkv(shape, torch.bfloat16, gen)
+        sig = fa_mod.tile_signature(q, k, shape[6])
+        fa_mod._flash_fwd_cuda.launches_by_tile = {}
+        fa_mod._flash_fwd_cuda(q, k, v, shape[6], 1.0 / math.sqrt(shape[5]))
+        torch.cuda.synchronize()
+        (tile,) = fa_mod._flash_fwd_cuda.launches_by_tile
+        out["tiles"][name] = list(tile)
+        out["sources"][name] = [tuning.resolve_info(knob, signature=sig)[1]
+                                for knob in ("flash_block_q",
+                                             "flash_block_kv")]
+    out["trials"] = metric_total("mxnet_tuning_trials_total")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def planes_replay_start(seed, directory):
+    """(e) Start a second process that replays the stored winners
+    (MXNET_TUNE=1); it runs while the parent goes on."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MXNET_TUNE="1", MXNET_TUNE_DB_DIR=directory)
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--tune-replay", "--seed", str(seed)],
+                            env=env, cwd=here, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def planes_replay_finish(proc):
+    out, err = proc.communicate(timeout=300)
+    check(proc.returncode == 0, "(e) the replay process failed: "
+                                + err[-3000:])
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def check_planes_replay(replay, tuned):
+    log(f"  replay in a second process: tiles {replay['tiles']} (sources "
+        f"{replay['sources']}), {replay['trials']:g} search trials")
+    for name, r in tuned.items():
+        check(replay["tiles"][name] == r["winner"],
+              f"(e) the replay of {name} took {replay['tiles'][name]}, the "
+              f"winner is {r['winner']}")
+        check(replay["sources"][name] == ["tuned", "tuned"],
+              f"(e) the replay of {name} resolved from "
+              f"{replay['sources'][name]}")
+    check(replay["trials"] == 0, "(e) the replay ran search trials")
+
+
+def planes_agg(directory):
+    """(f) Rank 0 publishes its snapshot and merges the directory (the
+    ranks of a job share it; two ranks are the CPU tests' case)."""
+    from mxnet_tpu_torch import telemetry_agg
+
+    telemetry_agg.configure(directory=directory, every=1, rank=0, world=1)
+    try:
+        doc = telemetry_agg.tick()
+        code, _, body = telemetry_agg._http_agg("GET", "/agg", {}, b"")
+        files = sorted(os.listdir(directory))
+    finally:
+        telemetry_agg.reset()
+    log(f"  aggregation: published {files}, merged ranks {doc['ranks']} "
+        f"({len(doc['metrics'])} families, skew step "
+        f"{doc['skew']['step']}), /agg {code} ({len(body)} bytes)")
+    check(doc["ranks"] == [0] and files == ["rank0.json"] and code == 200,
+          "(f) rank 0's publish and merge")
+    return doc
+
+
+def planes_phase(seed, gen=None, tile_checks=True):
+    """Phase 13: (a)-(f) on the card (``tile_checks=False``: the kernel
+    phase already held every tile); returns (flash_attn_fwd's launches
+    over (a)'s profiled steps, the kernels line's tile entries)."""
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+
+    cfg = bert.BertConfig()
+    if gen is None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_planes_")
+    t0 = time.perf_counter()
+    laps, last, children = {}, [t0], []
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - last[0]
+        last[0] = now
+
+    try:
+        log("== planes (e): flash_attn_fwd's tiles as tuning knobs")
+        if tile_checks:
+            check_tiles(gen, PLANES_TILE_CASES)
+        tuned = planes_tuning(gen, os.path.join(tmp, "tune"))
+        check_planes_tuning(tuned)
+        lap("(e) tuning")
+        amp.init()
+        try:
+            log("== planes (a): mx.profiler over torch.profiler")
+            prof = planes_profiler(seed, tmp)
+            check_planes_profiler(prof, cfg)
+            lap("(a)")
+            # the two children run beside (b) and (c): each is mostly a
+            # fresh interpreter's start, on the host
+            replay = planes_replay_start(seed, os.path.join(tmp, "tune"))
+            watchdog = planes_watchdog_start(
+                seed, os.path.join(tmp, "watchdog"), tiny=True)
+            children += [replay, watchdog["child"]]
+            log("== planes (b): FLOPs counted once, the MFU gauge")
+            check_planes_flops(planes_flops(seed))
+            torch.cuda.empty_cache()
+            lap("(b)")
+            log("== planes (c): the numerical-integrity guard")
+            gd = planes_guard(seed)
+            check_planes_guard(gd)
+            check_planes_rewind(planes_rewind(
+                seed, os.path.join(tmp, "ckpt"), gd["u_losses"]))
+            torch.cuda.empty_cache()
+            lap("(c)")
+        finally:
+            amp.disable()
+        log("== planes (d): the stall watchdog (a child, the recipe at "
+            "phase 10's tiny size)")
+        check_planes_watchdog(planes_watchdog_finish(watchdog))
+        log("== planes (e): the winners replayed in a second process")
+        check_planes_replay(planes_replay_finish(replay), tuned)
+        lap("(d) and the replay, after (c)")
+        log("== planes (f): telemetry aggregation")
+        planes_agg(os.path.join(tmp, "agg"))
+        lap("(f)")
+    finally:
+        for child in children:       # left running only by a failed check
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("  planes phase by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in laps.items()))
+    log(f"  planes phase took {time.perf_counter() - t0:.1f} s")
+    return prof["launches"], {"tiles": {n: r["times"]
+                                        for n, r in tuned.items()},
+                              "tuned": {n: r["winner"]
+                                        for n, r in tuned.items()}}
+
+
+def bert_step_flops(cfg, batch, seq, attention=True):
+    """The analytic FLOPs of one BertForPretraining training step's
+    products: each Dense layer 6 x rows x in x out (forward, the input's
+    and the weight's gradient; every layer's input needs its gradient),
+    and with ``attention`` the attention's 14 x D per (query, key) pair
+    and head (4 forward, 10 in the blockwise backward).  The MLM head runs
+    over every position, the pooler and NSP head over the batch."""
+    t, h, i = batch * seq, cfg.hidden_size, cfg.intermediate_size
+    dense = 6 * (cfg.num_layers * t * (4 * h * h + 2 * h * i)
+                 + batch * h * h + t * h * h + t * h * cfg.vocab_size
+                 + batch * h * 2)
+    att = 14 * cfg.num_layers * batch * cfg.num_heads * seq * seq * \
+        (h // cfg.num_heads)
+    return dense + (att if attention else 0)
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -8595,6 +9633,22 @@ def parse_args(argv=None):
     parser.add_argument("--data", action="store_true",
                         help="run only the build and phase 12, the data "
                              "path")
+    parser.add_argument("--planes", action="store_true",
+                        help="run only the build and phase 13, the runtime "
+                             "planes (with the serving FLOP check at 2 "
+                             "layers)")
+    parser.add_argument("--watchdog-worker", action="store_true",
+                        help="run the BERT recipe with the stall watchdog "
+                             "and arm its seam: a child of phase 13 (d)")
+    parser.add_argument("--watchdog-dir", metavar="PATH")
+    parser.add_argument("--nvcc-seconds", nargs="+", metavar="CU",
+                        help="compile each .cu with the kernels' nvcc "
+                             "flags, in turn, twice, and print the seconds "
+                             "(a source's build time against another's)")
+    parser.add_argument("--tune-replay", action="store_true",
+                        help="launch the kernel at phase 13 (e)'s shapes "
+                             "with the stored tuning winners and print the "
+                             "tiles: a child of phase 13 (e)")
     parser.add_argument("--resume-worker", action="store_true",
                         help="run the fp16 BERT recipe under "
                              "run_with_recovery, a step a line to "
@@ -8619,7 +9673,23 @@ def main():
         return fleet_replica_main(args)
     if args.resume_worker:
         return resume_worker_main(args)
+    if args.watchdog_worker:
+        return watchdog_worker_main(args)
+    if args.tune_replay:
+        return tune_replay_main(args)
     from mxnet_tpu_torch import _kernels
+
+    if args.nvcc_seconds:
+        with tempfile.TemporaryDirectory() as tmp:
+            for rnd in (1, 2):
+                for src in args.nvcc_seconds:
+                    t0 = time.perf_counter()
+                    subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS,
+                                    "-o", os.path.join(tmp, "k.so"), src],
+                                   check=True, capture_output=True)
+                    log(f"  nvcc {src} (round {rnd}): "
+                        f"{time.perf_counter() - t0:.2f} s")
+        return 0
 
     t_all = time.perf_counter()
     log("== environment")
@@ -8713,6 +9783,20 @@ def main():
         log(f"== done in {time.perf_counter() - t_all:.1f} s")
         return 0
 
+    if args.planes:
+        log("== the runtime planes (phase 13 alone)")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(args.seed)
+        check_tiles(gen, PLANES_TILE_CASES)
+        log("== planes (b): serving FLOPs at Llama-3-8B widths, 2 layers")
+        planes_serving(args.seed)
+        torch.cuda.empty_cache()
+        n, _ = planes_phase(args.seed, gen, tile_checks=False)
+        check(n > 0, "flash_attn_fwd never ran on the gluon_bert_planes "
+                     "path")
+        log(f"== done in {time.perf_counter() - t_all:.1f} s")
+        return 0
+
     if args.frontend:
         log("== the Gluon frontend (phase 11 alone)")
         n = frontend_phase(args.seed)
@@ -8802,7 +9886,16 @@ def main():
         "workers -> the BERT-LAMB recipe")
     launches["gluon_bert_dataloader"] = data_phase(args.seed, resnet_img_s)
     torch.cuda.empty_cache()
-    log(f"  data phase took {time.perf_counter() - t8:.1f} s")
+    t9 = time.perf_counter()
+    log(f"  data phase took {t9 - t8:.1f} s")
+
+    log("== the runtime planes: mx.profiler over torch.profiler, FLOPs and "
+        "the MFU gauge, the guard, the watchdog, the tiles as tuning knobs, "
+        "telemetry aggregation")
+    launches["gluon_bert_planes"], tiles = planes_phase(args.seed, gen,
+                                                        tile_checks=False)
+    row.update(tiles)
+    torch.cuda.empty_cache()
     for path, n in launches.items():
         check(n > 0, f"flash_attn_fwd never ran on the {path} path")
         row["by_path"][path]["launches"] = n

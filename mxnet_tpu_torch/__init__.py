@@ -22,8 +22,15 @@ the reference's files, and a training loop that polls
 ``gluon.data`` (datasets, samplers, the DataLoader with thread or process
 workers, ``vision``), ``io`` (ImageRecordIter over a native C++ RecordIO
 reader, CSVIter, LibSVMIter, MNISTIter), ``recordio``, ``image`` and
-``nd.sparse`` (row_sparse and csr storage, the CSR product).  The package
-imports ``torch`` and numpy, never ``jax`` and nothing of ``mxnet_tpu``.
+``nd.sparse`` (row_sparse and csr storage, the CSR product).  Runtime
+planes: ``profiler`` (per-op spans and the card's kernels in a Chrome
+trace, over ``torch.profiler``), ``introspection`` (FLOPs counted once per
+signature, the live MFU gauge), ``guard`` (the numerical-integrity guard:
+skip and rewind), ``lifecycle.Watchdog`` (the stall watchdog),
+``telemetry_agg`` (cross-rank snapshot merge and black-box blame) and
+``tuning`` (knobs, successive halving, the winner DB; the
+flash-attention kernel's tiles are knobs).  The package imports ``torch``
+and numpy, never ``jax`` and nothing of ``mxnet_tpu``.
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ from . import parallel  # noqa: E402
 from . import env, fault, flight_recorder, lifecycle, telemetry  # noqa: E402
 from . import callback, checkpoint  # noqa: E402
 from . import image, io, native, recordio  # noqa: E402
+from . import (guard, introspection, profiler, telemetry_agg,  # noqa: E402
+               tuning)
 
 env.apply_env()
 
@@ -49,4 +58,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "metric", "parallel",
            "contrib", "env", "fault", "telemetry", "flight_recorder",
            "lifecycle", "checkpoint", "callback", "io", "recordio",
-           "image", "native"]
+           "image", "native", "profiler", "introspection", "guard",
+           "tuning", "telemetry_agg"]

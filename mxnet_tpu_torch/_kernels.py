@@ -6,7 +6,8 @@ shared library with a plain C interface, ``_build/<name>-<hash>.so`` (the
 directory is git-ignored), and loaded with ``ctypes``.  The hash covers the
 sources and the flags, so an edited source rebuilds and an unchanged one is
 reused.  Nothing is built when the module is imported: :func:`load` builds
-at first use, and :func:`build_all` builds every stale source in turn.
+at first use, and :func:`build_all` builds every stale source, one
+compiler process per source, all at once.
 
 A ``csrc/<name>.cc`` is host code (the data path's RecordIO reader): the
 host compiler builds it the same way, with ``HOST_FLAGS``, when
@@ -44,7 +45,8 @@ _SIGNATURES = {
             ctypes.c_int,
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_int,
-               ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]),
+               ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+               ctypes.c_int, ctypes.c_void_p]),
         "mxt_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "recordio_reader": {
@@ -153,13 +155,19 @@ def _open(name):
 
 
 def build_all():
-    """Build every stale ``csrc/*.cu`` and load them all.  Returns the wall
-    seconds spent (next to none when every library is current)."""
+    """Build every stale ``csrc/*.cu``, one ``nvcc`` per source, all started
+    together, and load them all.  Returns the wall seconds spent (next to
+    none when every library is current)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
     with _lock:
-        for name in sources():
-            if name not in _loaded:
-                _build(name)
+        todo = [name for name in sources() if name not in _loaded]
+        if todo:
+            with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+                for fut in [pool.submit(_build, name) for name in todo]:
+                    fut.result()
+            for name in todo:
                 _loaded[name] = _open(name)
     return time.perf_counter() - t0
 

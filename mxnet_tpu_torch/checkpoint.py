@@ -28,11 +28,13 @@ in-flight gauge.
 One process only.  A job of several processes (one writer, a barrier at
 publish) waits for the port's collectives: the manager raises when
 ``torch.distributed`` runs more than one process, and ``_launcher_rank``
-only decides which process sweeps staging directories.  Not ported yet:
-``resharder=`` (live resharding, with the multi-GPU slice; anything but
-None raises), the ``compile_cache`` beside the checkpoints and the guard's
-``rewind`` bucket (with the other runtime planes: until then every
-failure counts as a restart).
+only decides which process sweeps staging directories.  A failure from
+the numerical-integrity guard (``guard.GuardRewind``,
+``guard.NumericalDivergence``) is a rewind: its downtime goes to the
+``rewind`` goodput bucket, every other failure's to ``restart``.  Not
+ported yet: ``resharder=`` (live resharding, with the multi-GPU slice;
+anything but None raises) and the ``compile_cache`` beside the
+checkpoints.
 """
 from __future__ import annotations
 
@@ -521,6 +523,11 @@ def run_with_recovery(train_fn, manager, max_restarts=3,
       write and re-raises it without counting a restart (the caller exits
       with ``lifecycle.EXIT_PREEMPTED`` and the relaunch resumes).
     - Each failure dumps the flight recorder's black box first.
+    - A failure of the numerical-integrity guard (``guard.GuardRewind``:
+      a persistent anomaly on a loop that cannot skip;
+      ``guard.NumericalDivergence``) is a rewind: its downtime (failure to
+      the next attempt) is charged to the ``rewind`` goodput bucket, not
+      ``restart``.
 
     Returns train_fn's result."""
     from .lifecycle import GracefulExit
@@ -535,11 +542,14 @@ def run_with_recovery(train_fn, manager, max_restarts=3,
     restarts = 0
     last_step = progress() or 0
     fail_t = None      # goodput: failure -> next attempt downtime
+    fail_bucket = "restart"   # or "rewind" for the guard's failures
     while True:
         start = progress() or 0
         if fail_t is not None:
-            telemetry.goodput_note("restart", time.perf_counter() - fail_t)
-            fail_t = None
+            # time lost to wrong values (a guard rewind) is told apart from
+            # time lost to a lost process
+            telemetry.goodput_note(fail_bucket, time.perf_counter() - fail_t)
+            fail_t, fail_bucket = None, "restart"
         try:
             result = train_fn(start, manager)
             # a final async save may still be staging; a failed one
@@ -557,9 +567,15 @@ def run_with_recovery(train_fn, manager, max_restarts=3,
             if should_retry is not None and not should_retry(e):
                 raise
             fail_t = time.perf_counter()
+            from . import guard as _guard
+
+            divergence = isinstance(e, _guard.NumericalDivergence)
+            if divergence or isinstance(e, _guard.GuardRewind):
+                fail_bucket = "rewind"
             _flight.record_event("lifecycle", event="train_failure",
                                  error=repr(e)[:200])
-            _flight.dump_blackbox("run_with_recovery_failure")
+            _flight.dump_blackbox("numerical_divergence" if divergence
+                                  else "run_with_recovery_failure")
             # a background write from before the failure may publish the
             # step that resets the budget
             manager._join_pending(raise_=False)

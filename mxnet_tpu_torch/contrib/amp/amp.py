@@ -88,9 +88,16 @@ def init_trainer(trainer, loss_scaler=None):
     """Attach loss scaling to a Gluon Trainer (reference: amp.init_trainer):
     its ``step()`` skips the update when a gradient is non-finite, and
     then updates the scale.  Default scaler: dynamic under float16, static
-    at 1 under bfloat16."""
+    at 1 under bfloat16.  With the numerical-integrity guard,
+    ``guard.attach`` comes after this (its step then owns the verdict and
+    the scale, one host read); a guard-attached trainer raises."""
     if not _AMP["on"]:
         raise MXNetError("call amp.init() before amp.init_trainer()")
+    if getattr(trainer, "_guard", None) is not None:
+        raise MXNetError(
+            "amp.init_trainer on a guard-attached trainer: attach order "
+            "is amp first, then guard.attach (the guard step subsumes "
+            "the AMP overflow sync)")
     if loss_scaler is None:
         loss_scaler = LossScaler(dynamic=(_AMP["target"] == "float16"))
     trainer._amp_loss_scaler = loss_scaler

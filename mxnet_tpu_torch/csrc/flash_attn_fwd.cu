@@ -60,7 +60,12 @@
 // Head dims: every one the wrapper takes (32, 64, 128, 256) runs this
 // kernel; there is no other 16-bit kernel.  D = 256 uses one consumer
 // warpgroup (a 64-row CTA of 256 threads) and 64-key tiles: its 64 x 256
-// fp32 O accumulator alone is 128 registers a thread.
+// fp32 O accumulator alone is 128 registers a thread.  The tile is a pair
+// of template parameters: D = 64 and 128 are built at 64 or 128 query rows
+// (one or two consumers) times 64 or 128 keys, chosen per call (the
+// flash_block_q / flash_block_kv tuning knobs; the default is the tile
+// above); D = 32 and 256 have their one tile.  The pipeline is the same
+// at every tile.
 //
 // fp32: full fp32 (no TF32), scalar FMAs, 256 threads each owning a 4x4
 // piece of a 64x64 score tile and a 4 x D/16 piece of the accumulator.  It
@@ -267,7 +272,7 @@ constexpr uint32_t kSpinLimit = 1u << 26;
 
 template <typename E>
 struct WgParams {
-  CUtensorMap tm_q, tm_k, tm_v;  // (D, L, H, B) maps, boxes of Tile<D>
+  CUtensorMap tm_q, tm_k, tm_v;  // (D, L, H, B) maps, boxes of the Tile
   E* o;
   float* lse;
   Strides os;
@@ -276,15 +281,27 @@ struct WgParams {
   float scale_log2;  // sm_scale * log2(e)
 };
 
+// The default tile of each head dim: 128 query rows (two consumer
+// warpgroups) and 128-key tiles, except at D = 256, where the 64 x 256 fp32
+// O accumulator alone is 128 registers a thread and only a 256-thread CTA
+// (one consumer) lets a thread hold 255, with 64-key tiles.
 template <int D>
+constexpr int kDefaultBM = D == 256 ? 64 : 128;
+template <int D>
+constexpr int kDefaultBN = D == 256 ? 64 : 128;
+
+// BM query rows per CTA (64 or 128: one or two consumer warpgroups of 64
+// rows) and BN keys per K/V tile (64 or 128).  D = 64 and 128 are built at
+// all four pairs (the flash_block_q / flash_block_kv tuning knobs), D = 32
+// and 256 at their default only.
+template <int D, int BM = kDefaultBM<D>, int BN = kDefaultBN<D>>
 struct Tile {
-  // consumer warpgroups of 64 query rows each: one at D = 256, where the
-  // 64 x 256 fp32 O accumulator alone is 128 registers a thread and only a
-  // 256-thread CTA lets a thread hold 255
-  static constexpr int kConsumers = D == 256 ? 1 : 2;
+  static_assert(BM == 64 || BM == 128, "query tiles are 64 or 128 rows");
+  static_assert(BN == 64 || BN == 128, "key tiles are 64 or 128 keys");
+  static constexpr int kConsumers = BM / 64;
   static constexpr int kThreads = 128 * (1 + kConsumers);
-  static constexpr int kBM = 64 * kConsumers;      // query rows per CTA
-  static constexpr int kBN = D == 256 ? 64 : 128;  // keys per K/V tile
+  static constexpr int kBM = BM;                   // query rows per CTA
+  static constexpr int kBN = BN;                   // keys per K/V tile
   static constexpr int kSw = D >= 64 ? 128 : 64;   // swizzle span = box row bytes
   static constexpr int kBoxCols = kSw / 2;         // 16-bit columns per TMA box
   static constexpr int kBoxes = D / kBoxCols;      // boxes per row
@@ -551,10 +568,10 @@ __device__ __forceinline__ void wg_wait() {
 // Issue S = Q K^T for a consumer's 64 rows (one k16 wgmma per 16 of D).
 // Descriptors are built once per tile; each step adds its byte offset
 // (>> 4) to the start-address field.
-template <typename E, int D>
-__device__ __forceinline__ void issue_qk(float (&s)[Tile<D>::kBN / 2],
-                                         uint32_t q_rows, uint32_t k_tile) {
-  using T = Tile<D>;
+template <typename E, int D, int BM, int BN>
+__device__ __forceinline__ void issue_qk(float (&s)[BN / 2], uint32_t q_rows,
+                                         uint32_t k_tile) {
+  using T = Tile<D, BM, BN>;
   const uint64_t da = gmma_desc(q_rows, 16, 8 * T::kSw, T::kLayout);
   const uint64_t db = gmma_desc(k_tile, 16, 8 * T::kSw, T::kLayout);
 #pragma unroll
@@ -567,11 +584,11 @@ __device__ __forceinline__ void issue_qk(float (&s)[Tile<D>::kBN / 2],
 }
 
 // Issue O += P V: P from registers, V read MN-major (transpose bit).
-template <typename E, int D>
+template <typename E, int D, int BM, int BN>
 __device__ __forceinline__ void issue_pv(
     float (&o)[Tile<D>::kNOC][Tile<D>::kNO / 2],
-    const uint32_t (&pa)[Tile<D>::kBN / 16][4], uint32_t v_tile) {
-  using T = Tile<D>;
+    const uint32_t (&pa)[BN / 16][4], uint32_t v_tile) {
+  using T = Tile<D, BM, BN>;
   const uint64_t db =
       gmma_desc(v_tile, T::kBN * T::kSw, 8 * T::kSw, T::kLayout);
 #pragma unroll
@@ -661,11 +678,11 @@ __device__ __forceinline__ void pack_p(const float (&s)[BN / 2],
   }
 }
 
-template <typename E, int D>
-__global__ void __launch_bounds__(Tile<D>::kThreads, 1)
+template <typename E, int D, int BM, int BN>
+__global__ void __launch_bounds__(Tile<D, BM, BN>::kThreads, 1)
     fa_fwd_wgmma(const __grid_constant__ WgParams<E> p) {
-  using T = Tile<D>;
-  constexpr int BN = T::kBN, kBM = T::kBM;
+  using T = Tile<D, BM, BN>;
+  constexpr int kBM = BM;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // swizzled TMA boxes and wgmma descriptors agree on 1024-byte atoms
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -787,7 +804,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
       mbar_wait(FULL_K(st), par);
       pin(s);
       wg_fence();
-      issue_qk<E, D>(s, q_rows, sK + st * T::kKVBytes);
+      issue_qk<E, D, BM, BN>(s, q_rows, sK + st * T::kKVBytes);
       wg_commit();
       wg_wait<0>();
       pin(s);
@@ -809,7 +826,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
       mbar_wait(FULL_V(st), par);
       pin_o<D>(o);
       wg_fence();
-      issue_pv<E, D>(o, pa, sV + st * T::kKVBytes);
+      issue_pv<E, D, BM, BN>(o, pa, sV + st * T::kKVBytes);
       wg_commit();
       wg_wait<0>();
       pin_o<D>(o);
@@ -929,9 +946,9 @@ bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename E, int D>
+template <typename E, int D, int BM, int BN>
 int launch_wgmma(const Args& a, cudaStream_t stream) {
-  using T = Tile<D>;
+  using T = Tile<D, BM, BN>;
   const int nqb = (a.Lq + T::kBM - 1) / T::kBM;
   if (nqb > 65535) return (int)cudaErrorInvalidValue;
   const CUtensorMapDataType type = kIsHalf<E>
@@ -955,19 +972,35 @@ int launch_wgmma(const Args& a, cudaStream_t stream) {
   p.causal = a.causal;
   p.scale_log2 = a.sm_scale * 1.4426950408889634f;
   const dim3 grid(a.B * a.Hq, nqb);
-  return launch(fa_fwd_wgmma<E, D>, grid, T::kThreads, T::kSmem, p, stream);
+  return launch(fa_fwd_wgmma<E, D, BM, BN>, grid, T::kThreads, T::kSmem, p, stream);
 }
 
 // The element type of q, k, v and o (lse is always fp32).
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
+// The instance of head dim D at tile (bq, bk); 0 selects D's default.  A
+// pair the head dim is not built at is an invalid value.
+template <typename E, int D>
+int launch_tiled(const Args& a, int bq, int bk, cudaStream_t st) {
+  if (bq == 0) bq = kDefaultBM<D>;
+  if (bk == 0) bk = kDefaultBN<D>;
+  if (bq == kDefaultBM<D> && bk == kDefaultBN<D>)
+    return launch_wgmma<E, D, kDefaultBM<D>, kDefaultBN<D>>(a, st);
+  if constexpr (D == 64 || D == 128) {
+    if (bq == 128 && bk == 64) return launch_wgmma<E, D, 128, 64>(a, st);
+    if (bq == 64 && bk == 128) return launch_wgmma<E, D, 64, 128>(a, st);
+    if (bq == 64 && bk == 64) return launch_wgmma<E, D, 64, 64>(a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename E>
-int launch_16(const Args& a, int D, cudaStream_t st) {
+int launch_16(const Args& a, int D, int bq, int bk, cudaStream_t st) {
   switch (D) {
-    case 32: return launch_wgmma<E, 32>(a, st);
-    case 64: return launch_wgmma<E, 64>(a, st);
-    case 128: return launch_wgmma<E, 128>(a, st);
-    case 256: return launch_wgmma<E, 256>(a, st);
+    case 32: return launch_tiled<E, 32>(a, bq, bk, st);
+    case 64: return launch_tiled<E, 64>(a, bq, bk, st);
+    case 128: return launch_tiled<E, 128>(a, bq, bk, st);
+    case 256: return launch_tiled<E, 256>(a, bq, bk, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -975,12 +1008,15 @@ int launch_16(const Args& a, int D, cudaStream_t st) {
 }  // namespace
 
 // dtype: a DType code.  strides: 12 element strides, (batch, head, seq) of
-// q, k, v and o in turn; each tensor's head dim is dense.
+// q, k, v and o in turn; each tensor's head dim is dense.  block_q /
+// block_kv: the 16-bit kernel's tile (0: the head dim's default); the fp32
+// kernel has one tile and takes 0 only.
 extern "C" int mxt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int B, int Hq, int Hkv,
                                   int Lq, int Lk, int D, int causal,
                                   float sm_scale, int dtype,
-                                  const long long* strides, void* stream) {
+                                  const long long* strides, int block_q,
+                                  int block_kv, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Lq <= 0 || Lk <= 0 ||
       dtype < kF32 || dtype > kF16)
     return (int)cudaErrorInvalidValue;
@@ -995,8 +1031,9 @@ extern "C" int mxt_flash_attn_fwd(const void* q, const void* k, const void* v,
                Strides{strides[6], strides[7], strides[8]},
                Strides{strides[9], strides[10], strides[11]}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return launch_16<__nv_bfloat16>(a, D, st);
-  if (dtype == kF16) return launch_16<__half>(a, D, st);
+  if (dtype == kBF16) return launch_16<__nv_bfloat16>(a, D, block_q, block_kv, st);
+  if (dtype == kF16) return launch_16<__half>(a, D, block_q, block_kv, st);
+  if (block_q != 0 || block_kv != 0) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 32: return launch_f32<32>(a, st);
     case 64: return launch_f32<64>(a, st);

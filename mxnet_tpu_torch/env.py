@@ -17,14 +17,36 @@ Wired vars:
   unset/0 = no server.
 - ``MXNET_TELEMETRY_TIMELINE_STEPS``: step-timeline ring capacity
   (default 256).
-- ``MXNET_TELEMETRY_AGG_DIR``: read only as the fallback of
-  ``MXNET_FLIGHT_DIR`` (the cross-rank aggregator is not ported).
+- ``MXNET_TELEMETRY_AGG_DIR``: the shared directory of the cross-rank
+  snapshot files (``telemetry_agg``), and the fallback of
+  ``MXNET_FLIGHT_DIR``.
+- ``MXNET_TELEMETRY_AGG_EVERY``: publish/merge the snapshots every N-th
+  step-boundary tick (default 0 = off).
+- ``MXNET_TELEMETRY_AGG_TRANSPORT``: ``file`` (the shared directory,
+  default) or ``kv`` (the launcher's ``torch.distributed`` TCPStore).
+- ``MXNET_LEDGER_SKEW_THRESHOLD``, ``MXNET_LEDGER_SKEW_WINDOWS``: the
+  cross-rank ledger-skew alert (default 0 = off; 3 merges).
+- ``MXNET_PROFILER_AUTOSTART``: start ``profiler`` with profile_all at
+  import.
+- ``MXNET_DEVICE_PEAK_FLOPS``: per-device peak FLOP/s for the MFU gauge
+  (default 0 = the device-name table of ``introspection``).
+- ``MXNET_TUNE``: replay stored tuning winners (default 0);
+  ``MXNET_TUNE_DB_DIR``: the tuning DB's directory.
+- ``MXNET_FLASH_BLOCK_Q``, ``MXNET_FLASH_BLOCK_KV``: pin the
+  flash-attention kernel's query and key tiles (``tuning`` knobs).
+- ``MXNET_GUARD`` and ``MXNET_GUARD_*``: the numerical-integrity guard
+  (``guard.py``): window, spike thresholds, skip, rewind, sync stride,
+  checksum and canary.
+- ``MXNET_WATCHDOG_TIMEOUT_S``: the stall watchdog's per-step deadline
+  (default 0 = off; started at import when set), ``MXNET_WATCHDOG_ABORT``
+  (default 1) and ``MXNET_WATCHDOG_DIR`` (its diagnosis files).
 - ``MXNET_FLIGHT_RECORDER``: the flight-recorder ring (default 1).
 - ``MXNET_FLIGHT_RECORDER_CAP``: its capacity in events (default 4096).
 - ``MXNET_FLIGHT_DIR``: directory for ``blackbox.rank<N>.json`` dumps
   (default ``MXNET_TELEMETRY_AGG_DIR``; neither set = no dumps).
-- ``MXNET_WORKER_ID`` / ``DMLC_WORKER_ID``, ``MXNET_NUM_WORKERS`` /
-  ``DMLC_NUM_WORKER``: launcher rank and world size.
+- ``MXNET_WORKER_ID`` / ``DMLC_WORKER_ID`` / ``RANK``,
+  ``MXNET_NUM_WORKERS`` / ``DMLC_NUM_WORKER`` / ``WORLD_SIZE``: launcher
+  rank and world size.
 - ``MXNET_GOODPUT_SLO``, ``MXNET_GOODPUT_SLO_WINDOWS``: goodput-ratio SLO
   alerting (default 0 = off; 3 windows).
 - ``MXNET_TRACE_REQUESTS``: per-request serving traces (default 1).
@@ -58,10 +80,9 @@ Wired vars:
 - ``MXNET_MP_START_METHOD``: the DataLoader's process-worker start method
   (default spawn; forkserver or fork on request).
 
-The knobs of planes not ported yet (planner, graph, guard, ZeRO, compile
-cache, tuning), of the lifecycle's watchdog
-(``MXNET_WATCHDOG_TIMEOUT_S``) and of the cross-process stop agreement
-(``MXNET_STOP_SYNC_EVERY``) wait for their code.
+The knobs of planes not ported yet (planner, graph, ZeRO, compile cache)
+and of the cross-process stop agreement (``MXNET_STOP_SYNC_EVERY``) wait
+for their code.
 """
 from __future__ import annotations
 
@@ -80,7 +101,13 @@ __all__ = ["get_str", "get_int", "get_bool", "get_float",
            "fleet_probe_interval_ms", "fleet_eject_threshold",
            "preemption_checkpoint_default",
            "checkpoint_async_default", "prefetch_buffer",
-           "cpu_worker_nthreads",
+           "cpu_worker_nthreads", "telemetry_agg_every",
+           "telemetry_agg_transport", "ledger_skew_threshold",
+           "ledger_skew_windows", "tune_enabled", "tune_db_dir",
+           "guard_enabled", "guard_window", "guard_loss_spike",
+           "guard_grad_spike", "guard_skip", "guard_rewind_after",
+           "guard_sync_every", "guard_checksum", "guard_canary_every",
+           "device_peak_flops_override", "watchdog_timeout_s",
            "describe", "apply_env"]
 
 
@@ -195,10 +222,10 @@ def prefetch_buffer():
 
 
 def launcher_rank():
-    """Launcher-provided rank (MXNET_WORKER_ID / DMLC_WORKER_ID; default
-    0), read from the environment alone, so that it is known before any
-    process group exists."""
-    for name in ("MXNET_WORKER_ID", "DMLC_WORKER_ID"):
+    """Launcher-provided rank (MXNET_WORKER_ID / DMLC_WORKER_ID, or the
+    torch launcher's RANK; default 0), read from the environment alone,
+    so that it is known before any process group exists."""
+    for name in ("MXNET_WORKER_ID", "DMLC_WORKER_ID", "RANK"):
         v = os.environ.get(name)
         if v:
             try:
@@ -209,9 +236,9 @@ def launcher_rank():
 
 
 def launcher_world():
-    """Launcher-provided world size (MXNET_NUM_WORKERS / DMLC_NUM_WORKER;
-    default 1)."""
-    for name in ("MXNET_NUM_WORKERS", "DMLC_NUM_WORKER"):
+    """Launcher-provided world size (MXNET_NUM_WORKERS / DMLC_NUM_WORKER,
+    or the torch launcher's WORLD_SIZE; default 1)."""
+    for name in ("MXNET_NUM_WORKERS", "DMLC_NUM_WORKER", "WORLD_SIZE"):
         v = os.environ.get(name)
         if v:
             try:
@@ -222,9 +249,115 @@ def launcher_world():
 
 
 def telemetry_agg_dir():
-    """The cross-rank snapshot directory (MXNET_TELEMETRY_AGG_DIR); the
-    port reads it only as the fallback of :func:`flight_dir`."""
+    """Shared directory of the per-rank snapshot files the cross-rank
+    aggregator gathers (MXNET_TELEMETRY_AGG_DIR; required for
+    aggregation, and the fallback of :func:`flight_dir`)."""
     return get_str("MXNET_TELEMETRY_AGG_DIR")
+
+
+def telemetry_agg_every():
+    """Cross-rank aggregation stride in step-boundary ticks
+    (MXNET_TELEMETRY_AGG_EVERY, default 0 = off)."""
+    return max(0, get_int("MXNET_TELEMETRY_AGG_EVERY", 0))
+
+
+def telemetry_agg_transport():
+    """Snapshot-gather transport: ``file`` (the shared directory, default)
+    or ``kv`` (the launcher's torch.distributed store;
+    MXNET_TELEMETRY_AGG_TRANSPORT).  Black-box dumps are always files."""
+    v = (get_str("MXNET_TELEMETRY_AGG_TRANSPORT", "file") or
+         "file").strip().lower()
+    return v if v in ("file", "kv") else "file"
+
+
+def ledger_skew_threshold():
+    """Cross-rank collective-ledger spread that arms the pre-hang alert
+    (MXNET_LEDGER_SKEW_THRESHOLD, default 0 = off)."""
+    return max(0, get_int("MXNET_LEDGER_SKEW_THRESHOLD", 0))
+
+
+def ledger_skew_windows():
+    """Consecutive above-threshold merges before the ledger-skew alert
+    fires (MXNET_LEDGER_SKEW_WINDOWS, default 3)."""
+    return max(1, get_int("MXNET_LEDGER_SKEW_WINDOWS", 3))
+
+
+def tune_enabled():
+    """Replay stored tuning winners (MXNET_TUNE, default off; the warm
+    path never searches)."""
+    return get_bool("MXNET_TUNE", False)
+
+
+def tune_db_dir():
+    """Directory of the persistent tuning DB (MXNET_TUNE_DB_DIR)."""
+    return get_str("MXNET_TUNE_DB_DIR")
+
+
+def guard_enabled():
+    """The numerical-integrity guard's master gate (MXNET_GUARD,
+    default 0)."""
+    return get_bool("MXNET_GUARD", False)
+
+
+def guard_window():
+    """The guard's trailing robust window in steps (MXNET_GUARD_WINDOW,
+    default 64, at least 8)."""
+    return max(8, get_int("MXNET_GUARD_WINDOW", 64))
+
+
+def guard_loss_spike():
+    """Robust-z threshold of a loss spike (MXNET_GUARD_LOSS_SPIKE,
+    default 10.0; <= 0 disables the sentinel)."""
+    return get_float("MXNET_GUARD_LOSS_SPIKE", 10.0)
+
+
+def guard_grad_spike():
+    """Robust-z threshold of a gradient-norm anomaly
+    (MXNET_GUARD_GRAD_SPIKE, default 10.0; <= 0 disables it)."""
+    return get_float("MXNET_GUARD_GRAD_SPIKE", 10.0)
+
+
+def guard_skip():
+    """Zero the update on an anomalous verdict (MXNET_GUARD_SKIP,
+    default 1; 0 = observe only)."""
+    return get_bool("MXNET_GUARD_SKIP", True)
+
+
+def guard_rewind_after():
+    """Anomalies within the window before the ladder rewinds to the
+    latest valid checkpoint (MXNET_GUARD_REWIND_AFTER, default 0 =
+    off)."""
+    return max(0, get_int("MXNET_GUARD_REWIND_AFTER", 0))
+
+
+def guard_sync_every():
+    """Take the guard's host read every N-th check
+    (MXNET_GUARD_SYNC_EVERY, default 1)."""
+    return max(1, get_int("MXNET_GUARD_SYNC_EVERY", 1))
+
+
+def guard_checksum():
+    """Stamp per-bucket checksums into the flight recorder
+    (MXNET_GUARD_CHECKSUM, default 0)."""
+    return get_bool("MXNET_GUARD_CHECKSUM", False)
+
+
+def guard_canary_every():
+    """Canary recompute every N guarded steps (MXNET_GUARD_CANARY_EVERY,
+    default 0 = off)."""
+    return max(0, get_int("MXNET_GUARD_CANARY_EVERY", 0))
+
+
+def device_peak_flops_override():
+    """Per-device peak FLOP/s for the MFU gauge
+    (MXNET_DEVICE_PEAK_FLOPS, default 0 = the device-name table)."""
+    return max(0.0, get_float("MXNET_DEVICE_PEAK_FLOPS", 0.0))
+
+
+def watchdog_timeout_s():
+    """The stall watchdog's per-step deadline in seconds
+    (MXNET_WATCHDOG_TIMEOUT_S, default 0 = off)."""
+    return max(0.0, get_float("MXNET_WATCHDOG_TIMEOUT_S", 0.0))
 
 
 def flight_recorder_enabled():
@@ -307,8 +440,39 @@ _WIRED = (
      "Prometheus, /snapshot JSON; unset/0 = off)"),
     ("MXNET_TELEMETRY_TIMELINE_STEPS", "step-timeline ring capacity "
      "(default 256)"),
-    ("MXNET_TELEMETRY_AGG_DIR", "fallback directory of the black-box "
-     "dumps"),
+    ("MXNET_TELEMETRY_AGG_DIR", "shared directory of the cross-rank "
+     "snapshot files; fallback directory of the black-box dumps"),
+    ("MXNET_TELEMETRY_AGG_EVERY", "cross-rank aggregation stride in "
+     "step-boundary ticks (default 0 = off)"),
+    ("MXNET_TELEMETRY_AGG_TRANSPORT", "snapshot gather: file (default) or "
+     "kv (the launcher's torch.distributed store)"),
+    ("MXNET_LEDGER_SKEW_THRESHOLD", "ledger-skew pre-hang alert threshold "
+     "(default 0 = off)"),
+    ("MXNET_LEDGER_SKEW_WINDOWS", "consecutive merges before the ledger-"
+     "skew alert (default 3)"),
+    ("MXNET_PROFILER_AUTOSTART", "start the profiler at import"),
+    ("MXNET_DEVICE_PEAK_FLOPS", "per-device peak FLOP/s for the MFU gauge "
+     "(default 0 = the device-name table)"),
+    ("MXNET_TUNE", "replay stored tuning winners (default 0)"),
+    ("MXNET_TUNE_DB_DIR", "directory of the persistent tuning DB"),
+    ("MXNET_FLASH_BLOCK_Q", "flash-attention query tile (tuning knob)"),
+    ("MXNET_FLASH_BLOCK_KV", "flash-attention key tile (tuning knob)"),
+    ("MXNET_GUARD", "numerical-integrity guard (default 0)"),
+    ("MXNET_GUARD_WINDOW", "guard robust window in steps (default 64)"),
+    ("MXNET_GUARD_LOSS_SPIKE", "loss-spike robust-z threshold (default 10)"),
+    ("MXNET_GUARD_GRAD_SPIKE", "grad-norm robust-z threshold (default 10)"),
+    ("MXNET_GUARD_SKIP", "skip the update on an anomaly (default 1)"),
+    ("MXNET_GUARD_REWIND_AFTER", "anomalies in the window before a rewind "
+     "(default 0 = off)"),
+    ("MXNET_GUARD_SYNC_EVERY", "guard host read every N-th check "
+     "(default 1)"),
+    ("MXNET_GUARD_CHECKSUM", "per-bucket checksum stamps (default 0)"),
+    ("MXNET_GUARD_CANARY_EVERY", "canary recompute stride (default 0)"),
+    ("MXNET_WATCHDOG_TIMEOUT_S", "stall watchdog deadline in seconds "
+     "(default 0 = off)"),
+    ("MXNET_WATCHDOG_ABORT", "a tripped watchdog exits with status 45 "
+     "(default 1)"),
+    ("MXNET_WATCHDOG_DIR", "directory of the watchdog's diagnosis files"),
     ("MXNET_FLIGHT_RECORDER", "flight-recorder ring (default 1)"),
     ("MXNET_FLIGHT_RECORDER_CAP", "flight-recorder ring capacity in events "
      "(default 4096)"),
@@ -372,7 +536,8 @@ def describe():
 
 def apply_env():
     """Apply the import-time knobs (called once from
-    ``mxnet_tpu_torch/__init__``): MXNET_SEED and MXNET_TELEMETRY_PORT."""
+    ``mxnet_tpu_torch/__init__``): MXNET_SEED, MXNET_TELEMETRY_PORT,
+    MXNET_PROFILER_AUTOSTART and MXNET_WATCHDOG_TIMEOUT_S."""
     seed = os.environ.get("MXNET_SEED")
     if seed:
         from . import random as _random
@@ -391,3 +556,12 @@ def apply_env():
                 f"MXNET_TELEMETRY_PORT={port}: endpoint not started ({e}); "
                 "another process on this host likely holds the port",
                 stacklevel=2)
+    if get_bool("MXNET_PROFILER_AUTOSTART"):
+        from . import profiler
+
+        profiler.set_config(profile_all=True)
+        profiler.start()
+    if watchdog_timeout_s() > 0:
+        from . import lifecycle
+
+        lifecycle.start_watchdog()

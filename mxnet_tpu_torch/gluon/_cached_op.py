@@ -21,7 +21,9 @@ back as values and are written into their Parameters after the call.
   forward (a discriminator run on real and on fake data, a siamese net).
   The port's generator of the card is registered with the graphs, so a
   replay draws its dropout masks from it, the same masks an eager run
-  draws from the same state.
+  draws from the same state.  The capture counts the graphs' FLOPs once
+  (``introspection.counting``); each replay accounts them
+  (``hybrid_forward`` / ``hybrid_backward``).
 
 A graph's backward has no double backward: under ``create_graph=True``
 the node recomputes the forward from its saved inputs (and the
@@ -38,6 +40,7 @@ import weakref
 import torch
 
 from .. import _kernels
+from .. import introspection as _introspection
 from .._tree import flatten, unflatten
 from .. import random as _random
 from ..base import MXNetError
@@ -174,18 +177,23 @@ class GraphForward:
         gc_was_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self._fwd, pool=pool):
-                leaves, self._out_spec, state = self._run()
-            self.out_req = [o.requires_grad for o in leaves]
-            self._bwd = None
-            req = [o for o in leaves if o.requires_grad]
-            if self._recording and req and self._grad_targets():
-                self._static_gout = [torch.empty_like(o) for o in req]
-                self._bwd = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self._bwd, pool=pool):
-                    self._static_grads = torch.autograd.grad(
-                        req, self._grad_targets(), self._static_gout,
-                        allow_unused=True)
+            # the capture is the graph's one FLOP count (its replays add
+            # the stored counts): the forward's, then the backward's
+            with _introspection.counting() as rec:
+                with torch.cuda.graph(self._fwd, pool=pool):
+                    leaves, self._out_spec, state = self._run()
+                self.flops_fwd = rec["so_far"]()
+                self.out_req = [o.requires_grad for o in leaves]
+                self._bwd = None
+                req = [o for o in leaves if o.requires_grad]
+                if self._recording and req and self._grad_targets():
+                    self._static_gout = [torch.empty_like(o) for o in req]
+                    self._bwd = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(self._bwd, pool=pool):
+                        self._static_grads = torch.autograd.grad(
+                            req, self._grad_targets(), self._static_gout,
+                            allow_unused=True)
+            self.flops_bwd = rec["flops"] - self.flops_fwd
             # the capture's autograd graph is spent: keep no node of it
             # (its parameters' accumulators belong to the capture's stream)
             self._static_out = [o.detach() for o in leaves]
@@ -222,6 +230,7 @@ class GraphForward:
         self._fwd.replay()
         self.replays += 1
         _kernels.add_launches(self.launches)
+        _introspection.account_flops(self.flops_fwd, kind="hybrid_forward")
         _write_state(self._plist, self._static_state)
         return [o.detach().clone() for o in self._static_out]
 
@@ -234,6 +243,7 @@ class GraphForward:
                              if req)):
                 s.copy_(g)
         self._bwd.replay()
+        _introspection.account_flops(self.flops_bwd, kind="hybrid_backward")
         res = iter(g.detach().clone() if g is not None else None
                    for g in self._static_grads)
         out = [next(res) for _ in range(self.n_diff)]

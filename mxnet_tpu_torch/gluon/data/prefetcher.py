@@ -10,8 +10,8 @@ caching allocator does not hand its memory out again while the step still
 reads it.  The copies ride the copy engine while the previous step
 computes.
 
-Depth is ``MXNET_PREFETCH_BUFFER`` (default 2: one batch in transfer, one
-ready); ``0`` stages each batch on the caller's thread and stream, with no
+Depth is the ``prefetch_buffer`` tuning knob (``MXNET_PREFETCH_BUFFER``,
+default 2: one batch in transfer, one ready); ``0`` stages each batch on the caller's thread and stream, with no
 pipeline.  An error in the source (or in staging) is raised to the
 consumer at its next batch, never swallowed.  ``close()`` (also run by a
 finalizer when the iterator is dropped) stops and joins the thread and
@@ -28,7 +28,6 @@ import weakref
 import numpy as _np
 import torch
 
-from ... import env as _env
 from ... import telemetry as _telemetry
 from ...base import MXNetError
 from ...context import resolve_device
@@ -119,7 +118,9 @@ class PrefetchIterator:
 
     def __init__(self, source, depth=None, device=None, stage_fn=None):
         if depth is None:
-            depth = _env.prefetch_buffer()
+            from ... import tuning as _tuning
+
+            depth = _tuning.resolve("prefetch_buffer")
         self._depth = max(0, int(depth))
         self._device = resolve_device(device)
         self._stage = stage_fn or (

@@ -5,11 +5,16 @@ with a gradient.  The optimizer gets the parameters as ``param_dict``
 ({index: Parameter}), so each Parameter's ``lr_mult`` and ``wd_mult``
 reach its update.  ``save_states``/``load_states`` write and read the
 optimizer and its states in the reference's format (either package reads
-the other's file).  Gradient reduction across devices (the KVStore) and
-ZeRO's sharded states are not ported; with one device there is nothing to
+the other's file).  With ``MXNET_GUARD_CHECKSUM=1`` each step stamps the
+digest of its gradients into the flight recorder (``guard``'s quarantine
+evidence).  Gradient reduction across devices (the KVStore) and ZeRO's
+sharded states are not ported; with one device there is nothing to
 reduce."""
 from __future__ import annotations
 
+import torch
+
+from .. import guard as _guard
 from .. import optimizer as opt_mod
 from .. import telemetry as _telemetry
 from ..base import MXNetError
@@ -83,6 +88,8 @@ class Trainer:
             _STEPS_TOTAL.inc()
         with _telemetry.maybe_phase(self._telemetry, "collectives"):
             self.allreduce_grads()
+        if _guard.checksum_enabled():
+            self._stamp_checksum()
         with _telemetry.maybe_phase(self._telemetry, "optimizer"):
             self.update(batch_size, ignore_stale_grad)
 
@@ -117,6 +124,19 @@ class Trainer:
 
     def allreduce_grads(self):
         """Sum gradients across devices: the identity on one device."""
+
+    def _stamp_checksum(self):
+        """Quarantine evidence (``MXNET_GUARD_CHECKSUM=1``): the digest of
+        the reduced gradients, one flat bucket, stamped into the flight
+        recorder.  Reduced gradients are bit-identical on every rank, so
+        digests that differ across the merged black boxes name a
+        corrupted rank."""
+        grads = [p.grad()._data.reshape(-1) for p in self._params
+                 if p.grad_req != "null" and p._nd is not None]
+        if grads:
+            _guard.stamp_bucket_checksum("__grad_bucket0",
+                                         torch.cat(grads),
+                                         step=self.step_count)
 
     def update(self, batch_size, ignore_stale_grad=False):
         self._optimizer.rescale_grad = self._scale / batch_size

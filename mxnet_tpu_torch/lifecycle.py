@@ -27,18 +27,28 @@ scaler and update count) and raises ``GracefulExit``; the relaunched job
 restores it (``CheckpointManager.restore`` + ``restore_train_state``) and
 continues bit for bit.
 
+The stall :class:`Watchdog` (``MXNET_WATCHDOG_TIMEOUT_S``, started at
+import when set) is fed by the heartbeats the step loops beat
+(``telemetry.step_begin``/``step_end``, ``check_stop``, the checkpoint
+writer): a deadline without one dumps the black box and a diagnosis file
+and exits with :data:`EXIT_STALLED`.  ``check_stop`` also ticks the
+cross-rank telemetry aggregation (``telemetry_agg``).
+
 Not ported yet: ``check_stop``'s cross-process agreement (a one-scalar
 all-reduce, paced by ``MXNET_STOP_SYNC_EVERY`` in the reference) waits for
 the port's collectives (the multi-GPU slice), and the knob with it: with
-more than one process and agreement on, ``check_stop`` raises.  The stall ``Watchdog`` waits for the
-other runtime planes, ``elastic_resharder`` for the multi-GPU slice.
+more than one process and agreement on, ``check_stop`` raises.
+``elastic_resharder`` waits for the multi-GPU slice.
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
+import sys
 import threading
 import time
+import traceback
 
 from . import env as _env
 from . import fault
@@ -51,9 +61,10 @@ __all__ = ["GracefulExit", "EXIT_PREEMPTED", "EXIT_FORCED", "EXIT_STALLED",
            "install_signal_handlers", "uninstall_signal_handlers",
            "cancel_grace_deadline", "note_goodput_slo_breach",
            "register_goodput_breach_hook", "unregister_goodput_breach_hook",
-           "note_fleet_queue_slo_breach", "coordinate_stops", "check_stop",
-           "publish_final_checkpoint", "capture_train_state",
-           "restore_train_state", "reset"]
+           "note_fleet_queue_slo_breach", "note_ledger_skew",
+           "coordinate_stops", "check_stop", "publish_final_checkpoint",
+           "capture_train_state", "restore_train_state", "Watchdog",
+           "start_watchdog", "stop_watchdog", "reset"]
 
 _LOGGER = logging.getLogger(__name__)
 # REENTRANT: the signal handler runs ON the main thread between bytecodes,
@@ -66,7 +77,7 @@ _LOCK = threading.RLock()
 # "preempted clean" is never confused with "crashed"
 EXIT_PREEMPTED = 43   # stop honored, clean exit
 EXIT_FORCED = 44      # MXNET_GRACE_PERIOD_S expired, stop not honored
-EXIT_STALLED = 45     # watchdog abort (the watchdog is not ported yet)
+EXIT_STALLED = 45     # watchdog abort: no heartbeat within the deadline
 
 _STOP = {"requested": False, "reason": None, "time": None}
 _HANDLERS = {"installed": False, "prev": {}, "deliveries": 0}
@@ -75,6 +86,10 @@ _SYNC = {"enabled": False}
 
 _STOPS_TOTAL = telemetry.counter(
     "mxnet_lifecycle_stops_total", "stop requests (signals + programmatic)")
+_STALLS_TOTAL = telemetry.counter(
+    "mxnet_watchdog_stalls_total",
+    "stall-watchdog fires (no heartbeat within MXNET_WATCHDOG_TIMEOUT_S, "
+    "or the watchdog.stall seam)")
 _STOP_GAUGE = telemetry.gauge(
     "mxnet_lifecycle_stop_requested", "1 while a stop is pending")
 
@@ -143,6 +158,9 @@ def check_stop(sync=None):
     across processes is not ported yet, so it raises with more than one
     process."""
     telemetry.heartbeat()
+    # the cross-rank aggregation rides this step boundary too (host-side
+    # file IO only, never a collective)
+    telemetry._agg_tick()
     try:
         fault.check("lifecycle.sigterm")
     except Exception as e:
@@ -322,6 +340,23 @@ def note_fleet_queue_slo_breach(depth, threshold, shed):
                          shed=int(shed))
 
 
+def note_ledger_skew(skew, threshold, windows, laggards):
+    """The ledger-skew pre-hang alert (``telemetry_agg`` calls it when the
+    cross-rank collective-ledger spread stayed above
+    ``MXNET_LEDGER_SKEW_THRESHOLD`` for ``MXNET_LEDGER_SKEW_WINDOWS``
+    merges): some rank stopped issuing collectives while its peers run
+    ahead.  Logged and recorded in the flight ring, not a stop."""
+    _LOGGER.warning(
+        "collective-ledger skew alert: cross-rank position spread %d "
+        "above threshold %d for %d consecutive merges; lagging "
+        "rank(s) %s (mxnet_ledger_skew_alerts_total incremented)",
+        skew, threshold, windows, list(laggards))
+    _flight.record_event("lifecycle", event="ledger_skew_alert",
+                         skew=int(skew), threshold=int(threshold),
+                         windows=int(windows),
+                         laggards=[int(r) for r in laggards])
+
+
 # --------------------------------------------------------------------------
 # exact-resume training state
 # --------------------------------------------------------------------------
@@ -348,13 +383,11 @@ def capture_train_state(step=None, dataloader=None, scaler=None,
     data loader's position (``dataloader.state_dict()``), the loss
     scaler's scale and clean-step counter, the Trainer's update count (a
     cross-check of the pickled optimizer's) and JSON-able ``extra``.
-    Capture at a step boundary, on the training thread.  A ``guard``
-    waits for the port of the numerical-integrity guard and raises."""
+    Capture at a step boundary, on the training thread.  A ``guard``'s
+    window and ladder (``Guard.state_dict``) ride along, so a resumed run
+    classifies its next step as the original would have."""
     from . import random as _random
 
-    if guard is not None:
-        raise MXNetError("capture_train_state(guard=): the numerical-"
-                         "integrity guard is not ported yet")
     st = {"format": 1, "rng": _random.get_state()}
     if step is not None:
         st["step"] = int(step)
@@ -366,6 +399,8 @@ def capture_train_state(step=None, dataloader=None, scaler=None,
         st["loss_scaler"] = scaler.state_dict()
     if trainer is not None:
         st["trainer"] = {"num_update": int(trainer.step_count)}
+    if guard is not None:
+        st["guard"] = guard.state_dict()
     if extra:
         st["extra"] = extra
     return st
@@ -373,19 +408,193 @@ def capture_train_state(step=None, dataloader=None, scaler=None,
 
 def restore_train_state(state, dataloader=None, scaler=None, guard=None):
     """Re-apply a :func:`capture_train_state` dict: the random state
-    always, the data loader's position and the loss scaler's state when
-    passed.  Returns the recorded step (or None)."""
+    always, the data loader's position, the loss scaler's and the guard's
+    state when passed.  Returns the recorded step (or None)."""
     if not state:
         return None
     from . import random as _random
 
-    if guard is not None:
-        raise MXNetError("restore_train_state(guard=): the numerical-"
-                         "integrity guard is not ported yet")
     if "rng" in state:
         _random.set_state(state["rng"])
     if dataloader is not None and state.get("dataloader") is not None:
         dataloader.load_state_dict(state["dataloader"])
     if scaler is not None and state.get("loss_scaler") is not None:
         scaler.load_state_dict(state["loss_scaler"])
+    if guard is not None and state.get("guard") is not None:
+        guard.load_state_dict(state["guard"])
     return state.get("step")
+
+
+# --------------------------------------------------------------------------
+# stall watchdog
+# --------------------------------------------------------------------------
+class Watchdog:
+    """A daemon thread that enforces a per-step deadline on the telemetry
+    heartbeat (``step_begin``/``step_end``, ``check_stop`` and the
+    checkpoint writer beat it).
+
+    On expiry: the flight recorder's black box (``blackbox.rank<N>.json``
+    in ``MXNET_FLIGHT_DIR``, else the dump directory), a diagnosis file
+    (every thread's stack, the telemetry snapshot, the ring), a count in
+    ``mxnet_watchdog_stalls_total``, and with ``abort`` (default
+    ``MXNET_WATCHDOG_ABORT``, on) an exit with :data:`EXIT_STALLED`, so
+    the supervisor restarts from the last valid checkpoint.  A wedged
+    kernel or collective cannot be unwedged from inside the process; the
+    exit is the recovery and the files are the diagnosis.  With
+    ``abort=False`` it fires once per stall (again only after the
+    heartbeat moved).
+
+    It does not fire before the first heartbeat within 10 deadlines (a
+    first step builds kernels and captures graphs), nor while a stop is
+    pending with a ``MXNET_GRACE_PERIOD_S`` deadline armed (that deadline
+    owns the exit; the final synchronous checkpoint may outlast a step).
+
+    Fault seam ``watchdog.stall``: an armed fault makes the next poll
+    fire as an expired deadline (in the windows above too)."""
+
+    def __init__(self, timeout_s=None, abort=None, dump_dir=None,
+                 poll_s=None, logger=None):
+        if timeout_s is None:
+            timeout_s = _env.watchdog_timeout_s()
+        self.timeout_s = float(timeout_s)
+        if abort is None:
+            abort = _env.get_bool("MXNET_WATCHDOG_ABORT", True)
+        self.abort = bool(abort)
+        self.dump_dir = dump_dir or _env.get_str("MXNET_WATCHDOG_DIR") or "."
+        self.poll_s = float(poll_s) if poll_s else \
+            max(0.05, min(self.timeout_s / 4.0, 1.0))
+        self.logger = logger or _LOGGER
+        self.last_dump = None
+        self.last_blackbox = None
+        self.stall_count = 0
+        self._stop_evt = threading.Event()
+        self._thread = None
+        self._started = None
+        self._fired_base = None   # the heartbeat the last fire was for
+
+    def start(self):
+        """Start polling; a no-op (returns self) when the timeout is 0."""
+        if self.timeout_s <= 0:
+            self.logger.info("watchdog disabled "
+                             "(MXNET_WATCHDOG_TIMEOUT_S unset/0)")
+            return self
+        if self._thread is not None:
+            return self
+        self._started = time.monotonic()
+        self._stop_evt.clear()
+        self._thread = threading.Thread(
+            target=self._run, name="mxnet-watchdog", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self):
+        t = self._thread
+        self._thread = None
+        if t is not None:
+            self._stop_evt.set()
+            t.join(timeout=5)
+
+    def poll(self):
+        """One poll: fires, and returns True, when the deadline expired or
+        the seam is armed.  The thread calls it every ``poll_s``."""
+        injected = None
+        try:
+            fault.check("watchdog.stall")
+        except Exception as e:
+            injected = e
+        last = telemetry.last_heartbeat()
+        if self._started is None:
+            self._started = time.monotonic()
+        base = last if last is not None else self._started
+        age = time.monotonic() - base
+        if injected is None:
+            if _STOP["requested"] and _GRACE["timer"] is not None:
+                return False
+            limit = self.timeout_s if last is not None \
+                else self.timeout_s * 10.0
+            if age <= limit or base == self._fired_base:
+                return False
+            # only a real fire spends the one-shot of its stall: a chaos
+            # fire must not mask a genuine stall before the next beat
+            self._fired_base = base
+        self._fire(age, injected)
+        return True
+
+    def _run(self):
+        while not self._stop_evt.wait(self.poll_s):
+            self.poll()
+
+    def _fire(self, age, injected):
+        self.stall_count += 1
+        _STALLS_TOTAL.inc()
+        if injected is None:
+            # the heartbeat gap is wall time the job lost to the stall
+            telemetry.goodput_note("stall", age)
+        cause = f"injected fault ({injected})" if injected is not None \
+            else (f"no step heartbeat for {age:.1f}s "
+                  f"(deadline {self.timeout_s:.1f}s)")
+        _flight.record_event("lifecycle", event="watchdog_stall",
+                             cause=cause, age_s=float(age))
+        # the black box first (the abort below never returns), into this
+        # watchdog's directory when no flight directory is configured
+        self.last_blackbox = _flight.dump_blackbox(
+            "watchdog_stall", directory=_env.flight_dir() or self.dump_dir)
+        try:
+            path = self._write_dump(age, cause)
+            self.last_dump = path
+        except Exception as e:  # the dump must never kill the watchdog
+            path = None
+            self.logger.error("watchdog: failed to write diagnosis "
+                              "file: %r", e)
+        self.logger.critical(
+            "watchdog stall: %s; diagnosis %s%s", cause, path,
+            f"; aborting with status {EXIT_STALLED}" if self.abort else "")
+        if self.abort:
+            logging.shutdown()
+            os._exit(EXIT_STALLED)
+
+    @staticmethod
+    def _thread_stacks():
+        names = {t.ident: t.name for t in threading.enumerate()}
+        return {f"{names.get(tid, 'unknown')} (tid={tid})":
+                traceback.format_stack(frame)
+                for tid, frame in sys._current_frames().items()}
+
+    def _write_dump(self, age, cause):
+        """One JSON diagnosis file a stall: what stalled (every thread's
+        stack) and the job's state (the telemetry snapshot, the ring)."""
+        os.makedirs(self.dump_dir, exist_ok=True)
+        path = os.path.join(
+            self.dump_dir,
+            f"mxnet_watchdog_stall_{os.getpid()}_{self.stall_count}.json")
+        doc = {"time": time.time(), "pid": os.getpid(), "cause": cause,
+               "timeout_s": self.timeout_s, "heartbeat_age_s": age,
+               "stacks": self._thread_stacks(),
+               "telemetry": telemetry.snapshot(),
+               "flight_recorder": _flight.snapshot_doc(),
+               "blackbox": self.last_blackbox}
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f, indent=1, default=str)
+        os.replace(tmp, path)
+        return path
+
+
+_WATCHDOG = [None]
+
+
+def start_watchdog(timeout_s=None, **kwargs):
+    """Start (or return) the process-wide watchdog (``env.apply_env``
+    starts it when ``MXNET_WATCHDOG_TIMEOUT_S`` is set)."""
+    with _LOCK:
+        if _WATCHDOG[0] is None:
+            _WATCHDOG[0] = Watchdog(timeout_s=timeout_s, **kwargs)
+        wd = _WATCHDOG[0]
+    return wd.start()
+
+
+def stop_watchdog():
+    with _LOCK:
+        wd, _WATCHDOG[0] = _WATCHDOG[0], None
+    if wd is not None:
+        wd.stop()

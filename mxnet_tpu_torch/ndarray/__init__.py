@@ -18,6 +18,7 @@ import torch as _torch
 from .. import ops as _ops  # noqa: F401  (populates the table)
 from ..base import MXNetError
 from ..ops.registry import OP_TABLE, list_ops
+from . import dispatch_cache as _dispatch_cache
 from .ndarray import NDArray, array, invoke, waitall
 
 __all__ = ["NDArray", "array", "invoke", "waitall", "zeros", "ones", "full",
@@ -25,7 +26,28 @@ __all__ = ["NDArray", "array", "invoke", "waitall", "zeros", "ones", "full",
            "zeros_like", "ones_like", "maximum", "minimum", "power", "dot",
            "list_ops", "save", "load", "linalg", "contrib", "image",
            "random", "sparse", "RowSparseNDArray", "CSRNDArray",
-           "cast_storage", "sparse_retain"]
+           "cast_storage", "sparse_retain", "dispatch_stats",
+           "reset_dispatch_stats", "set_eager_jit"]
+
+
+def dispatch_stats(reset=False):
+    """``invoke``'s dispatch counters under the reference's keys: calls in
+    all and per op (``ndarray/dispatch_cache.py``; the port dispatches
+    eagerly, so every call counts as a bypass and nothing as a hit)."""
+    out = _dispatch_cache.stats()
+    if reset:
+        _dispatch_cache.reset_stats()
+    return out
+
+
+def reset_dispatch_stats():
+    _dispatch_cache.reset_stats()
+
+
+def set_eager_jit(flag):
+    """The reference's switch of its eager jit cache.  The port has none:
+    ``False`` returns False, ``True`` raises."""
+    return _dispatch_cache.set_enabled(flag)
 
 
 def _make_op_func(opname, od):

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import functools
 import threading
+import time
 
 import numpy as _np
 import torch
@@ -19,6 +20,7 @@ from .. import autograd as _ag
 from ..base import MXNetError, dtype_name, numeric_types, torch_dtype
 from ..context import Context, current_context
 from ..ops.registry import get_op
+from . import dispatch_cache as _dispatch
 
 __all__ = ["NDArray", "invoke", "apply_fn", "array", "waitall"]
 
@@ -26,6 +28,9 @@ __all__ = ["NDArray", "invoke", "apply_fn", "array", "waitall"]
 # (opdef, fn) -> fn installed by amp.init() (reference: the same dict in
 # mxnet_tpu/ndarray/ndarray.py)
 _AMP = {"on": False, "wrap": None, "target": None}
+# per-op profiling state, owned by profiler.py ("record": callable(opname,
+# t0, t1) installed while imperative ops are profiled)
+_PROFILE = {"on": False, "record": None}
 
 class _CaptureState(threading.local):
     """``block``: the hybridized block whose forward this thread is
@@ -498,9 +503,23 @@ def invoke(opname, nd_args, attrs, out=None, ctx=None):
     fn = functools.partial(od.fn, **attrs)
     if _AMP["on"]:
         fn = _AMP["wrap"](od, fn)
+    _dispatch.count(opname)
+    # per-op timing (the reference's engine profiler op events): an honest
+    # time of an asynchronous launch needs a sync, the trade the
+    # reference's profiler makes.  Snapshot the recorder, so another
+    # thread's profiler.stop() cannot null it mid-op; never inside a
+    # CUDA-graph capture, where a sync is illegal
+    prof_rec = _PROFILE["record"] if _PROFILE["on"] else None
+    if prof_rec is not None:
+        t0 = time.perf_counter()
     with torch.set_grad_enabled(_ag.is_recording() and od.differentiable):
         res = fn(*vals)
     multi = isinstance(res, (tuple, list))
+    if prof_rec is not None and not _CAPTURE.block:
+        first = res[0] if multi else res
+        if isinstance(first, torch.Tensor) and first.is_cuda:
+            torch.cuda.synchronize(first.device)
+        prof_rec(opname, t0, time.perf_counter())
     outs = [NDArray._wrap(r) for r in (res if multi else [res])]
     if out is not None:
         targets = out if isinstance(out, (list, tuple)) else [out]

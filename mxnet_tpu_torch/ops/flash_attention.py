@@ -16,6 +16,13 @@ reference repeats k/v for GQA outside its ``custom_vjp``; the kernel reads
 the kv heads natively, so the backward folds the per-q-head dk/dv back onto
 the kv heads itself.  With grad off (serving) the output has no graph,
 so nothing stays saved.
+
+Tiles: the 16-bit kernel is built at several (query, key) tiles for D = 64
+and 128 (``KERNEL_TILES``); each call resolves its tile through the tuning
+funnel (``flash_block_q`` / ``flash_block_kv``), as the reference resolves
+its Pallas block sizes.  FLOPs: the op runs outside a FLOP count
+(``introspection.counting``) and reports its forward's and backward's
+FLOPs to it itself.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import threading
 import torch
 
 from .. import _kernels
+from .. import introspection
 from ..base import MXNetError
 from .registry import register
 
@@ -36,6 +44,12 @@ __all__ = ["NEG_INF", "flash_attention"]
 NEG_INF = -1e30
 
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+# the 16-bit kernel's tile instances (query rows, keys) by head dim, the
+# default first (csrc/flash_attn_fwd.cu's Tile); the fp32 kernel has one
+KERNEL_TILES = {32: ((128, 128),),
+                64: ((128, 128), (128, 64), (64, 128), (64, 64)),
+                128: ((128, 128), (128, 64), (64, 128), (64, 64)),
+                256: ((64, 64),)}
 # the kernel's element types, by the code its C entry point takes
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -113,12 +127,53 @@ def _kernel_strides(name, t):
     return out
 
 
-def _flash_fwd_cuda(q, k, v, causal, sm_scale):
+def tile_signature(q, k, causal):
+    """The tuning signature of a call: its shapes, dtype and mask (a
+    winner stored under it steers this shape alone; ``tuning``'s global
+    fallback steers the rest)."""
+    return ("flash_attn_fwd", tuple(q.shape), tuple(k.shape), str(q.dtype),
+            bool(causal))
+
+
+def _fa_block_sizes(q, k, causal):
+    """The 16-bit kernel's (query, key) tile for this call, resolved through
+    the tuning funnel as the reference's ``_fa_block_sizes`` does
+    (``flash_block_q`` / ``flash_block_kv``: a search trial > the
+    ``MXNET_FLASH_BLOCK_Q`` / ``_KV`` pins > ``MXNET_TUNE=1`` winners
+    stored for this call's signature > the default).  A knob left at its
+    default gives the head dim's own tile; a pinned pair the head dim is
+    not built at raises, naming the tiles it has; a stored winner it is
+    not built at (another shape's global winner) is ignored."""
+    from .. import tuning as _tuning
+
+    d = q.shape[3]
+    tiles = KERNEL_TILES[d]
+    sig = tile_signature(q, k, causal)
+    bq, src_q = _tuning.resolve_info("flash_block_q", signature=sig)
+    bk, src_k = _tuning.resolve_info("flash_block_kv", signature=sig)
+    dq, dk = tiles[0]
+    pair = (int(bq) if src_q != "default" else dq,
+            int(bk) if src_k != "default" else dk)
+    if pair in tiles:
+        return pair
+    if "tuned" in (src_q, src_k) and src_q in ("tuned", "default") and \
+            src_k in ("tuned", "default"):
+        return tiles[0]
+    raise MXNetError(
+        f"flash_attn_fwd: tile {pair[0]} x {pair[1]} (flash_block_q from "
+        f"{src_q}, flash_block_kv from {src_k}) is not built at head_dim "
+        f"{d}; its tiles (query rows x keys): "
+        + ", ".join(f"{a} x {b}" for a, b in tiles))
+
+
+def _flash_fwd_cuda(q, k, v, causal, sm_scale, tile=None):
     """Launch ``csrc/flash_attn_fwd.cu`` on CUDA tensors: returns
     ``(o (B, Hq, Lq, D) in q.dtype, lse (B, Hq, Lq) fp32)``.  q/k/v may be
     any views the tensor maps take (see :func:`_kernel_strides`); ``o`` is
     the (B, Hq, Lq, D) view of a (B, Lq, Hq, D) tensor, so merging its
-    heads back into the hidden dim is free.  Raises on anything the kernel
+    heads back into the hidden dim is free.  ``tile`` (query rows, keys) is
+    one of ``KERNEL_TILES[D]`` (default: :func:`_fa_block_sizes`; the fp32
+    kernel has one tile and ignores it).  Raises on anything the kernel
     does not take; never falls back."""
     _check_shapes(q, k, v, causal)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -140,6 +195,14 @@ def _flash_fwd_cuda(q, k, v, causal, sm_scale):
                     device=q.device).transpose(1, 2)
     strides += _kernel_strides("o", o)
     lse = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.float32:
+        tile = (0, 0)
+    else:
+        tile = _fa_block_sizes(q, k, causal) if tile is None else tuple(tile)
+        if tile not in KERNEL_TILES[d]:
+            raise MXNetError(
+                f"flash_attn_fwd: tile {tile} is not built at head_dim {d} "
+                f"(tiles: {KERNEL_TILES[d]})")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mxt_flash_attn_fwd(
@@ -147,7 +210,7 @@ def _flash_fwd_cuda(q, k, v, causal, sm_scale):
             lse.data_ptr(), b, hq, k.shape[1], lq, k.shape[2], d,
             int(bool(causal)), float(sm_scale),
             KERNEL_DTYPES[q.dtype],
-            (ctypes.c_longlong * 12)(*strides), stream)
+            (ctypes.c_longlong * 12)(*strides), tile[0], tile[1], stream)
     if err:
         raise MXNetError(f"flash_attn_fwd launch failed: CUDA error {err} "
                          f"({lib.mxt_cuda_error_string(err).decode()})")
@@ -155,16 +218,20 @@ def _flash_fwd_cuda(q, k, v, causal, sm_scale):
         _flash_fwd_cuda.launches += 1
         _flash_fwd_cuda.launches_by_len[lq] = \
             _flash_fwd_cuda.launches_by_len.get(lq, 0) + 1
+        _flash_fwd_cuda.launches_by_tile[tile] = \
+            _flash_fwd_cuda.launches_by_tile.get(tile, 0) + 1
     return o, lse
 
 
-# launches in all, and by query length (the prefill bucket on the serving
-# path); a run sets both to zero before the part it counts.  Engine loops
-# of several replicas launch from their own threads: the lock keeps the
-# read-modify-write of the counts whole
+# launches in all, by query length (the prefill bucket on the serving
+# path) and by tile ((0, 0): the fp32 kernel); a run sets them to zero
+# before the part it counts.  Engine loops of several replicas launch from
+# their own threads: the lock keeps the read-modify-write of the counts
+# whole
 _COUNT_LOCK = threading.Lock()
 _flash_fwd_cuda.launches = 0
 _flash_fwd_cuda.launches_by_len = {}
+_flash_fwd_cuda.launches_by_tile = {}
 _kernels.count_launches("flash_attn_fwd", _flash_fwd_cuda)
 
 
@@ -229,23 +296,45 @@ def _fa_backward_blockwise(q, k, v, o, lse, g, causal, sm_scale,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_flops(q, k, backward=False):
+    """The FLOPs this op reports to a running count
+    (``introspection.counting``): 4·D per (query, key) pair and q head
+    forward (QK^T and PV), 10·D backward (the score recompute, dV, dP, dK
+    and dQ of ``_fa_backward_blockwise``), over all Lq × Lk pairs, causal
+    or not (the library's SDPA formula)."""
+    b, hq, lq, d = q.shape
+    return (10.0 if backward else 4.0) * b * hq * lq * k.shape[2] * d
+
+
+def _report(q, k, backward):
+    """Hand the attention's FLOPs to a running count (the counter cannot
+    see the kernel, a ctypes launch, and is kept off the plain version's
+    and the backward's products, which this report covers)."""
+    introspection.report_flops(attention_flops(q, k, backward),
+                               key="attention")
+
+
 class _FlashAttention(torch.autograd.Function):
     """Attention with the blockwise backward (the reference's
     ``custom_vjp``).  The forward by device: the kernel on CUDA tensors,
     the plain version on CPU tensors; anything else raises.  ``o`` is saved
     as the forward returned it (on the card a transposed view), with no
-    copy."""
+    copy.  Both directions run outside a FLOP count and report their
+    FLOPs to it (:func:`attention_flops`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        if q.is_cuda:
-            # the projections' (B, L, H, D) outputs go in as transposed views
-            o, lse = _flash_fwd_cuda(q, k, v, causal, sm_scale)
-        elif q.device.type == "cpu":
-            o, lse = _mha_with_lse(q, k, v, causal, sm_scale)
-        else:
-            raise MXNetError(f"flash_attention runs on CUDA (kernel) or CPU "
-                             f"(plain version), not {q.device}")
+        with introspection.uncounted():
+            if q.is_cuda:
+                # the projections' (B, L, H, D) outputs go in as views
+                o, lse = _flash_fwd_cuda(q, k, v, causal, sm_scale)
+            elif q.device.type == "cpu":
+                o, lse = _mha_with_lse(q, k, v, causal, sm_scale)
+            else:
+                raise MXNetError(f"flash_attention runs on CUDA (kernel) or "
+                                 f"CPU (plain version), not {q.device}")
+        if introspection.counting_active():
+            _report(q, k, backward=False)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return o
@@ -253,8 +342,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _fa_backward_blockwise(q, k, v, o, lse, g, ctx.causal,
-                                            ctx.sm_scale)
+        with introspection.uncounted():
+            dq, dk, dv = _fa_backward_blockwise(q, k, v, o, lse, g,
+                                                ctx.causal, ctx.sm_scale)
+        if introspection.counting_active():
+            _report(q, k, backward=True)
         return dq, dk, dv, None, None
 
 

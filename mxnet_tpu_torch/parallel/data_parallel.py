@@ -9,11 +9,14 @@ The master weights and optimizer state are fp32 tensors the step owns; with
 as in the reference.  ``remat=True`` recomputes the whole forward in the
 backward instead of storing its activations.  ``run()`` drives the step
 over an iterator of batches through the device prefetcher, polling
-``lifecycle.check_stop()`` at every step boundary.  Sharding (``mesh``,
+``lifecycle.check_stop()`` at every step boundary and, with a guard, the
+loss sentinel.  The first call of each batch signature counts the step's
+FLOPs (``introspection``); every call accounts them.  Sharding (``mesh``,
 ``plan``), pipelining and the compile cache are not ported.
 """
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 from contextlib import nullcontext
 from functools import partial
@@ -182,6 +185,7 @@ class TrainStep:
 
             self._amp_scope = partial(_cast_scope, dtype)
         self.step_count = 0
+        self._flops = {}          # signature -> FLOPs of one step
 
     @property
     def params(self):
@@ -205,8 +209,32 @@ class TrainStep:
 
     def __call__(self, x, y):
         """One step on the batch (x, y); returns the loss, a 0-d fp32
-        tensor on the device."""
+        tensor on the device.  The first call of a signature (the batch's
+        shapes and dtypes) counts the step's FLOPs
+        (``introspection.counting``); every call accounts them
+        (``mxnet_executable_flops_total{kind="train_step"}``, the MFU
+        gauge)."""
+        from .. import introspection as _introspection
+        from .. import telemetry as _telemetry
+
         x, y = self._stage(x), self._stage(y)
+        sig = (tuple(x.shape), str(x.dtype), tuple(y.shape), str(y.dtype))
+        flops = self._flops.get(sig)
+        if sig in self._flops or len(self._flops) >= 4096:
+            loss = self._step(x, y)
+        else:
+            t0 = time.perf_counter()
+            with _introspection.counting() as rec:
+                loss = self._step(x, y)
+            flops = self._flops[sig] = rec["flops"]
+            _telemetry.compile_event(
+                "train_step", type(self._net).__name__,
+                time.perf_counter() - t0,
+                "new_step" if len(self._flops) == 1 else "new_shape")
+        _introspection.account_flops(flops, kind="train_step")
+        return loss
+
+    def _step(self, x, y):
         train = list(self.train_params.values())
         read = set()
         with torch.enable_grad():
@@ -237,34 +265,41 @@ class TrainStep:
     def run(self, batches, steps=None, prefetch=0, guard=None):
         """Drive the step over an iterator of ``(x, y)`` batches, the next
         ``prefetch`` batches staged to the card in the background
-        (:class:`..gluon.data.PrefetchIterator`; ``None`` reads
-        ``MXNET_PREFETCH_BUFFER``).  The default, 0, stages each batch in
-        turn on the caller's stream: on BERT's 32 KB token batches the
-        pipeline's thread and side stream cost more than the copies they
-        hide, and on ResNet-50's 154 MB image batches from
+        (:class:`..gluon.data.PrefetchIterator`; ``None`` resolves the
+        ``prefetch_buffer`` tuning knob).  The default, 0, stages each
+        batch in turn on the caller's stream: on BERT's 32 KB token batches
+        the pipeline's thread and side stream cost more than the copies
+        they hide, and on ResNet-50's 154 MB image batches from
         ``io.ImageRecordIter`` (whose decode pool already reads ahead)
-        depth 2 was no faster.  Returns the per-step
-        losses (device scalars; the card is synchronised once, at the
-        end, so a failed step raises here).
+        depth 2 was no faster.  Returns the per-step losses (device
+        scalars; the card is synchronised once, at the end, so a failed
+        step raises here).
 
         With ``steps=N`` the loop stops after N batches; up to
         ``prefetch`` more may already be staged, and ``close()`` drops
         them: callers splitting one iterator over several ``run`` calls
         pass ``prefetch=0``.
 
+        ``guard`` (a :class:`..guard.Guard`; default a fresh one when
+        ``MXNET_GUARD=1``) polls the loss sentinel after every step
+        (``Guard.poll_loss``: one host read of the loss a step).  The
+        fused step commits its update before a verdict can land, so an
+        anomaly cannot be skipped here: a persistent one escalates to
+        :class:`..guard.GuardRewind`, which ``run_with_recovery`` absorbs
+        as a rewind from the latest valid checkpoint.
+
         Preemption: every step boundary polls ``lifecycle.check_stop()``;
         on a stop the loop returns the losses so far, and the caller
         (``lifecycle.stop_requested()`` is then true) publishes its final
         checkpoint and raises ``lifecycle.GracefulExit``.  A failure dumps
-        the flight recorder's black box before it propagates.  ``guard``
-        (the numerical-integrity guard) is not ported yet and raises."""
+        the flight recorder's black box before it propagates."""
         from .. import flight_recorder as _flight
+        from .. import guard as _guard_mod
         from .. import lifecycle as _lifecycle
         from ..gluon.data.prefetcher import PrefetchIterator
 
-        if guard is not None:
-            raise MXNetError("TrainStep.run(guard=): the numerical-"
-                             "integrity guard is not ported yet")
+        if guard is None and _guard_mod.enabled():
+            guard = _guard_mod.Guard()
         losses = []
         try:
             it = PrefetchIterator(iter(batches), depth=prefetch,
@@ -278,6 +313,8 @@ class TrainStep:
                     except StopIteration:
                         break
                     losses.append(self(batch[0], batch[1]))
+                    if guard is not None:
+                        guard.poll_loss(losses[-1], step=len(losses))
             finally:
                 it.close()
             if losses:

@@ -36,8 +36,14 @@ Replica handoff: :meth:`ServingEngine.join_replica` builds a second engine
 on a running donor's weights (the same tensors on the same card, no copy)
 with a KV pool of its own; the serving fleet (``serving/fleet``) puts a
 router in front of such replicas.  Closing an engine frees its KV pool at
-once and leaves the weights to whoever else holds them.  The reference's
-FLOP accounting (the introspection plane) is not ported yet.
+once and leaves the weights to whoever else holds them.
+
+FLOP accounting (``introspection``): the first prefill of each prefill
+bucket, the first decode of each (batch bucket, page bucket) and the first
+sample of each row count is counted once; every call accounts the stored
+count (``mxnet_executable_flops_total{kind="serving_prefill" |
+"serving_decode" | "serving_sample"}``, the MFU gauge).  The bucket grids
+and the page size resolve through the tuning funnel (``tuning``).
 """
 from __future__ import annotations
 
@@ -57,7 +63,9 @@ from .. import env as _env
 from .. import fault as _fault
 from .. import flight_recorder as _flight
 from .. import lifecycle
+from .. import introspection as _introspection
 from .. import telemetry as _telemetry
+from .. import tuning as _tuning
 from ..base import MXNetError
 from ..context import resolve_device
 from ..gluon.model_zoo.language.llama import (LlamaForCausalLM, _dense_nb,
@@ -206,12 +214,17 @@ class ServingEngine:
                                  "model configuration than this net's")
             self._params = dict(params_from._params)
             self._join_t0 = time.monotonic()
+        # bucket grids and page size resolve through the tuning funnel
+        # (constructor arguments > env pins > MXNET_TUNE=1 stored winners >
+        # defaults)
         self._batch_buckets = list(batch_buckets) if batch_buckets else \
-            parse_buckets(_env.serving_batch_buckets(), "batch bucket")
+            parse_buckets(str(_tuning.resolve("serving_batch_buckets")),
+                          "batch bucket")
         self._prefill_buckets = list(prefill_buckets) if prefill_buckets \
-            else parse_buckets(_env.serving_prefill_buckets(),
+            else parse_buckets(str(_tuning.resolve("serving_prefill_buckets")),
                                "prefill bucket")
-        self._page_size = int(page_size or _env.serving_page_size())
+        self._page_size = int(page_size or
+                              _tuning.resolve("serving_page_size"))
         pages = int(kv_pages or _env.serving_kv_pages())
         self._max_batch = int(max_batch or _env.serving_max_batch())
         if self._max_batch > max(self._batch_buckets):
@@ -252,6 +265,10 @@ class ServingEngine:
         self._ttfts: deque = deque(maxlen=2048)
         self._tok_window: deque = deque(maxlen=64)   # (t, n_generated)
         self._mounted: list = []
+        # per signature (("prefill", Lb), ("decode", Bb, P), ("sample",
+        # rows)): the FLOPs of one call, counted at its first, and the calls
+        self._exec_flops: dict = {}
+        self._exec_calls: dict = {}
 
     # -- bucket grids ------------------------------------------------------
     def _make_page_buckets(self):
@@ -619,7 +636,9 @@ class ServingEngine:
         if tr is not None:
             tr.add_span("queue_wait", tr.last_enqueue_t, t_pre,
                         prefills=req.prefills)
-        last_logits = self._prefill_body(ids_full, Lb, self._kv.table(req.id))
+        last_logits = self._counted("serving_prefill", ("prefill", Lb),
+                                    self._prefill_body, ids_full, Lb,
+                                    self._kv.table(req.id))
         req.prefills += 1
         if req.prefills == 1:
             _C_TOKENS.labels(kind="prompt").inc(L)
@@ -712,7 +731,8 @@ class ServingEngine:
                               + [0] * pad, device=dev)
         table = torch.as_tensor(self._kv.table_rows(sids, P), device=dev)
         t_dec = time.perf_counter()
-        logits = self._decode_body(ids, pos, table)
+        logits = self._counted("serving_decode", ("decode", Bb, P),
+                               self._decode_body, ids, pos, table)
         _H_OCCUPANCY.observe(B / Bb)
         rows = list(self._active)
         t_sm = time.perf_counter()
@@ -741,8 +761,24 @@ class ServingEngine:
     def _sample(self, logits, reqs):
         """One token per request row (padded rows are ignored), as python
         ints.  THE one host sync of the engine step lives here."""
-        toks = self._sample_body(logits[:len(reqs)], reqs)
+        toks = self._counted("serving_sample", ("sample", len(reqs)),
+                             self._sample_body, logits[:len(reqs)], reqs)
         return toks.tolist()
+
+    def _counted(self, kind, key, fn, *args):
+        """``fn(*args)`` for the signature ``key``: its first call counts
+        its FLOPs (``introspection.counting``, the reference's compile-time
+        count), every call accounts them under ``kind`` and is counted in
+        ``_exec_calls``."""
+        if key in self._exec_flops:
+            out = fn(*args)
+        else:
+            with _introspection.counting() as rec:
+                out = fn(*args)
+            self._exec_flops[key] = rec["flops"]
+        self._exec_calls[key] = self._exec_calls.get(key, 0) + 1
+        _introspection.account_flops(self._exec_flops[key], kind=kind)
+        return out
 
     def _trace_finished(self, req):
         """Request.resolve hook: classify the outcome and file the trace
@@ -760,6 +796,7 @@ class ServingEngine:
             outcome = "error"
         tr.finish(outcome, error=err)
         self._traces.add(tr)
+        tr.emit_chrome()
 
     def _is_finished(self, req, tok, ctx_next):
         return (len(req.tokens) >= req.max_new_tokens

@@ -34,8 +34,8 @@ Chaos seams on every path: ``router.dispatch`` (transport funnel),
 ``router.health_probe`` (monitor), ``replica.crash`` (the local replica's
 request path), ``fleet.spawn`` (manager).
 
-Not ported: the reference merges each finished trace into the profiler's
-Chrome trace (``emit_chrome``), which waits for the port's profiler plane.
+Each finished request trace is merged into the profiler's Chrome trace
+(``emit_chrome``) whenever the profiler runs.
 """
 from __future__ import annotations
 
@@ -735,6 +735,7 @@ class Router:
             outcome = "error"
         tr.finish(outcome, error=err)
         self._traces.add(tr)
+        tr.emit_chrome()
 
     # -- observability -----------------------------------------------------
     def stats(self):

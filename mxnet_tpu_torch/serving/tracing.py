@@ -14,9 +14,9 @@ Retention is tail-based: :class:`TraceStore` keeps the
 evicted / expired one (a bounded ring), and a ring of recent completions.
 The engine serves ``store.snapshot()`` at ``/v1/requests``.
 
-Not ported: the reference merges each finished trace into the profiler's
-Chrome trace (``RequestTrace.emit_chrome``); that waits for the port's
-profiler plane.
+A finished trace is also merged into the profiler's Chrome trace
+(``RequestTrace.emit_chrome``, category ``serving_request``, one row per
+request) whenever the profiler runs.
 """
 from __future__ import annotations
 
@@ -99,6 +99,22 @@ class RequestTrace:
         self.t_end = time.perf_counter()
         self.outcome = str(outcome)
         self.error = error
+
+    def emit_chrome(self):
+        """Merge this trace's spans into the profiler's Chrome trace (a
+        no-op unless it runs).  Each request gets its own tid row, so
+        concurrent requests do not interleave."""
+        from .. import profiler as _prof
+
+        tid = 2000 + (self.trace_id % 997)
+        _prof._record_span(f"req{self.trace_id}", self.t0,
+                           self.t_end or time.perf_counter(),
+                           cat="serving_request", tid=tid,
+                           args={"trace_id": self.trace_id,
+                                 "outcome": self.outcome})
+        for sid, name, t0, t1, parent, attrs in self.spans:
+            _prof._record_span(f"req{self.trace_id}:{name}", t0, t1,
+                               cat="serving_request", tid=tid, args=attrs)
 
     # -- views -------------------------------------------------------------
     @property

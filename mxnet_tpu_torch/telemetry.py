@@ -29,10 +29,13 @@ and the flight recorder use it).
   counterpart of the reference's jit traces), with their cause and
   seconds.
 
+- **Chrome spans**: while ``profiler`` runs, every step, phase and
+  compile event is also a span of its Chrome trace.
+- **Cross-rank aggregation tick** (``_agg_tick``): ``step_end`` and
+  ``lifecycle.check_stop`` advance ``telemetry_agg``'s stride counter.
+
 Not ported yet: the dispatch-cache collector (the port has no eager jit
-cache), the snapshot's graph section, the Chrome-trace spans (the
-profiler plane) and the cross-rank aggregation tick (``_agg_tick``, which
-``check_stop`` calls in the reference: it comes with ``telemetry_agg``).
+cache) and the snapshot's graph section.
 """
 from __future__ import annotations
 
@@ -347,6 +350,16 @@ def _goodput_collector():
              "samples": [({}, s["productive_ratio"])]}]
 
 
+def _chrome_span(name, t0, t1, cat):
+    """A span into the profiler's Chrome trace (a no-op unless it runs)."""
+    try:
+        from . import profiler as _prof
+
+        _prof._record_span(name, t0, t1, cat)
+    except Exception:
+        pass
+
+
 def _flight_note(kind, **fields):
     """Context event into the flight-recorder ring (step boundaries) —
     lazy and failure-tolerant; a disabled recorder costs one module-dict
@@ -461,6 +474,7 @@ def _finalize_locked(now):
         phases["other"] = other
     rec = {"step": cur["step"], "time": cur["wall0"],
            "wall_s": wall, "phases": dict(phases)}
+    _chrome_span(f"step {cur['step']}", cur["t0"], now, "step")
     _STEPS.append(rec)
     for pname, dt in phases.items():
         _PHASE_HIST.labels(phase=pname).observe(dt)
@@ -485,7 +499,23 @@ def step_end():
         _flight_note("step", event="end", step=rec["step"],
                      wall_s=rec["wall_s"])
     _goodput_slo_tick()
+    _agg_tick()
     return rec
+
+
+def _agg_tick():
+    """The cross-rank aggregation stride hook: every completed step (and
+    every ``lifecycle.check_stop``) advances ``telemetry_agg``'s tick
+    counter; every ``MXNET_TELEMETRY_AGG_EVERY``-th tick publishes this
+    rank's snapshot and, on rank 0, merges the peers'.  Host-side IO only,
+    never a device collective; off, it costs a dict read and an int
+    check."""
+    try:
+        from . import telemetry_agg as _agg
+
+        _agg.tick()
+    except Exception:   # aggregation must never break a step boundary
+        pass
 
 
 def step_abort():
@@ -533,6 +563,7 @@ class _PhaseScope:
             elif cur is None:
                 # phase outside a step: still observable in the histogram
                 _PHASE_HIST.labels(phase=self.name).observe(now - self._t0)
+        _chrome_span(f"phase:{self.name}", self._t0, now, "step_phase")
         return False
 
 
@@ -762,6 +793,9 @@ def compile_event(kind, name, elapsed_s, cause, **extra):
     _COMPILE_HIST.labels(kind=kind).observe(elapsed_s)
     _flight_note("compile", name=str(name), compile_kind=str(kind),
                  cause=str(cause), elapsed_s=float(elapsed_s))
+    now = time.perf_counter()
+    _chrome_span(f"compile:{kind}:{name}", now - float(elapsed_s), now,
+                 "compile")
 
 
 def compile_events():

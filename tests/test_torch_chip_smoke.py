@@ -55,6 +55,19 @@ and fail a ``join_replica`` that copies the weights, a router that
 delivers a completion twice, a request lost after the crash and a replica
 that is never replaced; the process-mode checks pass a fleet of CPU
 children serving llama_tiny.
+
+The runtime planes (phase 13, ``--planes``): the flag parses and needs a
+card; at a tiny BERT on the CPU (host trace only: the card's kernels are
+traced on the card) (a) the profiled losses equal the plain ones and the
+dumps() rows the ops invoked; (b) the counted step equals the analytic
+count and the attention's report left out misses it, and the serving
+engine's accounted FLOPs equal the analytic count by signature; (c) the
+guard keeps the clean losses, skips the planted NaN with the state
+untouched, catches the spike, the planted guard fault misses the NaN, and
+the rewind goes through run_with_recovery to the ``rewind`` bucket with
+the unguarded losses after it; (d) the watchdog child (the tiny recipe)
+exits 45 within the deadline plus a poll with its black box; (f) rank 0
+publishes and merges.
 """
 import contextlib
 import json
@@ -1007,3 +1020,71 @@ def test_frontend_fault_checks_pass_the_port(fault):
     with chip_smoke.planted_frontend_fault(fault):
         pass
     assert state() == saved
+
+
+# -- phase 13: the runtime planes ----------------------------------------------
+def test_planes_flags_parse_and_need_a_card(monkeypatch, capsys):
+    args = chip_smoke.parse_args(["--planes", "--seed", "3"])
+    assert args.planes and args.seed == 3
+    args = chip_smoke.parse_args(["--watchdog-worker", "--watchdog-dir",
+                                  "d", "--resume-device", "cpu"])
+    assert args.watchdog_worker and args.watchdog_dir == "d"
+    assert chip_smoke.parse_args(["--tune-replay"]).tune_replay
+    assert chip_smoke.parse_args(["--nvcc-seconds", "a.cu", "b.cu"]) \
+        .nvcc_seconds == ["a.cu", "b.cu"]
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py", "--planes"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+    assert chip_smoke.PATH_SHAPES["gluon_bert_planes"] == \
+        chip_smoke.BERT_SHAPE
+
+
+@pytest.fixture
+def planes_kw():
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+
+    cfg = bert.BertConfig(dropout=0.1, **chip_smoke.RESUME_TINY)
+    return dict(device="cpu", cfg=cfg, batch=2, seq=8)
+
+
+def test_planes_profiler_checks_on_the_cpu(planes_kw, tmp_path):
+    out = chip_smoke.planes_profiler(0, str(tmp_path), steps=2, **planes_kw)
+    chip_smoke.check_planes_profiler(out, planes_kw["cfg"], steps=2,
+                                     cuda=False)
+    assert out["op_events"] > 0 and out["rows"]
+
+
+def test_planes_flop_checks_and_the_planted_omission(planes_kw):
+    out = chip_smoke.planes_flops(0, **planes_kw)
+    chip_smoke.check_planes_flops(out, cuda=False)
+    assert out["eager"] == out["want"]
+    assert out["planted"] == out["want"] - out["attention"]
+
+
+def test_serving_flops_match_the_analytic_count():
+    out = chip_smoke.planes_serving(0, device="cpu")
+    assert out == {"prefill": 0.0, "decode": 0.0}
+
+
+def test_planes_guard_and_rewind_on_the_cpu(planes_kw, tmp_path):
+    out = chip_smoke.planes_guard(0, **planes_kw)
+    chip_smoke.check_planes_guard(out, cuda=False)
+    rew = chip_smoke.planes_rewind(0, str(tmp_path), out["u_losses"],
+                                   **planes_kw)
+    chip_smoke.check_planes_rewind(rew)
+    # the planted guard fault is the check's own: a vector that skips
+    # the poisoned parameter reads no non-finite element
+    assert out["nf_planted"] == 0 < out["nf_full"]
+
+
+def test_planes_watchdog_child_exits_45(tmp_path):
+    out = chip_smoke.planes_watchdog(0, str(tmp_path), device="cpu",
+                                     tiny=True)
+    chip_smoke.check_planes_watchdog(out)
+
+
+def test_planes_aggregation(tmp_path):
+    doc = chip_smoke.planes_agg(str(tmp_path / "agg"))
+    assert doc["ranks"] == [0]

@@ -10,6 +10,7 @@ stops it after step 3; ``Estimator.fit`` with a checkpoint manager stops
 on the seam and its checkpoint restores.  Phase 10 (a)-(c), the exact
 resume, are in ``tests/test_torch_resume.py``.
 """
+import json
 import logging
 import os
 
@@ -21,7 +22,7 @@ import chip_smoke
 from mxnet_tpu.contrib.amp import loss_scaler as ref_loss_scaler
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import (callback, env, fault, flight_recorder, gluon,
-                             lifecycle, nd, telemetry)
+                             guard, lifecycle, nd, telemetry)
 from mxnet_tpu_torch import random as mx_random
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.checkpoint import CheckpointManager
@@ -140,8 +141,12 @@ def test_capture_and_restore_train_state():
     assert torch.equal(torch.randn(4, generator=mx_random.generator("cpu")),
                        want)
     assert lifecycle.restore_train_state(None) is None
-    with pytest.raises(MXNetError, match="guard"):
-        lifecycle.capture_train_state(guard=object())
+    g = guard.Guard()
+    g._classify(0.0, 4.0, 2.0, 1.0)
+    state = lifecycle.capture_train_state(guard=g)
+    g2 = guard.Guard()
+    lifecycle.restore_train_state(state, guard=g2)
+    assert g2.state_dict() == g.state_dict() == state["guard"]
     with pytest.raises(MXNetError, match="reference"):
         mx_random.set_state([1, 2])      # the reference's key words
 
@@ -221,8 +226,11 @@ def test_trainstep_run_failure_dumps_the_black_box(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="bad step"):
         step.run(iter(batches), prefetch=1)
     assert os.path.exists(os.path.join(tmp_path, "blackbox.rank0.json"))
-    with pytest.raises(MXNetError, match="guard"):
-        step.run(iter(batches), guard=object())
+    # a guarded run fails the same way (the failure is not the guard's)
+    os.remove(os.path.join(tmp_path, "blackbox.rank0.json"))
+    with pytest.raises(RuntimeError, match="bad step"):
+        step.run(iter(batches), guard=guard.Guard())
+    assert os.path.exists(os.path.join(tmp_path, "blackbox.rank0.json"))
 
 
 # -- the prefetcher ------------------------------------------------------
@@ -307,3 +315,85 @@ def test_telemetry_heartbeat_beats_at_step_boundaries():
     t0 = telemetry.last_heartbeat()
     telemetry.step_end()
     assert telemetry.last_heartbeat() >= t0
+
+
+# -- the stall watchdog ---------------------------------------------------------
+class _Clock:
+    def __init__(self, t):
+        self.t = t
+
+    def __call__(self):
+        return self.t
+
+
+def test_watchdog_fake_clock_stall_matches_the_reference(tmp_path,
+                                                         monkeypatch):
+    import time
+
+    from mxnet_tpu import lifecycle as rlifecycle
+    from mxnet_tpu import telemetry as rtelemetry
+
+    clock = _Clock(100.0)
+    monkeypatch.setattr(time, "monotonic", clock)
+    telemetry.heartbeat()
+    rtelemetry.heartbeat()
+    kw = dict(timeout_s=5.0, abort=False, poll_s=0.01)
+    pw = lifecycle.Watchdog(dump_dir=str(tmp_path / "port"), **kw)
+    rw = rlifecycle.Watchdog(dump_dir=str(tmp_path / "ref"), **kw)
+    clock.t = 104.0
+    assert pw.poll() is False
+    clock.t = 106.0
+    assert pw.poll() is True
+    assert pw.poll() is False          # one fire per stall
+    rw.start()
+    try:
+        deadline = time.perf_counter() + 5
+        while rw.stall_count == 0 and time.perf_counter() < deadline:
+            time.sleep(0.01)
+    finally:
+        rw.stop()
+    assert pw.stall_count == rw.stall_count == 1
+    pdoc = json.load(open(pw.last_dump))
+    rdoc = json.load(open(rw.last_dump))
+    assert pdoc["cause"] == rdoc["cause"] == \
+        "no step heartbeat for 6.0s (deadline 5.0s)"
+    assert set(pdoc) == set(rdoc)
+    assert lifecycle.EXIT_STALLED == rlifecycle.EXIT_STALLED == 45
+    # a new heartbeat re-arms it; the seam fires at once, heartbeat or not
+    telemetry.heartbeat()
+    assert pw.poll() is False
+    with fault.inject("watchdog.stall"):
+        assert pw.poll() is True
+    assert pw.stall_count == 2
+
+
+_WATCHDOG_CHILD = """
+import os, sys, time
+pkg = __import__(sys.argv[1], fromlist=["lifecycle", "telemetry"])
+pkg.telemetry.heartbeat()
+pkg.lifecycle.start_watchdog(timeout_s=0.3, poll_s=0.05,
+                             dump_dir=os.environ["MXNET_FLIGHT_DIR"])
+time.sleep(30)
+"""
+
+
+def test_watchdog_exits_45_with_the_black_box_in_both(tmp_path):
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = {}
+    for pkg in ("mxnet_tpu_torch", "mxnet_tpu"):
+        env = dict(os.environ, PYTHONPATH=repo,
+                   MXNET_FLIGHT_DIR=str(tmp_path / pkg),
+                   JAX_PLATFORMS="cpu")
+        procs[pkg] = subprocess.Popen(
+            [sys.executable, "-c", _WATCHDOG_CHILD, pkg], env=env, cwd=repo,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for pkg, p in procs.items():
+        _, err = p.communicate(timeout=120)
+        assert p.returncode == 45, (pkg, err[-2000:])
+        box = json.load(open(tmp_path / pkg / "blackbox.rank0.json"))
+        assert box["reason"] == "watchdog_stall"
+        assert any(e.get("event") == "watchdog_stall"
+                   for e in box["events"])
