@@ -8,8 +8,8 @@ Run from the repository root, with no arguments:
 (``--bert-step-seeds 1 2 3`` runs only the build and the BERT-base step
 check of phase 6 (b), once for each seed, and ``--gluon-bert-seeds 1 2
 3`` the same for phase 9 (b); ``--op-table``, ``--gluon-train``,
-``--persistence``, ``--frontend``, ``--data`` and ``--planes`` run only
-the build and phase 8, 9, 10, 11, 12 or 13.)
+``--persistence``, ``--frontend``, ``--data``, ``--planes`` and
+``--symbolic`` run only the build and phase 8, 9, 10, 11, 12, 13 or 14.)
 
 Phases (any failed check exits nonzero; nothing runs on the CPU):
 
@@ -269,7 +269,29 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    and merged.  The two children run beside (b) and (c).
    ``--planes`` runs only the build, the tiles' checks, the serving FLOP
    check and this phase;
-14. the kernels line (its times and launches at the main path's shape,
+14. the symbolic half: (a) BERT-base (bench.py's configuration, dropout
+   0) exported by HybridBlock.export and read back by
+   SymbolBlock.imports(..., ctx=mx.gpu()): the imported fp32 forward at
+   64 x 128 equal to the Gluon net's bit for bit with flash_attn_fwd 12
+   times, the hybridized imported block equal to the eager one; an SGD
+   step through the imported block at batch 8 against the CPU's fp64
+   step (fp32 within BERT_FP32_BOUND, bf16 within BF16_NOISE_FACTOR x the
+   CPU's bf16 deviation); two planted faults (layer 0's query and key
+   weights swapped in the params file, the attention's scale changed in
+   the symbol file) failing the equality; bf16 forwards timed, the
+   imported block eager and hybridized beside the Gluon net hybridized;
+   (b) ResNet-50 v1 exported, its symbol given a SoftmaxOutput head and
+   loaded by mx.mod.Module.load on the card at batch 32: one SGD step
+   against the CPU's (fp32 within 0.5, fp64 within 1e-5, the running
+   stats written back), the same step through gluon.Trainer within 1e-2,
+   Module.fit over 8 batches with callback.do_checkpoint and the loaded
+   checkpoint's score and predictions equal, 20 Module steps at batch 256
+   in bf16 timed beside phase 5's TrainStep; (c)
+   test_utils.check_consistency over [mx.cpu(), mx.gpu()] on the attention
+   symbol at BERT's shape and a conv + BatchNorm symbol, an offset planted
+   on the card's weight raising.  ``--symbolic`` runs only the build and
+   this phase;
+15. the kernels line (its times and launches at the main path's shape,
    the serving fleet, 4c;
    each path's shape, times and launches under ``by_path``, the op table
    with none, the tile pairs' times and the tuned winners), then the
@@ -393,7 +415,8 @@ PATH_SHAPES = {"serving": SERVING_SHAPE, "serve_http": SERVING_SHAPE,
                "gluon_bert_resume": RESUME_SHAPE,
                "gluon_bert_lamb_hybrid": BERT_SHAPE,
                "gluon_bert_dataloader": BERT_SHAPE,
-               "gluon_bert_planes": BERT_SHAPE}
+               "gluon_bert_planes": BERT_SHAPE,
+               "symbol_block_bert": BERT_SHAPE}
 # each path's attention dtype where it is not bf16
 PATH_DTYPES = {"gluon_bert_resume": RESUME_DTYPE}
 KERNEL_CASES = BUCKET_SHAPES + [PROXY_SHAPE] + [
@@ -2078,6 +2101,16 @@ def _kind(name):
         else "trainable"
 
 
+def max_abs_diff(a, b):
+    """max |a - b| in ``b``'s dtype, computed exactly (a widening cast, a
+    subtraction, a max) and so the same number on either device; on the
+    card when there is one: the CPU's passes over a full-width net's fp64
+    host copies took most of phase 7's checks (~100 s)."""
+    if torch.cuda.is_available():
+        return (a.to("cuda", b.dtype) - b.to("cuda")).abs().max().item()
+    return (a.to(b.dtype) - b).abs().max().item()
+
+
 def step_deviations(cand, ref, names):
     """How far step ``cand`` strays from step ``ref`` (both (loss, before,
     after) from the same weights; ``cand``'s tensors are cast to ``ref``'s
@@ -2087,24 +2120,30 @@ def step_deviations(cand, ref, names):
     different weights."""
     (loss_c, before_c, after_c), (loss_r, before_r, after_r) = cand, ref
     for b_c, b_r in zip(before_c, before_r):
-        if not torch.equal(b_c.to(b_r.dtype), b_r):
+        if b_c is not b_r and max_abs_diff(b_c, b_r) != 0:
             return None
     devs = [("loss", abs(loss_c - loss_r) / max(1.0, abs(loss_r)))]
     for name, a_c, a_r in zip(names, after_c, after_r):
-        devs.append((name, (a_c.to(a_r.dtype) - a_r).abs().max().item()))
+        devs.append((name, max_abs_diff(a_c, a_r)))
     return devs
 
 
-def update_floors(ref, names):
+def update_floors(ref, names, upd=None):
     """Per kind (_kind), UPDATE_FLOOR of the largest update in step
-    ``ref`` among the tensors of that kind: {kind: (floor, tensor)}."""
-    _, before, after = ref
+    ``ref`` among the tensors of that kind: {kind: (floor, tensor)}.
+    ``upd``: updates(ref), when the caller has it."""
     floors = {}
-    for name, a, b in zip(names, after, before):
-        upd = UPDATE_FLOOR * (a - b).abs().max().item()
+    for name, upd in zip(names, updates(ref) if upd is None else upd):
+        upd = UPDATE_FLOOR * upd
         if upd >= floors.get(_kind(name), (-1.0, None))[0]:
             floors[_kind(name)] = (upd, name)
     return floors
+
+
+def updates(ref):
+    """The largest entry of step ``ref``'s update of each tensor."""
+    _, before, after = ref
+    return [max_abs_diff(a, b) for a, b in zip(after, before)]
 
 
 def update_scales(ref, names):
@@ -2117,10 +2156,10 @@ def update_scales(ref, names):
     bias before BatchNorm (which cancels it).  The trainable tensors and
     the running stats have floors of their own, so the running variances'
     large updates do not lift the floor of the weights."""
-    _, before, after = ref
-    floors = update_floors(ref, names)
-    return [1.0] + [max((a - b).abs().max().item(), floors[_kind(name)][0])
-                    for name, a, b in zip(names, after, before)]
+    upd = updates(ref)
+    floors = update_floors(ref, names, upd)
+    return [1.0] + [max(u, floors[_kind(name)][0])
+                    for name, u in zip(names, upd)]
 
 
 def is_bf16_value(x):
@@ -6322,14 +6361,14 @@ def resume_build(cfg, seq, init_seed, device):
 
 def resume_train(net, trainer, mgr, start, stop, data_seed, cfg, seq, batch,
                  device, record=None, on_step=None, seam_at=None,
-                 times=None):
+                 times=None, saves=RESUME_SAVES):
     """Steps ``start`` + 1 .. ``stop`` of the recipe (step k's batch from
     ``data_seed`` and k, so a resumed run sees the same data).  Every step
     boundary polls ``lifecycle.check_stop()`` (with the
     ``lifecycle.sigterm`` seam armed at ``seam_at``); on a stop the final
     checkpoint is published at that step with the train state and
     GracefulExit raised.  With ``mgr``, an async save after each step of
-    RESUME_SAVES.  ``record`` ({"losses": {}, "scales": {}}) gets each
+    ``saves``.  ``record`` ({"losses": {}, "scales": {}}) gets each
     step's loss and the loss scale after it, and ``on_step(k, loss,
     scale)`` is called with them; ``times`` (a dict) gets the async
     saves' blocking seconds ("snapshot") and the final publish's ("sync
@@ -6367,7 +6406,7 @@ def resume_train(net, trainer, mgr, start, stop, data_seed, cfg, seq, batch,
         record["scales"][k] = scaler.loss_scale
         if on_step is not None:
             on_step(k, record["losses"][k], record["scales"][k])
-        if mgr is not None and step + 1 in RESUME_SAVES:
+        if mgr is not None and step + 1 in saves:
             t0 = time.perf_counter()
             mgr.save(step + 1, net, trainer, async_=True,
                      train_state=state(step + 1))
@@ -6444,8 +6483,21 @@ def resume_u(cfg, seq, batch, seed, device):
         amp.disable()
 
 
+def restore_from_host(net, trainer, host):
+    """What ``CheckpointManager.restore`` loads into ``net`` and
+    ``trainer`` (the parameters by structural name, the Trainer's states
+    as ``Trainer.load_states`` reads them), from ``host``: the copy an
+    earlier restore of the same step left (resume_r's "host")."""
+    params = net._collect_params_with_prefix()
+    for name, value in host["params"].items():
+        params[name].set_data(value)
+    trainer._updater.set_states(host["states"])
+    trainer._optimizer = trainer._updater.optimizer
+    trainer._optimizer.param_dict = dict(enumerate(trainer._params))
+
+
 def resume_r(cfg, seq, batch, seed, device, directory, fault=None,
-             first=None):
+             first=None, host=None):
     """Run R: steps 1..RESUME_STOP from ``seed`` (async save after step 2,
     the sigterm seam at the step-RESUME_STOP boundary publishing the final
     checkpoint) into ``directory``; then a fresh net and Trainer from
@@ -6453,9 +6505,11 @@ def resume_r(cfg, seq, batch, seed, device, directory, fault=None,
     (the result of an earlier call) reuses its first segment and
     checkpoint.  ``fault``: "no_train_state" skips restore_train_state;
     "scale_reset" sets the restored scale back to its initial value.
-    Returns the losses and scales of both segments, the final scaler state
-    and update count, the snapshot at the stop and after the restore, and
-    times."""
+    ``host`` (an earlier call's "host") restores the net and Trainer from
+    that host copy instead of the files: the faults test the check, not
+    the files.  Returns the losses and scales of both segments, the final
+    scaler state and update count, the snapshot at the stop and after the
+    restore, the host copy of what the restore loaded, and times."""
     from mxnet_tpu_torch import lifecycle
     from mxnet_tpu_torch.checkpoint import CheckpointManager
     from mxnet_tpu_torch.contrib import amp
@@ -6481,7 +6535,14 @@ def resume_r(cfg, seq, batch, seed, device, directory, fault=None,
         mgr = CheckpointManager(directory, max_to_keep=3)
         net, trainer = resume_build(cfg, seq, seed + 1, device)
         t0 = time.perf_counter()
-        step = mgr.restore(net, trainer)
+        if host is None:
+            step = mgr.restore(net, trainer)
+            host = {"params": {n: _host(p.data()._data) for n, p in
+                               net._collect_params_with_prefix().items()},
+                    "states": trainer._states_blob()}
+        else:
+            restore_from_host(net, trainer, host)
+            step = RESUME_STOP
         restore_s = time.perf_counter() - t0
         check(step == RESUME_STOP, f"restored step {step}, expected "
                                    f"{RESUME_STOP}")
@@ -6500,7 +6561,7 @@ def resume_r(cfg, seq, batch, seed, device, directory, fault=None,
                     scales={**first["scales"], **second["scales"]},
                     scaler=scaler.state_dict(),
                     num_update=trainer.step_count, restored=restored,
-                    restore_s=restore_s, first=first)
+                    restore_s=restore_s, first=first, host=host)
     finally:
         amp.disable()
 
@@ -6540,9 +6601,11 @@ def resume_worker_main(args):
                   "the restore missed the start step")
             lifecycle.restore_train_state(manager.read_train_state(start),
                                           scaler=trainer._amp_loss_scaler)
+        # no periodic saves: the stop's final publish is what the
+        # relaunch resumes from ((b) tests the async save)
         return resume_train(net, trainer, manager, start, RESUME_STEPS,
                             args.seed, cfg, seq, batch, device,
-                            on_step=on_step)
+                            on_step=on_step, saves=())
 
     amp.init("float16")
     try:
@@ -6834,7 +6897,7 @@ def persistence_phase(seed):
         faults = {}
         for fault in ("no_train_state", "scale_reset"):
             f = resume_r(cfg, seq, batch, seed, "cuda", ckpt, fault=fault,
-                         first=r["first"])
+                         first=r["first"], host=r["host"])
             faults[fault] = resume_verdict(f, u1, allowed)
             log(f"  planted {fault}: largest gap from U "
                 f"{faults[fault][0]:.3e} (steps beyond the rule "
@@ -9580,6 +9643,474 @@ def planes_phase(seed, gen=None, tile_checks=True):
                                         for n, r in tuned.items()}}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the symbolic half: HybridBlock.export, SymbolBlock.imports,
+# mx.mod.Module and test_utils on the card
+# ---------------------------------------------------------------------------
+# (b): the Module's check batch and step (phase 5's CHECK_OPT), the fit's
+# batches, the timed run (phase 5's bench.py configuration)
+SYM_MODULE_BATCH, SYM_FIT_BATCHES = 32, 8
+# (a): timed forwards of the imported BERT-base at bench.py's batch
+SYM_WARMUP, SYM_FORWARDS = 2, 10
+# (c): the attention's fp32 kernel against the CPU's plain version within
+# phase 3's fp32 bound
+SYM_ATTENTION_TOL = F32_TOL
+
+
+def sym_outputs(out):
+    return out if isinstance(out, (list, tuple)) else [out]
+
+
+def sym_same(got, want):
+    """Whether two forwards' outputs are equal bit for bit, and the largest
+    |difference|."""
+    got, want = sym_outputs(got), sym_outputs(want)
+    worst = max((a._data.double() - b._data.double()).abs().max().item()
+                for a, b in zip(got, want))
+    same = all(torch.equal(a._data, b._data) for a, b in zip(got, want))
+    return same, worst
+
+
+def sym_import(prefix, ctx, symbol_file=None):
+    import mxnet_tpu_torch as mx
+
+    return mx.gluon.SymbolBlock.imports(
+        symbol_file or prefix + "-symbol.json", ["data"],
+        prefix + "-0000.params", ctx=ctx)
+
+
+def planted_export(prefix, fault, work):
+    """A copy of the deploy files ``prefix`` with ``fault`` planted:
+    "swap_qk" (layer 0's query and key weights swapped in the params
+    file) or "sm_scale" (the first attention node's scale off by
+    BF16_SCALE_FAULT in the symbol file).  Returns the copy's prefix."""
+    import mxnet_tpu_torch as mx
+
+    out = os.path.join(work, f"planted_{fault}")
+    shutil.copy(prefix + "-symbol.json", out + "-symbol.json")
+    shutil.copy(prefix + "-0000.params", out + "-0000.params")
+    if fault == "swap_qk":
+        params = mx.nd.load(prefix + "-0000.params", ctx=mx.cpu())
+        q = next(k for k in params if k.endswith("0.attention.query.weight"))
+        k = q.replace("query", "key")
+        params[q], params[k] = params[k], params[q]
+        mx.nd.save(out + "-0000.params", params)
+    else:
+        with open(prefix + "-symbol.json") as f:
+            js = json.load(f)
+        node = next(n for n in js["nodes"]
+                    if n["op"] == "_contrib_flash_attention")
+        node["attrs"]["sm_scale"] = repr(
+            float(node["attrs"]["sm_scale"]) * BF16_SCALE_FAULT)
+        with open(out + "-symbol.json", "w") as f:
+            json.dump(js, f)
+    return out
+
+
+def sym_forward_ms(fn, x, repeats=SYM_FORWARDS):
+    """ms a forward (host clock ending in a sync) after SYM_WARMUP, and the
+    peak memory above the run's start (GiB)."""
+    base = memory_base()
+    for _ in range(SYM_WARMUP):
+        fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        out = fn(x)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / repeats
+    del out
+    return ms, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def symbolic_bert(seed, work, ctx=None, cfg=None, batch=BERT_BATCH,
+                  check_batch=BERT_CHECK_BATCH, seq=BERT_SEQ, timed=True):
+    """(a): BERT-base exported and imported.  Returns flash_attn_fwd's
+    launches over the imported block's forwards and its bf16 times."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _kernels
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+
+    ctx = ctx or mx.gpu(0)
+    cuda = ctx.device_type == "gpu"
+    cfg = cfg or bert.BertConfig(dropout=0.0)
+    net = init_bert(cfg, seed, ctx, seq)
+    ids, _ = bert_batch(seed, batch, seq, cfg.vocab_size)
+    X = mx.nd.array(ids, ctx=ctx, dtype="int32")
+    want = net(X)
+    prefix = os.path.join(work, "bert")
+    t0 = time.perf_counter()
+    sym, arg_params, aux_params = net._trace_to_symbol(X)
+    trace_s = time.perf_counter() - t0
+    mx.model.save_checkpoint(prefix, 0, sym, arg_params, aux_params)
+    del sym, arg_params, aux_params
+    t1 = time.perf_counter()
+    blk = sym_import(prefix, ctx)
+    t2 = time.perf_counter()
+    ops = [n["op"] for n in json.load(open(prefix + "-symbol.json"))["nodes"]]
+    log(f"  exported BertForPretraining ({cfg.num_layers} layers, "
+        f"{cfg.hidden_size} wide) at {batch} x {seq}: {len(ops)} nodes, "
+        f"{ops.count('_contrib_flash_attention')} attention nodes; export "
+        f"{t1 - t0:.1f} s (the trace {trace_s:.1f} s; as net.export), "
+        f"imports {t2 - t1:.1f} s")
+    check(ops.count("_contrib_flash_attention") == cfg.num_layers,
+          "the export lost attention nodes")
+    def launches():
+        return _kernels.launch_counts().get("flash_attn_fwd", 0) \
+            if cuda else 0
+
+    # this path's count: the imported blocks' launches from here on, the
+    # Gluon net's own (its batch-8 forward, its timed forwards) taken out
+    n0 = launches()
+    gluon = 0
+    got = blk(X)
+    n1 = launches()
+    same, worst = sym_same(got, want)
+    log(f"  imported fp32 forward against the Gluon net's: "
+        f"{'bit for bit' if same else f'max |difference| {worst:.3e}'}; "
+        f"flash_attn_fwd launches in the forward: {n1 - n0}")
+    check(same, f"the imported forward differs from the Gluon net's by "
+                f"{worst:.3e}")
+    if cuda:
+        check(n1 - n0 == cfg.num_layers,
+              f"flash_attn_fwd launched {n1 - n0} times in the imported "
+              f"forward, expected {cfg.num_layers}")
+    blk.hybridize()
+    for _ in range(2):          # the capture, then a replay
+        same, worst = sym_same(blk(X), got)
+        check(same, f"the hybridized imported block differs from the "
+                    f"eager one by {worst:.3e}")
+    log("  hybridized imported block (capture and replay) against the "
+        "eager one: bit for bit")
+    del got, want
+
+    log(f"== symbolic 2: an SGD fine-tuning step through the imported block "
+        f"at batch {check_batch}, dropout 0, against the CPU's fp64 step")
+    ids8, labels8 = bert_batch(seed + 1, check_batch, seq, cfg.vocab_size)
+    X8 = mx.nd.array(ids8, ctx=ctx, dtype="int32")
+    prefix8 = os.path.join(work, "bert8")
+    net.export(prefix8, 0, X8)
+    c = launches()
+    want8 = net(X8)
+    gluon += launches() - c
+    blk8 = sym_import(prefix8, ctx)
+    same, worst = sym_same(blk8(X8), want8)
+    check(same, f"the imported batch-{check_batch} forward differs by "
+                f"{worst:.3e}")
+    names = list(blk8.collect_params())
+
+    def cpu_step(dtype=None):
+        cpu_blk = sym_import(prefix8, mx.cpu())
+        if dtype == "float64":
+            cpu_blk.cast("float64")
+            dtype = None
+        return trainstep_result(cpu_blk, ids8, labels8, "cpu",
+                                BERT_CHECK_OPT, dtype, bert_loss)
+
+    # the CPU's fp64 step on a thread, beside the card's work that runs
+    # without AMP (whose policy is global)
+    t0 = time.perf_counter()
+    cpu64_run = in_thread(cpu_step, "float64")
+    for fault in ("swap_qk", "sm_scale"):
+        bad = sym_import(planted_export(prefix8, fault, work), ctx)
+        same, worst = sym_same(bad(X8), want8)
+        log(f"  planted {fault}: the imported forward differs by "
+            f"{worst:.3e}")
+        check(not same, f"the equality check misses the planted {fault}")
+        del bad
+    card = trainstep_result(blk8, ids8, labels8, ctx.device.type,
+                            BERT_CHECK_OPT, None, bert_loss)
+    cpu64 = joined(*cpu64_run)
+    t1 = time.perf_counter()
+    cpu16 = cpu_step("bfloat16")
+    log(f"  CPU steps: fp64 (beside the card's) {t1 - t0:.1f} s, bf16 "
+        f"{time.perf_counter() - t1:.1f} s")
+    check(all(bool(torch.isfinite(t).all()) for t in card[2]),
+          "non-finite parameters after the imported block's step")
+    check_steps(card, cpu64, names, "fp32 imported step vs the CPU's fp64 "
+                "step", BERT_FP32_BOUND)
+    card16 = trainstep_result(blk8, ids8, labels8, ctx.device.type,
+                              BERT_CHECK_OPT, "bfloat16", bert_loss)
+    check_steps(card16, cpu64, names, "bf16 imported step vs the fp64 step",
+                BF16_NOISE_FACTOR, noise_scales(cpu16, cpu64, names),
+                "of the CPU's bf16 deviation")
+    del blk8, card, card16, cpu16, cpu64, want8
+    if not timed:
+        return launches() - n0 - gluon, {}
+
+    log(f"== symbolic 3: bf16 forwards (amp.init()) at {batch} x {seq}: the "
+        f"imported block eager and hybridized, the Gluon net hybridized")
+    times = {}
+    amp.init()
+    try:
+        blk.hybridize(False)
+        times["imported eager"] = sym_forward_ms(blk, X)
+        blk.hybridize()
+        times["imported hybridized"] = sym_forward_ms(blk, X)
+        net.hybridize()
+        c = launches()
+        times["gluon hybridized"] = sym_forward_ms(net, X)
+        gluon += launches() - c
+    finally:
+        amp.disable()
+    for what, (ms, peak) in times.items():
+        log(f"  [{gpu_line()}] {what}: {ms:.3f} ms a forward, peak memory "
+            f"{peak:.3f} GiB over the run's start ({SYM_FORWARDS} forwards "
+            f"after {SYM_WARMUP})")
+    n_launch = launches() - n0 - gluon
+    log(f"  flash_attn_fwd launches of the imported blocks over (a): "
+        f"{n_launch} (the Gluon net's {gluon} left out)")
+    del net, blk
+    return n_launch, times
+
+
+def module_result(mod, x, y, names):
+    """One forward_backward + update of ``mod``: (cross-entropy of its
+    softmax output, the arrays before, after) in ``names`` order, on the
+    host, in the module's dtype."""
+    import mxnet_tpu_torch as mx
+
+    ex = mod._exec
+    arrays = dict(ex.arg_dict, **ex.aux_dict)
+    ctx = mod._context
+    before = [_host(arrays[n]._data) for n in names]
+    dtype = next(iter(ex.arg_dict.values())).dtype
+    batch = mx.io.DataBatch(data=[mx.nd.array(x, ctx=ctx, dtype=dtype)],
+                            label=[mx.nd.array(y, ctx=ctx, dtype=dtype)])
+    mod.forward_backward(batch)
+    probs = mod.get_outputs()[0]._data.double()
+    loss = -probs[torch.arange(len(y)), torch.as_tensor(
+        y, dtype=torch.long, device=probs.device)].log().mean().item()
+    mod.update()
+    return loss, before, [_host(arrays[n]._data) for n in names]
+
+
+def bound_module(prefix, ctx, batch, dtype="float32", opt=CHECK_OPT,
+                 size=TRAIN_SIZE):
+    """``Module.load(prefix, 0)`` bound for training at ``batch`` in
+    ``dtype``, with SGD ``opt``."""
+    import mxnet_tpu_torch as mx
+
+    mod = mx.mod.Module.load(prefix, 0, context=ctx)
+    mod.bind(data_shapes=[mx.io.DataDesc("data", (batch, size, size, 3),
+                                         dtype)],
+             label_shapes=[mx.io.DataDesc("softmax_label", (batch,), dtype)])
+    mod.init_optimizer(optimizer="sgd", optimizer_params=tuple(opt.items()))
+    return mod
+
+
+def symbolic_module(seed, work, ctx=None, make_net=resnet50,
+                    batch=SYM_MODULE_BATCH, size=TRAIN_SIZE,
+                    fit_batches=SYM_FIT_BATCHES, timed_batch=TRAIN_BATCH,
+                    timed=True, classes=1000):
+    """(b): ResNet-50 v1 exported, its symbol given a SoftmaxOutput head
+    and trained through mx.mod.Module.  Returns the timed img/s."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+
+    ctx = ctx or mx.gpu(0)
+    net = init_net(make_net, seed, ctx, size)
+    x, y = train_batch(seed, batch, size, classes)
+    prefix = os.path.join(work, "resnet")
+    net.export(prefix, 0, mx.nd.array(x, ctx=ctx))
+    sym, arg, aux = mx.model.load_checkpoint(prefix, 0)
+    train_sym = mx.sym.SoftmaxOutput(sym, mx.sym.var("softmax_label"),
+                                     name="softmax", normalization="batch")
+    mx.model.save_checkpoint(prefix + "-train", 0, train_sym, arg, aux)
+    prefix += "-train"
+    names = list(arg) + list(aux)
+    log(f"  exported {len(arg)} arguments and {len(aux)} aux states; "
+        f"Module.load of the checkpoint with a SoftmaxOutput head")
+    def cpu_steps():
+        t0 = time.perf_counter()
+        out = [module_result(bound_module(prefix, mx.cpu(), batch, dtype,
+                                          size=size), x, y, names)
+               for dtype in ("float32", "float64")]
+        return out, time.perf_counter() - t0
+
+    # the CPU's steps on a thread, beside the card's untimed work (no AMP)
+    cpu_run = in_thread(cpu_steps)
+    card = module_result(bound_module(prefix, ctx, batch, size=size), x, y,
+                         names)
+    card64 = module_result(bound_module(prefix, ctx, batch, "float64",
+                                        size=size), x, y, names)
+    stats = [i for i, n in enumerate(names) if _kind(n) == "stats"]
+    moved = sum(not torch.equal(card[1][i], card[2][i]) for i in stats)
+    log(f"  BatchNorm running stats written back by the step: {moved} of "
+        f"{len(stats)}")
+    check(moved == len(stats), "the Module step left running stats as "
+                               "they were")
+    # the same step through gluon.Trainer on the net itself, whose
+    # parameters map to the exported names by structure
+    structural = {id(p): n for n, p in
+                  net._collect_params_with_prefix().items()}
+    order = [structural[id(p)] for p in net.collect_params().values()]
+    pos = {n: i for i, n in enumerate(names)}
+    card_gluon_order = (card[0], [card[1][pos[n]] for n in order],
+                        [card[2][pos[n]] for n in order])
+    loop = gluon_loop_result(net, x, y)
+    del net
+
+    log(f"== symbolic 5: Module.fit over {fit_batches} seed-made batches of "
+        f"{batch} (NDArrayIter) with callback.do_checkpoint, then "
+        f"Module.load of the checkpoint and score")
+    data = [train_batch(seed + 1 + i, batch, size, classes)
+            for i in range(fit_batches)]
+    with ctx:
+        it = mx.io.NDArrayIter(np.concatenate([d[0] for d in data]),
+                               np.concatenate([d[1] for d in data]),
+                               batch_size=batch, label_name="softmax_label")
+    mod = mx.mod.Module.load(prefix, 0, context=ctx)
+    fit = os.path.join(work, "fit")
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, optimizer_params=tuple(TRAIN_OPT.items()),
+            epoch_end_callback=mx.callback.do_checkpoint(fit))
+    fit_s = time.perf_counter() - t0
+    score = mod.score(it, "acc")
+    pred = mod.predict(it)
+    loaded = mx.mod.Module.load(fit, 1, context=ctx)
+    loaded.bind(data_shapes=it.provide_data, label_shapes=it.provide_label,
+                for_training=False)
+    loaded_score = loaded.score(it, "acc")
+    same, worst = sym_same(loaded.predict(it), pred)
+    log(f"  fit {fit_s:.1f} s; score {score} against the loaded "
+        f"checkpoint's {loaded_score}; predictions "
+        f"{'bit for bit' if same else f'differ by {worst:.3e}'}")
+    check(score == loaded_score and same, "the loaded checkpoint scores "
+                                          "differently")
+    check(all(math.isfinite(float(v)) for v in pred.asnumpy().ravel()[:100]),
+          "non-finite predictions")
+    del mod, loaded, it, pred
+    (cpu32, cpu64), cpu_s = joined(*cpu_run)
+    log(f"  CPU Module steps (beside the card's): fp32 and fp64 "
+        f"{cpu_s:.1f} s")
+    check_steps(card, cpu32, names, "fp32 Module step, card vs CPU",
+                FP32_STEP_BOUND)
+    check_steps(card64, cpu64, names, "fp64 Module step, card vs CPU",
+                FP64_STEP_BOUND)
+    check_steps(loop, card_gluon_order, order,
+                "gluon.Trainer step vs the Module step", LOOP_BOUND)
+    if not timed:
+        return None
+
+    log(f"== symbolic 6: 20 Module steps at batch {timed_batch}, bf16 "
+        f"(amp.init()), SGD {TRAIN_OPT}")
+    base = memory_base()
+    mod = bound_module(prefix, ctx, timed_batch, opt=TRAIN_OPT, size=size)
+    xb, yb = train_batch(seed, timed_batch, size, classes)
+    batch_nd = mx.io.DataBatch(data=[mx.nd.array(xb, ctx=ctx)],
+                               label=[mx.nd.array(yb.astype("float32"),
+                                                  ctx=ctx)])
+    amp.init()
+    try:
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            if i == TRAIN_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            mod.forward_backward(batch_nd)
+            mod.update()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        amp.disable()
+    probs = mod.get_outputs()[0]._data.float()
+    check(bool(torch.isfinite(probs).all()), "non-finite Module outputs")
+    img_s = timed_batch * TRAIN_STEPS / dt
+    log(f"  [{gpu_line()}] Module: {img_s:.1f} img/s, "
+        f"{1e3 * dt / TRAIN_STEPS:.2f} ms/step over {TRAIN_STEPS} steps, "
+        f"peak memory {(torch.cuda.max_memory_allocated() - base) / 2**30:.3f}"
+        f" GiB over the run's start")
+    del mod, batch_nd
+    return img_s
+
+
+def symbolic_consistency(seed, ctx_list=None, shape=BERT_SHAPE,
+                         conv_batch=CHECK_BATCH):
+    """(c): test_utils.check_consistency across ``ctx_list`` on the
+    attention symbol at BERT's shape and on a conv + BatchNorm symbol; an
+    offset planted on the last context's weight must raise."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import test_utils
+
+    ctx_list = ctx_list or [mx.cpu(), mx.gpu(0)]
+    b, h, _, lq, _, d = shape[:6]
+    r = np.random.RandomState(seed)
+    att = mx.sym.flash_attention(*(mx.sym.var(n) for n in "qkv"),
+                                 causal=False, sm_scale=1.0 / math.sqrt(d),
+                                 name="attention")
+    qkv = [r.randn(b, h, lq, d).astype("float32") for _ in range(3)]
+    test_utils.check_consistency(att, qkv, ctx_list=ctx_list,
+                                 rtol=SYM_ATTENTION_TOL,
+                                 atol=SYM_ATTENTION_TOL)
+    data = mx.sym.var("data")
+    net = mx.sym.Convolution(data, kernel=(3, 3), num_filter=64,
+                             pad=(1, 1), name="conv")
+    net = mx.sym.BatchNorm(net, fix_gamma=False, name="bn")
+    conv = mx.sym.Activation(net, act_type="relu", name="relu")
+    shapes, _, aux_shapes = conv.infer_shape(data=(conv_batch, 3, 56, 56))
+    inputs = [r.randn(*s).astype("float32") * 0.5 for s in shapes] + \
+        [r.rand(*s).astype("float32") + 0.5 for s in aux_shapes]
+    test_utils.check_consistency(conv, inputs, ctx_list=ctx_list)
+    forward = test_utils.symbol_forward(conv)
+    calls = []
+
+    def planted(*nds):
+        # one call a context, in ctx_list's order: the last context's
+        # call gets the offset
+        calls.append(nds[0].context)
+        if len(calls) == len(ctx_list):
+            nds = list(nds)
+            nds[1] = nds[1] + 1e-3
+        return forward(*nds)
+
+    try:
+        test_utils.check_consistency(planted, inputs, ctx_list=ctx_list)
+        caught = False
+    except AssertionError:
+        caught = True
+    log(f"  check_consistency over {ctx_list}: the attention symbol at "
+        f"{(b, h, lq, d)} (within {SYM_ATTENTION_TOL:g}) and conv + "
+        f"BatchNorm at ({conv_batch}, 3, 56, 56) consistent; an offset of "
+        f"1e-3 planted on the last context's weight raised: {caught}")
+    check(caught, "check_consistency misses an offset on the card's weight")
+
+
+def symbolic_phase(seed, trainstep_img_s=None):
+    """Phase 14: (a) BERT-base, (b) ResNet-50 through Module, (c)
+    check_consistency.  Returns flash_attn_fwd's launches on the
+    symbol_block_bert path."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="symbolic_")
+    try:
+        log("== symbolic 1: BERT-base (bench.py's configuration, dropout 0) "
+            "exported and SymbolBlock.imports(..., ctx=mx.gpu())")
+        launches, _ = symbolic_bert(seed, work)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        log(f"  (a) {t1 - t0:.1f} s")
+        log(f"== symbolic 4: ResNet-50 v1 (bench.py's net) exported, "
+            f"mx.mod.Module.load on mx.gpu() at batch {SYM_MODULE_BATCH}, "
+            f"SGD {CHECK_OPT}: one step against the CPU's, fp32 and fp64")
+        img_s = symbolic_module(seed, work)
+        if trainstep_img_s is not None:
+            log(f"  [{gpu_line()}] Module {img_s:.1f} img/s against "
+                f"phase 5's TrainStep {trainstep_img_s:.1f} img/s in this run "
+                f"({img_s / trainstep_img_s:.3f}x)")
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        log(f"  (b) {t2 - t1:.1f} s")
+        log("== symbolic 7: test_utils.check_consistency over [mx.cpu(), "
+            "mx.gpu()]")
+        symbolic_consistency(seed)
+        t3 = time.perf_counter()
+        log(f"  (c) {t3 - t2:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  [{gpu_line()}] phase 14 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def bert_step_flops(cfg, batch, seq, attention=True):
     """The analytic FLOPs of one BertForPretraining training step's
     products: each Dense layer 6 x rows x in x out (forward, the input's
@@ -9637,6 +10168,10 @@ def parse_args(argv=None):
                         help="run only the build and phase 13, the runtime "
                              "planes (with the serving FLOP check at 2 "
                              "layers)")
+    parser.add_argument("--symbolic", action="store_true",
+                        help="run only the build and phase 14, the "
+                             "symbolic half (export, SymbolBlock, Module, "
+                             "test_utils)")
     parser.add_argument("--watchdog-worker", action="store_true",
                         help="run the BERT recipe with the stall watchdog "
                              "and arm its seam: a child of phase 13 (d)")
@@ -9797,6 +10332,14 @@ def main():
         log(f"== done in {time.perf_counter() - t_all:.1f} s")
         return 0
 
+    if args.symbolic:
+        log("== the symbolic half (phase 14 alone)")
+        n = symbolic_phase(args.seed)
+        check(n > 0, "flash_attn_fwd never ran on the symbol_block_bert "
+                     "path")
+        log(f"== done in {time.perf_counter() - t_all:.1f} s")
+        return 0
+
     if args.frontend:
         log("== the Gluon frontend (phase 11 alone)")
         n = frontend_phase(args.seed)
@@ -9896,6 +10439,13 @@ def main():
                                                         tile_checks=False)
     row.update(tiles)
     torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+
+    log("== the symbolic half: BERT-base exported and imported through the "
+        "kernel, ResNet-50 through mx.mod.Module, check_consistency")
+    launches["symbol_block_bert"] = symbolic_phase(args.seed, resnet_img_s)
+    torch.cuda.empty_cache()
+    log(f"  symbolic phase took {time.perf_counter() - t10:.1f} s")
     for path, n in launches.items():
         check(n > 0, f"flash_attn_fwd never ran on the {path} path")
         row["by_path"][path]["launches"] = n

@@ -29,7 +29,12 @@ signature, the live MFU gauge), ``guard`` (the numerical-integrity guard:
 skip and rewind), ``lifecycle.Watchdog`` (the stall watchdog),
 ``telemetry_agg`` (cross-rank snapshot merge and black-box blame) and
 ``tuning`` (knobs, successive halving, the winner DB; the
-flash-attention kernel's tiles are knobs).  The package imports ``torch``
+flash-attention kernel's tiles are knobs).  The symbolic half:
+``mx.sym`` (Symbols over the same op table, ``infer_shape``, the
+reference's JSON), the ``Executor``, ``HybridBlock.export`` and
+``gluon.SymbolBlock.imports`` (deploy files that cross between the two
+packages), ``mx.mod`` (``Module``, ``BucketingModule``), ``mx.model``,
+``mx.mon``, ``mx.viz`` and ``mx.test_utils``.  The package imports ``torch``
 and numpy, never ``jax`` and nothing of ``mxnet_tpu``.
 """
 from __future__ import annotations
@@ -48,6 +53,14 @@ from . import callback, checkpoint  # noqa: E402
 from . import image, io, native, recordio  # noqa: E402
 from . import (guard, introspection, profiler, telemetry_agg,  # noqa: E402
                tuning)
+from . import executor, model, module, monitor, symbol, util  # noqa: E402
+from . import module as mod  # noqa: E402
+from . import monitor as mon  # noqa: E402
+from . import symbol as sym  # noqa: E402
+from . import visualization  # noqa: E402
+from . import visualization as viz  # noqa: E402
+from .executor import Executor  # noqa: E402
+from .util import test_utils  # noqa: E402
 
 env.apply_env()
 
@@ -59,4 +72,6 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "contrib", "env", "fault", "telemetry", "flight_recorder",
            "lifecycle", "checkpoint", "callback", "io", "recordio",
            "image", "native", "profiler", "introspection", "guard",
-           "tuning", "telemetry_agg"]
+           "tuning", "telemetry_agg", "sym", "symbol", "mod", "module",
+           "model", "executor", "Executor", "viz", "visualization", "mon",
+           "monitor", "util", "test_utils"]

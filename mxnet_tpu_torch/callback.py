@@ -66,10 +66,15 @@ class Speedometer:
 def do_checkpoint(prefix, period=1):
     """An epoch-end callback ``(iter_no, sym, arg, aux)`` that saves
     ``arg:``/``aux:``-tagged parameters to ``<prefix>-<epoch>.params``
-    every ``period`` epochs."""
+    every ``period`` epochs, and the symbol, when given, to
+    ``<prefix>-symbol.json`` (so ``mx.mod.Module.load`` reads the
+    checkpoint, as MXNet's ``save_checkpoint`` writes it)."""
     def _callback(iter_no, sym=None, arg=None, aux=None):
         if (iter_no + 1) % period == 0:
             from .ndarray.serialization import save
+
+            if sym is not None:
+                sym.save(f"{prefix}-symbol.json")
 
             data = {}
             if arg:

@@ -49,7 +49,7 @@ from . import parameter as _parameter
 from .parameter import (_TRACE, DeferredInitializationError, Parameter,
                         ParameterDict, load_params)
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 
 class _BlockScope(threading.local):
@@ -353,6 +353,10 @@ class HybridBlock(Block):
     def _call_cached_op(self, *args):
         """The reference's ``_call_cached_op``: look the key up, build the
         entry if it is new, run it."""
+        # the input signature, for export() without example inputs
+        self._last_input_shapes = tuple(
+            (a.shape, a._data.dtype, a.context) for a in args
+            if isinstance(a, NDArray))
         plist = self._valid_params()
         if plist is None:        # deferred shapes: this call runs eagerly
             _EAGER.depth = getattr(_EAGER, "depth", 0) + 1
@@ -399,3 +403,161 @@ class HybridBlock(Block):
         _telemetry.compile_event("block", self.name,
                                  time.perf_counter() - t0, cause, graph=kind)
         return entry
+
+    # -- export (the deploy files) -----------------------------------------
+    def _trace_to_symbol(self, *args):
+        """Trace ``forward`` with SymbolTracer proxies into (Symbol,
+        arg_params, aux_params).  ``args``: NDArrays, or (shape, torch
+        dtype, Context) triples; the inputs are named ``data`` (one) or
+        ``data0``, ``data1``, ... and the parameters by their structural
+        names, as in the reference."""
+        from ..ndarray import ndarray as _ndmod
+        from ..symbol.symbol import Symbol, SymbolTracer, _Node
+
+        def aval(shape, dtype):
+            return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+        plist = sorted(self._collect_params_with_prefix().items())
+        param_map = {}
+        for name, p in plist:
+            d = p.data()
+            param_map[p] = SymbolTracer.new((_Node(None, name, {}), 0),
+                                            aval(d.shape, d._data.dtype),
+                                            d.context)
+        in_tracers = []
+        for i, a in enumerate(args):
+            name = "data" if len(args) == 1 else f"data{i}"
+            shape, dtype, ctx = (a.shape, a._data.dtype, a.context) \
+                if isinstance(a, NDArray) else a
+            in_tracers.append(SymbolTracer.new((_Node(None, name, {}), 0),
+                                               aval(shape, dtype), ctx))
+        prev = _TRACE.ctx
+        _TRACE.ctx = _parameter._TraceContext(param_map)
+        _ndmod._SYMTRACE["on"] = True
+        try:
+            with _ag._scope(recording=False, training=False):
+                out = self.forward(*in_tracers)
+        finally:
+            _ndmod._SYMTRACE["on"] = False
+            _TRACE.ctx = prev
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        sym = Symbol([o._symhead for o in outs])
+        # arguments and aux states by graph position, not by name
+        aux_names = set(sym.list_auxiliary_states())
+        arg_params, aux_params = {}, {}
+        for name, p in plist:
+            (aux_params if name in aux_names else arg_params)[name] = p.data()
+        return sym, arg_params, aux_params
+
+    def export(self, path, epoch=0, *example_inputs):
+        """Write the deploy files ``path-symbol.json`` and
+        ``path-{epoch:04d}.params`` (reference: HybridBlock.export),
+        loadable by ``SymbolBlock.imports`` and ``mx.mod.Module.load`` of
+        either package.  The input signature is ``example_inputs``, else
+        the last hybridized call's.  The reference's serving manifest
+        (``path-artifact.json``) is not written: it comes with the port of
+        ``serving/artifact.py`` (ROADMAP.md A1.7)."""
+        example = example_inputs or getattr(self, "_last_input_shapes", None)
+        if not example:
+            raise MXNetError(
+                "export needs an input signature: call hybridize() and run a "
+                "forward pass first, or pass example inputs: "
+                "net.export(path, epoch, x)")
+        sym, arg_params, aux_params = self._trace_to_symbol(*example)
+        from ..module.module import save_checkpoint
+
+        save_checkpoint(path, epoch, sym, arg_params, aux_params)
+
+
+class SymbolBlock(HybridBlock):
+    """Run a Symbol graph as a Gluon block (reference: gluon.SymbolBlock,
+    used to reload ``export``ed models).
+
+    The forward interprets the graph with the op table's torch functions
+    (``symbol.evaluate``) through ``ndarray.apply_fn``, so autograd works
+    through it; a training forward writes BatchNorm's moving statistics
+    back into the aux parameters, and ``hybridize()`` caches it as any
+    block (a CUDA graph on the card)."""
+
+    def __init__(self, outputs, inputs, params=None, prefix=None):
+        super().__init__(prefix=prefix or "")
+        from .. import symbol as _sym
+
+        if isinstance(outputs, (list, tuple)):
+            outputs = _sym.Group(outputs)
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        self._sym = outputs
+        self._input_names = [s.name if hasattr(s, "name") else str(s)
+                             for s in inputs]
+        arg_names = outputs.list_arguments()
+        aux_names = outputs.list_auxiliary_states()
+        self._sym_aux_names = list(aux_names)
+        self._sym_param_names = [n for n in arg_names
+                                 if n not in self._input_names] + aux_names
+        for n in self._sym_param_names:
+            grad_req = "null" if n in aux_names else "write"
+            self.params.get(n, grad_req=grad_req, allow_deferred_init=True)
+        if params:
+            for n, v in params.items():
+                key = n.replace("arg:", "").replace("aux:", "")
+                if key in self._sym_param_names:
+                    self._set_symbol_param(key, v, None)
+
+    def _set_symbol_param(self, key, value, ctx):
+        from .. import initializer as _init
+
+        p = self.params.get(key)
+        p.shape = tuple(value.shape)
+        p.dtype = value.dtype
+        p.initialize(init=_init.Zero(), ctx=ctx, force_reinit=False)
+        p.set_data(value)
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock over ``symbol_file`` with the parameters of
+        ``param_file`` on ``ctx`` (default: the current context, the first
+        CUDA card)."""
+        from .. import symbol as _sym
+        from ..ndarray.serialization import load as _load
+
+        sym = _sym.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        inputs = [_sym.var(n) for n in input_names]
+        blk = SymbolBlock(sym, inputs)
+        if param_file is not None:
+            for k, v in _load(param_file, ctx=_cpu()).items():
+                key = k.replace("arg:", "").replace("aux:", "")
+                if key in blk._sym_param_names:
+                    blk._set_symbol_param(key, v, ctx)
+        return blk
+
+    def hybrid_forward(self, F, *args):
+        from ..ndarray.ndarray import apply_fn
+        from ..symbol.symbol import evaluate
+
+        heads = self._sym._heads
+        names = self._input_names + self._sym_param_names
+        pvals = [self.params.get(n).data() for n in self._sym_param_names]
+        training = _ag.is_training()
+        aux_names = self._sym_aux_names
+        collect = training and bool(aux_names)
+
+        def pure(*vals):
+            feed = dict(zip(names, vals))
+            outs, state = evaluate(heads, feed, training=training,
+                                   collect_state=collect)
+            if collect:
+                outs = list(outs) + [state.get(n, feed[n]).detach()
+                                     for n in aux_names]
+            return tuple(outs) if len(outs) != 1 else outs[0]
+
+        out = apply_fn(pure, list(args) + pvals, name="symbol_block")
+        n = len(heads)
+        if not collect:
+            return out
+        main, aux_new = out[:n], out[n:]
+        for name, v in zip(aux_names, aux_new):
+            self._update_running_state(self.params.get(name), v)
+        return main[0] if n == 1 else list(main)

@@ -22,7 +22,7 @@ from . import dispatch_cache as _dispatch_cache
 from .ndarray import NDArray, array, invoke, waitall
 
 __all__ = ["NDArray", "array", "invoke", "waitall", "zeros", "ones", "full",
-           "empty", "arange", "eye", "concat", "stack", "add_n",
+           "empty", "arange", "eye", "concat", "concatenate", "stack", "add_n",
            "zeros_like", "ones_like", "maximum", "minimum", "power", "dot",
            "list_ops", "save", "load", "linalg", "contrib", "image",
            "random", "sparse", "RowSparseNDArray", "CSRNDArray",
@@ -131,6 +131,12 @@ def eye(N, M=0, k=0, ctx=None, dtype="float32"):
 
 def concat(*arrays, dim=1, **kw):
     return invoke("concat", _arrays(arrays), {"dim": dim})
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    """Join a list of arrays along ``axis`` (reference:
+    mx.nd.concatenate; the result is a new array either way)."""
+    return invoke("concat", list(arrays), {"dim": axis})
 
 
 def stack(*arrays, axis=0, **kw):

@@ -31,6 +31,9 @@ _AMP = {"on": False, "wrap": None, "target": None}
 # per-op profiling state, owned by profiler.py ("record": callable(opname,
 # t0, t1) installed while imperative ops are profiled)
 _PROFILE = {"on": False, "record": None}
+# symbolic export tracing (HybridBlock.export): while "on", a call with a
+# SymbolTracer input adds a graph node instead of running (symbol.py)
+_SYMTRACE = {"on": False}
 
 class _CaptureState(threading.local):
     """``block``: the hybridized block whose forward this thread is
@@ -485,6 +488,11 @@ def invoke(opname, nd_args, attrs, out=None, ctx=None):
     dtype through the cast.
     """
     od = get_op(opname)
+    if _SYMTRACE["on"]:
+        from ..symbol.symbol import SymbolTracer, trace_invoke
+
+        if any(isinstance(a, SymbolTracer) for a in nd_args):
+            return trace_invoke(opname, nd_args, attrs, out=out)
     nd_args = [a for a in nd_args if a is not None]
     device = ctx.device if isinstance(ctx, Context) else \
         (torch.device(ctx) if ctx is not None else None)
@@ -536,7 +544,14 @@ def apply_fn(fn, nd_args, name="custom_fn", ctx=None):
     through its inputs and through any recorded tensor ``fn`` closes over
     (a loop body's parameters).  Non-NDArray inputs become tensors on the device of the NDArray
     inputs; the outputs are on ``ctx`` (default: the first NDArray input's
-    context).  ``name`` is the reference's label for the tape node."""
+    context).  ``name`` is the reference's label for the tape node.  An
+    arbitrary ``fn`` has no graph node: under export tracing it raises."""
+    if _SYMTRACE["on"]:
+        from ..symbol.symbol import SymbolTracer
+
+        if any(isinstance(a, SymbolTracer) for a in nd_args):
+            raise MXNetError(f"{name}: a function applied outside the op "
+                             f"table cannot be exported to a Symbol")
     device = next((a._data.device for a in nd_args
                    if isinstance(a, NDArray)), None)
     if device is None:

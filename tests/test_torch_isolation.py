@@ -85,6 +85,11 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import mxnet_tpu_torch.image, mxnet_tpu_torch.native\n"
         "import mxnet_tpu_torch.ndarray.sparse\n"
         "import mxnet_tpu_torch.gluon.data.vision.transforms\n"
+        "import mxnet_tpu_torch.symbol, mxnet_tpu_torch.symbol.contrib\n"
+        "import mxnet_tpu_torch.executor, mxnet_tpu_torch.module\n"
+        "import mxnet_tpu_torch.model, mxnet_tpu_torch.monitor\n"
+        "import mxnet_tpu_torch.visualization, mxnet_tpu_torch.util\n"
+        "import mxnet_tpu_torch.util.test_utils\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'\n"
         "             or m.split('.')[0] == 'mxnet_tpu')\n"
         "print(bad)\n")

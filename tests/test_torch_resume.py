@@ -89,3 +89,23 @@ def test_phase10_checks_catch_a_lost_generator_state(resume_u):
     finally:
         amp.disable()
     assert rec["losses"][1] != u1["losses"][1]
+
+
+def test_phase10_faults_resumed_from_the_host_copy(resume_u, tmp_path):
+    """The whole script resumes (b)'s planted faults from the first
+    restore's host copy instead of the files: that resume is R's bit for
+    bit, and both faults still fail the rule."""
+    (u1, _), (cfg, seq, batch) = resume_u
+    r = chip_smoke.resume_r(cfg, seq, batch, 0, "cpu", str(tmp_path / "ck"))
+    again = chip_smoke.resume_r(cfg, seq, batch, 0, "cpu",
+                                str(tmp_path / "ck"), first=r["first"],
+                                host=r["host"])
+    assert chip_smoke.snapshot_mismatch(again["restored"],
+                                        r["restored"]) is None
+    assert again["losses"] == r["losses"]
+    for planted in ("no_train_state", "scale_reset"):
+        f = chip_smoke.resume_r(cfg, seq, batch, 0, "cpu",
+                                str(tmp_path / "ck"), fault=planted,
+                                first=r["first"], host=r["host"])
+        _, fbad, fsame = chip_smoke.resume_verdict(f, u1, 0.0)
+        assert fbad or not fsame, planted
