@@ -387,6 +387,107 @@ def gpu_line():
 
 
 # ---------------------------------------------------------------------------
+# the processes this script starts
+# ---------------------------------------------------------------------------
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def become_subreaper():
+    """Adopt this process's orphaned descendants (a grandchild whose parent
+    died comes here instead of to init), so that stop_children finds every
+    process the script started."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def descendants():
+    """{pid: (state, command line)} of this process's descendants, read
+    from /proc; zombies included (state "Z")."""
+    tree = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:                     # ended while we looked
+            continue
+        # "pid (comm) state ppid ...": comm may hold spaces and brackets
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        tree.setdefault(int(ppid), []).append((int(name), state))
+    found, todo = {}, [os.getpid()]
+    while todo:
+        for pid, state in tree.get(todo.pop(), ()):
+            if pid not in found:
+                found[pid] = state
+                todo.append(pid)
+    out = {}
+    for pid, state in found.items():
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            cmd = ""
+        out[pid] = (state, cmd.strip()[:200])
+    return out
+
+
+def report_children(label):
+    """Log the processes that still run after ``label`` (multiprocessing's
+    resource tracker stays from phase 12's DataLoader pool to the end)."""
+    left = descendants()
+    if left:
+        log(f"  processes running after {label}: " + "; ".join(
+            f"{pid} ({state}) {cmd}" for pid, (state, cmd) in left.items()))
+
+
+def _reap():
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_children(say=log, grace=10.0):
+    """Stop every process this one started that still runs: the resource
+    tracker by closing its pipe, the rest by SIGTERM and, ``grace`` seconds
+    later, SIGKILL; then reap them.  Returns what was found running."""
+    import gc
+    from multiprocessing import resource_tracker
+
+    gc.collect()         # semaphores of pools no one holds: unlinked now
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+    _reap()
+    left = {pid: v for pid, v in descendants().items() if v[0] != "Z"}
+    for pid, (state, cmd) in left.items():
+        say(f"  stopping process {pid} ({state}), still running at the "
+            f"end: {cmd}")
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in left:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + grace
+        while time.monotonic() < deadline:
+            _reap()
+            if not any(v[0] != "Z" for v in descendants().values()):
+                break
+            time.sleep(0.05)
+        left = {pid: v for pid, v in descendants().items() if v[0] != "Z"}
+        if not left:
+            break
+    _reap()
+    return left
+
+
+# ---------------------------------------------------------------------------
 # phase 3: flash_attn_fwd against its plain version
 # ---------------------------------------------------------------------------
 # (B, Hq, Hkv, Lq, Lk, D, causal, views): views = q/k/v are transposed views
@@ -416,9 +517,12 @@ PATH_SHAPES = {"serving": SERVING_SHAPE, "serve_http": SERVING_SHAPE,
                "gluon_bert_lamb_hybrid": BERT_SHAPE,
                "gluon_bert_dataloader": BERT_SHAPE,
                "gluon_bert_planes": BERT_SHAPE,
-               "symbol_block_bert": BERT_SHAPE}
+               "symbol_block_bert": BERT_SHAPE,
+               "dp_bert_nccl": BERT_SHAPE,
+               "dp_bert_dist_sync": (32, 12, 12, 128, 128, 64, False, True)}
 # each path's attention dtype where it is not bf16
-PATH_DTYPES = {"gluon_bert_resume": RESUME_DTYPE}
+PATH_DTYPES = {"gluon_bert_resume": RESUME_DTYPE,
+               "dp_bert_dist_sync": torch.float32}
 KERNEL_CASES = BUCKET_SHAPES + [PROXY_SHAPE] + [
     (1, 32, 8, 512, 512, 128, False, False),
     (1, 32, 8, 1000, 1000, 128, True, False),     # ragged length
@@ -432,6 +536,7 @@ KERNEL_CASES = BUCKET_SHAPES + [PROXY_SHAPE] + [
     (2, 32, 8, 300, 700, 128, True, True),
     BERT_SHAPE,                                   # BertSelfAttention,
     RESUME_SHAPE,
+    PATH_SHAPES["dp_bert_dist_sync"],             # a dist_sync rank's
     (2, 12, 12, 384, 384, 64, False, False),      # BERT-base heads
     (2, 12, 12, 384, 384, 64, True, True),
     (1, 4, 2, 256, 256, 32, True, False),         # llama_tiny heads
@@ -534,7 +639,8 @@ def kernel_phase(gen):
     by_path = {}
     timed = [(shape, torch.bfloat16) for shape in
              BUCKET_SHAPES + [BERT_SHAPE, PROXY_SHAPE]] + \
-        [(BERT_SHAPE, torch.float16), (RESUME_SHAPE, torch.float16)]
+        [(BERT_SHAPE, torch.float16), (RESUME_SHAPE, torch.float16),
+         (PATH_SHAPES["dp_bert_dist_sync"], torch.float32)]
     for shape, dtype in timed:
         b, hq, hkv, lq, lk, d, causal, _ = shape
         q, k, v = make_qkv(shape, dtype, gen)
@@ -2054,13 +2160,14 @@ def _host(t):
 
 
 def trainstep_result(net, x, y, device, opt=CHECK_OPT, dtype=None,
-                     loss_fn=None, before=None):
+                     loss_fn=None, before=None, keep=False):
     """One SGD TrainStep step of ``net`` on ``device``, in the net's dtype
     or under TrainStep's ``dtype``, with ``loss_fn`` (default softmax
     cross-entropy): (loss, the parameters before, after), in
-    collect_params() order, on the host.  ``before``: the host copy of the
-    weights to return (shared by steps from the same weights, so that a
-    full-width net's weights are held on the host once)."""
+    collect_params() order, on the host (with ``keep``, after stays on
+    ``device``).  ``before``: the copy of the weights to return (shared by
+    steps from the same weights, so that a full-width net's weights are
+    held once)."""
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.parallel import TrainStep
 
@@ -2071,7 +2178,8 @@ def trainstep_result(net, x, y, device, opt=CHECK_OPT, dtype=None,
                      optimizer="sgd", optimizer_params=opt, device=device,
                      dtype=dtype)
     loss = step(x, y).item()
-    return loss, before, [_host(step.params[n]) for n in params]
+    return loss, before, [step.params[n].detach() if keep else
+                          _host(step.params[n]) for n in params]
 
 
 def gluon_loop_result(net, x, y, opt=CHECK_OPT):
@@ -3224,7 +3332,8 @@ def llama_step_check(seed):
 
     def step(model, device, dtype=None):
         return trainstep_result(model, ids, labels, device, LLAMA_CHECK_OPT,
-                                dtype, llama_loss, before)
+                                dtype, llama_loss, before,
+                                keep=device == "cuda")
 
     cpu_net = copy_llama(net, mx.cpu())
     t0 = time.perf_counter()
@@ -3235,6 +3344,12 @@ def llama_step_check(seed):
         f"{time.perf_counter() - t1:.1f} s")
     del cpu_net
     t0 = time.perf_counter()
+    # the checks compare on the card: the weights and the CPU's steps move
+    # there once, and the card's steps stay (each check moved 15 GB of
+    # them from the host before)
+    before = [t.cuda() for t in before]
+    cpu16, cpu64 = ((r[0], before, [t.cuda() for t in r[2]])
+                    for r in (cpu16, cpu64))
     fa_mod._flash_fwd_cuda.launches = 0
     card = step(net, "cuda")
     plain_launches = fa_mod._flash_fwd_cuda.launches
@@ -6394,6 +6509,7 @@ def resume_train(net, trainer, mgr, start, stop, data_seed, cfg, seq, batch,
                                                train_state=state(step))
             if times is not None:
                 times["sync save"] = time.perf_counter() - t0
+                times["write/fsync"] = dict(mgr.last_save_timing)
             raise lifecycle.GracefulExit(lifecycle.stop_reason(), step=step)
         ids, labels = bert_batch(data_seed * 1000 + step, batch, seq,
                                  cfg.vocab_size)
@@ -6937,7 +7053,10 @@ def persistence_phase(seed):
         times = r["times"]
         log(f"  [{gpu_line()}] at BERT-base ({cfg.num_layers} layers, "
             f"LAMB): checkpoint {nbytes} bytes; sync save (the final "
-            f"publish) {times['sync save']:.3f} s; async save's blocking "
+            f"publish) {times['sync save']:.3f} s, of which writing (each "
+            f"file hashed as written) {times['write/fsync']['write_s']:.3f} "
+            f"s and fsync {times['write/fsync']['fsync_s']:.3f} s; async "
+            f"save's blocking "
             f"snapshot {times['snapshot']:.3f} s; sha256 verify "
             f"{verify_s:.3f} s; restore {r['restore_s']:.3f} s")
         torch.cuda.empty_cache()
@@ -10127,6 +10246,507 @@ def bert_step_flops(cfg, batch, seq, attention=True):
     return dense + (att if attention else 0)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: data parallelism across processes
+# ---------------------------------------------------------------------------
+# (a) runs in this process over a one-rank NCCL group (HashStore); (b) and
+# (c) in two processes that share cuda:0, started through the repo's
+# tools/launch.py, over the host-reduced dist_sync store (gloo): NCCL puts
+# no two ranks of one communicator on one device.
+DP_STEPS, DP_TIMED, DP_WARMUP = 3, 10, 2
+DP_ADAM = {"learning_rate": 1e-4, "epsilon": 1e-6}
+DP_SGD = {"learning_rate": 0.1, "momentum": 0.9}
+# the CPU check of (b) and (c) (tests/test_torch_chip_smoke_dist.py):
+# a 2-layer BERT at batch 8 x 16
+DP_TINY = dict(vocab_size=96, hidden_size=64, num_layers=2, num_heads=4,
+               intermediate_size=128, max_position=32, dropout=0.0)
+DP_TINY_BATCH, DP_TINY_SEQ = 8, 16
+# (b): the two-process fp32 steps against the one-process fp32 step at
+# the whole batch differ only by the order of the sums over the batch
+# (two half-batch sums added, against one); with SGD, at most this share
+# of the largest update entry after DP_STEPS steps; with Adam (which
+# divides each entry by its own size, so rounding on near-zero entries
+# moves them by up to lr) the L2 norm of the difference at most this
+# share of the update's
+DP_SGD_BOUND = 1e-3
+DP_ADAM_BOUND = 1e-2
+# (b): each rank's ZeRO optimizer state against (a)'s one-rank state
+DP_ZERO_SHARE = (0.49, 0.51)
+DP_WORKER_TIMEOUT = 420
+
+
+def _dp_steps(net, trainer, ids, labels, steps, world=1):
+    """``steps`` Gluon steps of BertForPretraining: record, the MLM + NSP
+    loss (each a mean over this process's batch), backward,
+    ``trainer.step(world)``: with ``world`` processes the summed gradients
+    are those of the mean over the whole batch.  Returns the losses."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    ctx = next(iter(net.collect_params().values())).data().context
+    mlm, nsp = bert_labels(labels)
+    a = [mx.nd.array(x, ctx=ctx, dtype="int32") for x in (ids, mlm, nsp)]
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+    for _ in range(steps):
+        with autograd.record():
+            m_out, n_out = net(a[0])
+            loss = ce(m_out, a[1]).mean() + ce(n_out, a[2]).mean()
+        loss.backward()
+        trainer.step(world)
+        losses.append(loss)
+    return [float(v.asscalar()) for v in losses]
+
+
+def _host_params(tensors):
+    return [t.detach().to("cpu", torch.float32, copy=True) for t in tensors]
+
+
+def _dp_diff(got, want, init):
+    """(max |got - want| / max |want - init|, the same in L2 norms)."""
+    num_max = max((g - w).abs().max().item() for g, w in zip(got, want))
+    den_max = max((w - i).abs().max().item() for w, i in zip(want, init))
+    num_l2 = math.sqrt(sum(((g - w).double() ** 2).sum().item()
+                           for g, w in zip(got, want)))
+    den_l2 = math.sqrt(sum(((w - i).double() ** 2).sum().item()
+                           for w, i in zip(want, init)))
+    return num_max / den_max, num_l2 / den_l2
+
+
+def _dp_bit_equal(name, runs, other):
+    """(a): a one-rank all-reduce is the identity, so ``other`` must be
+    the plain step bit for bit; ``runs`` (two runs of the plain step)
+    must repeat each other first, or bit equality would mean nothing."""
+    same = [all(torch.equal(a, b) for a, b in zip(runs[0]["params"],
+                                                   r["params"]))
+            for r in (runs[1], other)]
+    log(f"  {name}: the plain step repeats itself bit for bit: {same[0]}; "
+        f"{name} equals it bit for bit: {same[1]}")
+    check(all(same), f"{name} at world size 1 is not the plain step")
+
+
+def dp_nccl_phase(seed, cfg, ids, labels, bert_samples_s):
+    """Phase 15 (a): world size 1 over a real NCCL communicator (this
+    process is rank 0 of a one-rank group the caller made).  BERT-base at
+    64 x 128 bf16: TrainStep(mesh=make_mesh()) against TrainStep, and
+    Trainer over dist_device_sync (the per-key sharded Adam) and under
+    MXNET_ZERO=1 (the bucket engine) against Trainer without a store.  A
+    one-rank all-reduce is the identity, so each equals its plain step bit
+    for bit (the plain step is run twice to show it repeats itself).
+    Returns (flash_attn_fwd's launches on the mesh
+    path, the ZeRO state bytes)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+    from mxnet_tpu_torch.parallel import TrainStep, collectives, make_mesh
+
+    ids_t = torch.from_numpy(ids).cuda()
+    labels_t = torch.from_numpy(labels).cuda()
+    n_layers = cfg.num_layers
+
+    def trainstep(mesh, timed=True):
+        net = init_bert(cfg, seed, mx.gpu(0))
+        step = TrainStep(net, bert_loss, optimizer="adam",
+                         optimizer_params=BERT_OPT, dtype="bfloat16",
+                         mesh=mesh)
+        # the net's own order (train_params' follows the names, whose
+        # block counters differ between nets)
+        order = [n for n in net.collect_params() if n in step.train_params]
+        fa_mod._flash_fwd_cuda.launches = 0
+        collectives.reset_issued()
+        losses = [step(ids_t, labels_t) for _ in range(DP_STEPS)]
+        torch.cuda.synchronize()
+        params = _host_params(step.train_params[n] for n in order)
+        out = {"losses": [v.item() for v in losses], "params": params,
+               "launches": fa_mod._flash_fwd_cuda.launches,
+               "issued": collectives.issued()}
+        if not timed:              # the repeat of the plain step
+            del step, net
+            torch.cuda.empty_cache()
+            return out
+        for _ in range(DP_WARMUP):
+            step(ids_t, labels_t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED):
+            step(ids_t, labels_t)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        samples_s = BERT_BATCH * DP_TIMED / dt
+        log(f"  {'TrainStep(mesh=)' if mesh else 'TrainStep'}'s profile:")
+        log_device_profile(lambda: [step(ids_t, labels_t) for _ in range(3)],
+                           BERT_KERNEL_GROUPS, n_top=6, steps=3,
+                           step_ms=1e3 * dt / DP_TIMED)
+        out.update(samples_s=samples_s,
+                   launches=fa_mod._flash_fwd_cuda.launches,
+                   issued=collectives.issued())
+        del step, net
+        torch.cuda.empty_cache()
+        return out
+
+    log("== distributed (a): world size 1 over NCCL, BERT-base 64 x 128 "
+        "bf16, dropout 0")
+    base = [trainstep(None), trainstep(None, timed=False)]
+    mesh = trainstep(make_mesh())
+    n_steps = DP_STEPS + DP_WARMUP + DP_TIMED + 3
+    for name, run in (("TrainStep", base[0]), ("TrainStep(mesh=)", mesh)):
+        log(f"  {name}: losses {' '.join(f'{v:.5f}' for v in run['losses'])}"
+            f"; [{gpu_line()}] {run['samples_s']:.1f} samples/s over "
+            f"{DP_TIMED} steps; flash_attn_fwd launches {run['launches']}; "
+            f"collectives {run['issued']}")
+    log(f"  phase 6's TrainStep at the same configuration: "
+        f"{bert_samples_s:.1f} samples/s")
+    # what the mesh step adds: its all-reduce of the gradients, timed
+    # alone at their size (one flat fp32 buffer) on the one-rank group
+    n_grad = sum(t.numel() for t in mesh["params"])
+    flat = torch.ones(n_grad, device="cuda")
+    ms = cuda_time_ms(lambda: collectives.psum_(flat, ("dp", "fsdp"),
+                                                make_mesh()), iters=10)
+    log(f"  [{gpu_line()}] one-rank NCCL all-reduce of the "
+        f"{4 * n_grad / 1e6:.1f} MB of gradients: {ms:.3f} ms "
+        f"({4 * n_grad / ms / 1e6:.1f} GB/s)")
+    del flat
+    _dp_bit_equal("TrainStep(mesh=)", base, mesh)
+    check(mesh["launches"] == n_layers * n_steps,
+          f"flash_attn_fwd launched {mesh['launches']} times on the mesh "
+          f"path, expected {n_layers * n_steps}")
+    check(mesh["issued"].get("psum", 0) > 0 and not base[0]["issued"],
+          f"the mesh step issued no collective: {mesh['issued']}")
+
+    def trainer_run(kvstore, zero, update_on_kvstore=None):
+        os.environ["MXNET_ZERO"] = "1" if zero else "0"
+        net = init_bert(cfg, seed, mx.gpu(0))
+        tr = gluon.Trainer(net.collect_params(), "adam", dict(BERT_OPT),
+                           kvstore=kvstore,
+                           update_on_kvstore=update_on_kvstore)
+        collectives.reset_issued()
+        amp.init("bfloat16")
+        try:
+            losses = _dp_steps(net, tr, ids, labels, DP_STEPS)
+        finally:
+            amp.disable()
+            os.environ.pop("MXNET_ZERO", None)
+        out = {"losses": losses, "issued": collectives.issued(),
+               "params": _host_params(p.data()._data for p in
+                                      net.collect_params().values()
+                                      if p.grad_req != "null"),
+               "zero_bytes": tr._zero.state_bytes() if tr._zero else 0}
+        del tr, net
+        torch.cuda.empty_cache()
+        return out
+
+    plain = [trainer_run(None, False) for _ in range(2)]
+    sharded = trainer_run("dist_device_sync", False)
+    zero = trainer_run("dist_device_sync", True, update_on_kvstore=False)
+    for name, run in (("Trainer", plain[0]),
+                      ("Trainer(kvstore='dist_device_sync')", sharded),
+                      ("the same, MXNET_ZERO=1", zero)):
+        log(f"  {name}: losses {' '.join(f'{v:.5f}' for v in run['losses'])}"
+            f"; collectives {run['issued']}")
+    for name, run in (("Trainer(kvstore='dist_device_sync')", sharded),
+                      ("Trainer under MXNET_ZERO=1", zero)):
+        _dp_bit_equal(name, plain, run)
+    check(sharded["issued"].get("reduce_scatter", 0) > 0 and
+          zero["issued"].get("reduce_scatter", 0) > 0,
+          "a store's run issued no reduce-scatter")
+    log(f"  ZeRO optimizer state at world size 1: "
+        f"{zero['zero_bytes'] / 2**20:.1f} MiB")
+    return mesh["launches"], zero["zero_bytes"]
+
+
+def dp_worker_main(args):
+    """A rank of phase 15 (b) and (c), started by tools/launch.py: joins
+    the group from the launcher's environment (both ranks on cuda:0,
+    reducing through gloo), trains BERT-base fp32 on its half of the
+    batch through Trainer(kvstore="dist_sync"): SGD updated on the store
+    (per key) and in the Trainer's flat buckets, Adam under MXNET_ZERO=1,
+    and the per-key and ZeRO runs again with a planted fault (rank 1
+    trains on rank 0's half); then runs the agreements.  Writes
+    rank<N>.json (and, on rank 0, the parameters) to --dp-dir."""
+    import zlib
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, lifecycle, nd
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.contrib.nn import SyncBatchNorm
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+    from mxnet_tpu_torch.parallel import collectives, distributed
+
+    tiny = args.dp_tiny
+    check(distributed.init(local_device_ids=[0],
+                           device="cpu" if tiny else None),
+          "distributed.init did not join a group")
+    rank, world = collectives.rank(), collectives.world_size()
+    out_dir = args.dp_dir
+    cfg = bert.BertConfig(**DP_TINY) if tiny else bert.BertConfig(dropout=0.0)
+    batch, seq = (DP_TINY_BATCH, DP_TINY_SEQ) if tiny else \
+        (BERT_BATCH, BERT_SEQ)
+    ids, labels = bert_batch(args.seed, batch, seq, cfg.vocab_size)
+    per = batch // world
+    ctx = mx.cpu() if tiny else mx.gpu(0)
+    res = {"rank": rank, "world": world}
+
+    def run(name, optimizer, opt, zero=False, bucketed=False, fault=False):
+        os.environ["MXNET_ZERO"] = "1" if zero else "0"
+        net = init_bert(cfg, args.seed, ctx, seq)
+        net.load_parameters(os.path.join(out_dir, "init.params"), ctx=ctx)
+        # update on the store (dist_sync's default: per-key
+        # reduce-scatter, update, all-gather), or reduce the gradients in
+        # the Trainer's flat buckets (bucketed, and ZeRO's buckets)
+        tr = gluon.Trainer(net.collect_params(), optimizer, dict(opt),
+                           kvstore="dist_sync",
+                           update_on_kvstore=False if zero or bucketed
+                           else None)
+        src = 0 if fault else rank
+        rows = slice(src * per, (src + 1) * per)
+        fa_mod._flash_fwd_cuda.launches = 0
+        collectives.reset_issued()
+        t0 = time.perf_counter()
+        losses = _dp_steps(net, tr, ids[rows], labels[rows], DP_STEPS, world)
+        if not tiny:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        params = _host_params(p.data()._data for p in
+                              net.collect_params().values())
+        crc = 0
+        for p in params:
+            crc = zlib.crc32(p.numpy().tobytes(), crc)
+        if rank == 0:
+            torch.save(params, os.path.join(out_dir, f"{name}.pt"))
+        res[name] = {"losses": losses, "crc": crc, "seconds": dt,
+                     "launches": fa_mod._flash_fwd_cuda.launches,
+                     "issued": collectives.issued(),
+                     "zero_bytes": tr._zero.state_bytes() if tr._zero
+                     else 0}
+        os.environ.pop("MXNET_ZERO", None)
+        del tr, net
+        if not tiny:
+            torch.cuda.empty_cache()
+        collectives.barrier()
+
+    run("sgd", "sgd", DP_SGD)
+    run("sgd_fault", "sgd", DP_SGD, fault=True)
+    run("sgd_bucketed", "sgd", DP_SGD, bucketed=True)
+    run("zero_adam", "adam", DP_ADAM, zero=True)
+    run("zero_adam_fault", "adam", DP_ADAM, zero=True, fault=True)
+
+    # (c) the agreements across the two ranks
+    lifecycle.reset()
+    lifecycle.coordinate_stops(True)
+    left = None
+    for step in range(8):
+        if rank == 1 and step == 2:
+            lifecycle.request_stop("planted on rank 1")
+        if lifecycle.check_stop():
+            left = step
+            break
+        collectives.allreduce_hosts(np.ones(1, "f"))    # the step's work
+    res["stop_step"] = left
+    lifecycle.reset()
+
+    small = gluon.nn.Dense(4, in_units=8)
+    small.initialize(mx.init.Xavier(), ctx=ctx)
+    rs = np.random.RandomState(args.seed)
+    for p in small.collect_params().values():
+        p.set_data(nd.array(rs.randn(*p.shape).astype("f"), ctx=ctx))
+    before = [p.data().asnumpy() for p in small.collect_params().values()]
+    tr = gluon.Trainer(small.collect_params(), "sgd",
+                       {"learning_rate": 0.1}, kvstore="dist_sync",
+                       update_on_kvstore=False)
+    amp.init("float16", target_dtype_ops=[], fp32_ops=[])
+    try:
+        amp.init_trainer(tr)
+        x = nd.array(rs.randn(4, 8).astype("f"), ctx=ctx)
+        with autograd.record():
+            loss = (small(x) ** 2).sum()
+        loss.backward()
+        if rank == 1:
+            small.weight.grad()._data[0, 0] = float("inf")
+        tr.step(8)
+        res["overflow_skipped"] = all(
+            np.array_equal(b, p.data().asnumpy()) for b, p in
+            zip(before, small.collect_params().values()))
+        res["loss_scale"] = tr._amp_loss_scaler.loss_scale
+    finally:
+        amp.disable()
+
+    xg = rs.randn(8, 4, 3, 3).astype("f")
+    bn = SyncBatchNorm(in_channels=4)
+    bn.initialize(ctx=ctx)
+    xs = nd.array(xg[rank * 4:(rank + 1) * 4], ctx=ctx)
+    with autograd.record():
+        bn(xs)
+    res["sync_bn_err"] = max(
+        float(np.abs(bn.running_mean.data().asnumpy()
+                     - 0.1 * xg.mean(axis=(0, 2, 3))).max()),
+        float(np.abs(bn.running_var.data().asnumpy()
+                     - (0.9 + 0.1 * xg.var(axis=(0, 2, 3)))).max()))
+
+    ckpt = os.path.join(out_dir, "ckpt")
+    mgr = CheckpointManager(ckpt, max_to_keep=2)
+    mgr.save(1, small, tr)
+    res["ckpt_listing"] = sorted(os.listdir(ckpt))
+    res["ckpt_wrote"] = hasattr(mgr, "last_save_timing")
+    other = gluon.Trainer(small.collect_params(), "sgd",
+                          {"learning_rate": 0.1}, kvstore="dist_sync",
+                          update_on_kvstore=False)
+    res["ckpt_restored"] = mgr.restore(small, other)
+    collectives.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def dp_two_process_phase(seed, cfg, ids, labels, zero_bytes_1, tiny=False):
+    """Phase 15 (b) and (c): two processes sharing cuda:0 through
+    ``tools/launch.py -n 2`` and the dist_sync store, held against this
+    process's one-rank fp32 steps at the whole batch.  Returns
+    flash_attn_fwd's launches on rank 0's dist_sync run.  ``tiny`` runs
+    the same on the CPU at DP_TINY (the ranks too), where no kernel
+    launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    batch, seq = ids.shape
+    ctx = mx.cpu() if tiny else mx.gpu(0)
+    log("== distributed (b): two processes on cuda:0 through "
+        "tools/launch.py -n 2, Trainer(kvstore='dist_sync'), BERT-base "
+        f"fp32, {batch // 2} x {seq} a rank")
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="mxnet_dp_")
+    try:
+        net = init_bert(cfg, seed, ctx, seq)
+        net.save_parameters(os.path.join(work, "init.params"))
+        init = _host_params(p.data()._data for p in
+                            net.collect_params().values())
+        del net
+
+        def one_rank(optimizer, opt):
+            net = init_bert(cfg, seed, ctx, seq)
+            net.load_parameters(os.path.join(work, "init.params"),
+                                ctx=ctx)
+            tr = gluon.Trainer(net.collect_params(), optimizer, dict(opt),
+                               kvstore=None)
+            losses = _dp_steps(net, tr, ids, labels, DP_STEPS)
+            params = _host_params(p.data()._data for p in
+                                  net.collect_params().values())
+            del tr, net
+            return losses, params
+
+        t0 = time.perf_counter()
+        want = {"sgd": one_rank("sgd", DP_SGD),
+                "zero_adam": one_rank("adam", DP_ADAM)}
+        log(f"  the one-rank fp32 steps at {batch} x {seq}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cmd = [sys.executable, os.path.join(here, "tools", "launch.py"),
+               "-n", "2", "--launcher", "local", "--",
+               sys.executable, os.path.join(here, "chip_smoke.py"),
+               "--dp-worker", "--dp-dir", work, "--seed", str(seed)] + \
+            (["--dp-tiny"] if tiny else [])
+        env = dict(os.environ, PYTHONPATH=here)
+        proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                              text=True, timeout=DP_WORKER_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            log(proc.stdout[-6000:])
+            log(proc.stderr[-6000:])
+        check(proc.returncode == 0,
+              f"the two dist_sync ranks exited {proc.returncode}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        log(f"  the two ranks ran in {wall:.1f} s (start-up included)")
+        for name in ("sgd", "sgd_fault", "sgd_bucketed", "zero_adam",
+                     "zero_adam_fault"):
+            got = torch.load(os.path.join(work, f"{name}.pt"))
+            key = "zero_adam" if name.startswith("zero_adam") else "sgd"
+            losses, ref = want[key]
+            r_max, r_l2 = _dp_diff(got, ref, init)
+            same = ranks[0][name]["crc"] == ranks[1][name]["crc"]
+            log(f"  {name}: rank losses {ranks[0][name]['losses']} / "
+                f"{ranks[1][name]['losses']}, one rank {losses}; |diff| / "
+                f"|update|: max {r_max:.3e}, L2 {r_l2:.3e}; ranks bit-equal "
+                f"{same}; {ranks[0][name]['seconds']:.2f} s for "
+                f"{DP_STEPS} steps; collectives {ranks[0][name]['issued']}")
+            if name in ("sgd", "sgd_bucketed"):
+                check(same and r_max <= DP_SGD_BOUND,
+                      f"two-rank dist_sync SGD ({name}) off the one-rank "
+                      f"step: {r_max:.3e} > {DP_SGD_BOUND:g}")
+            elif name == "sgd_fault":
+                check(r_max > DP_SGD_BOUND,
+                      f"the planted data fault passes the per-key SGD "
+                      f"bound: {r_max:.3e}")
+            elif name == "zero_adam":
+                check(same and r_l2 <= DP_ADAM_BOUND,
+                      f"two-rank ZeRO Adam off the one-rank step: "
+                      f"{r_l2:.3e} > {DP_ADAM_BOUND:g}")
+            else:
+                check(r_l2 > DP_ADAM_BOUND,
+                      f"the planted data fault passes the ZeRO Adam "
+                      f"bound: {r_l2:.3e}")
+        shares = [r["zero_adam"]["zero_bytes"] / zero_bytes_1 for r in ranks]
+        log(f"  ZeRO optimizer state a rank: "
+            f"{[r['zero_adam']['zero_bytes'] / 2**20 for r in ranks]} MiB, "
+            f"{shares} of world size 1's")
+        check(all(DP_ZERO_SHARE[0] <= s <= DP_ZERO_SHARE[1]
+                  for s in shares), f"ZeRO state shares {shares}")
+        launches = ranks[0]["sgd"]["launches"]
+        check(tiny or launches == cfg.num_layers * DP_STEPS,
+              f"flash_attn_fwd launched {launches} times on a dist_sync "
+              f"rank, expected {cfg.num_layers * DP_STEPS}")
+
+        log("== distributed (c): the agreements across the two ranks")
+        for r in ranks:
+            log(f"  rank {r['rank']}: stop at step {r['stop_step']}, "
+                f"overflow skipped {r['overflow_skipped']} (scale "
+                f"{r['loss_scale']:g}), SyncBatchNorm stats vs the global "
+                f"batch {r['sync_bn_err']:.2e}, checkpoint listing "
+                f"{r['ckpt_listing']} (wrote: {r['ckpt_wrote']}), "
+                f"restored step {r['ckpt_restored']}")
+        check([r["stop_step"] for r in ranks] == [2, 2],
+              "a stop on rank 1 did not end both ranks at step 2")
+        check(all(r["overflow_skipped"] for r in ranks) and
+              len({r["loss_scale"] for r in ranks}) == 1,
+              "an overflow on rank 1 did not make both ranks skip")
+        check(all(r["sync_bn_err"] <= 1e-5 for r in ranks),
+              "SyncBatchNorm's statistics are not the global batch's")
+        check([r["ckpt_wrote"] for r in ranks] == [True, False] and
+              all(r["ckpt_listing"] == ["step_00000001"] and
+                  r["ckpt_restored"] == 1 for r in ranks),
+              "the checkpoint was not published once by one writer")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def distributed_phase(seed, bert_samples_s):
+    """Phase 15; returns flash_attn_fwd's launches by path."""
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert
+
+    cfg = bert.BertConfig(dropout=0.0)
+    ids, labels = bert_batch(seed, BERT_BATCH, BERT_SEQ, cfg.vocab_size)
+    # init() is a no-op for one process, as the reference's: the one-rank
+    # group over a real NCCL communicator is made here
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(),
+                            rank=0, world_size=1)
+    try:
+        launches_nccl, zero_bytes = dp_nccl_phase(seed, cfg, ids, labels,
+                                                  bert_samples_s)
+        launches_sync = dp_two_process_phase(seed, cfg, ids, labels,
+                                             zero_bytes)
+    finally:
+        dist.destroy_process_group()
+    return {"dp_bert_nccl": launches_nccl,
+            "dp_bert_dist_sync": launches_sync}
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -10172,6 +10792,17 @@ def parse_args(argv=None):
                         help="run only the build and phase 14, the "
                              "symbolic half (export, SymbolBlock, Module, "
                              "test_utils)")
+    parser.add_argument("--distributed", action="store_true",
+                        help="run only the build and phase 15, data "
+                             "parallelism across processes")
+    parser.add_argument("--dp-worker", action="store_true",
+                        help="a rank of phase 15 (b): started by "
+                             "tools/launch.py")
+    parser.add_argument("--dp-dir", metavar="PATH",
+                        help="with --dp-worker: the shared work directory")
+    parser.add_argument("--dp-tiny", action="store_true",
+                        help="with --dp-worker: a 2-layer BERT on the CPU "
+                             "(the CPU test of phase 15)")
     parser.add_argument("--watchdog-worker", action="store_true",
                         help="run the BERT recipe with the stall watchdog "
                              "and arm its seam: a child of phase 13 (d)")
@@ -10199,6 +10830,8 @@ def parse_args(argv=None):
 
 def main():
     args = parse_args()
+    if args.dp_worker and args.dp_tiny:
+        return dp_worker_main(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the "
               "card", file=sys.stderr)
@@ -10212,6 +10845,8 @@ def main():
         return watchdog_worker_main(args)
     if args.tune_replay:
         return tune_replay_main(args)
+    if args.dp_worker:
+        return dp_worker_main(args)
     from mxnet_tpu_torch import _kernels
 
     if args.nvcc_seconds:
@@ -10340,6 +10975,14 @@ def main():
         log(f"== done in {time.perf_counter() - t_all:.1f} s")
         return 0
 
+    if args.distributed:
+        log("== data parallelism across processes (phase 15 alone)")
+        launches = distributed_phase(args.seed, float("nan"))
+        for path, n in launches.items():
+            check(n > 0, f"flash_attn_fwd never ran on the {path} path")
+        log(f"== done in {time.perf_counter() - t_all:.1f} s")
+        return 0
+
     if args.frontend:
         log("== the Gluon frontend (phase 11 alone)")
         n = frontend_phase(args.seed)
@@ -10361,6 +11004,7 @@ def main():
     t0 = time.perf_counter()
     row = kernel_phase(gen)
     log(f"  kernel phase took {time.perf_counter() - t0:.1f} s")
+    report_children("the kernel phase")
 
     # the kernel's launches on each path, each counted from zero over the
     # path's run; this slice's main path is the serving fleet (4c)
@@ -10373,24 +11017,28 @@ def main():
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     log(f"  serving phase took {t1 - t0:.1f} s")
+    report_children("the serving phase")
 
     log("== training: ResNet-50 v1 widths")
     resnet_img_s = training_phase(args.seed)
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
     log(f"  resnet phase took {t2 - t1:.1f} s")
+    report_children("the resnet phase")
 
     log("== transformer training: BERT-base widths")
     launches["bert_train"], bert_samples_s = bert_phase(args.seed)
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
     log(f"  bert phase took {t3 - t2:.1f} s")
+    report_children("the bert phase")
 
     log("== Llama training: Llama-3-8B widths")
     launches.update(llama_phase(args.seed))
     torch.cuda.empty_cache()
     t4 = time.perf_counter()
     log(f"  llama phase took {t4 - t3:.1f} s")
+    report_children("the llama phase")
 
     log("== the mx.nd op table: every definition, the LSTM LM, the "
         "samplers, the detection chains")
@@ -10399,6 +11047,7 @@ def main():
                            f"the op table")
     t5 = time.perf_counter()
     log(f"  op table phase took {t5 - t4:.1f} s")
+    report_children("the op table phase")
 
     log("== the Gluon training surface: every optimizer, GluonNLP's BERT "
         "and GluonCV's ResNet-50 recipes through gluon.Trainer")
@@ -10407,6 +11056,7 @@ def main():
     torch.cuda.empty_cache()
     t6 = time.perf_counter()
     log(f"  gluon train phase took {t6 - t5:.1f} s")
+    report_children("the gluon train phase")
 
     log("== persistence and preemption: nd.save/load on the card, the fp16 "
         "BERT-base recipe checkpointed, preempted and resumed, "
@@ -10415,6 +11065,7 @@ def main():
     torch.cuda.empty_cache()
     t7 = time.perf_counter()
     log(f"  persistence phase took {t7 - t6:.1f} s")
+    report_children("the persistence phase")
 
     log("== the Gluon frontend: autograd.grad / Function / control flow, "
         "the vision zoo, gluon.rnn and the BERT recipe hybridized as CUDA "
@@ -10423,6 +11074,7 @@ def main():
     torch.cuda.empty_cache()
     t8 = time.perf_counter()
     log(f"  frontend phase took {t8 - t7:.1f} s")
+    report_children("the frontend phase")
 
     log("== the data path: LibSVM -> CSR -> a factorization machine, "
         "RecordIO -> ImageRecordIter -> ResNet-50, DataLoader process "
@@ -10431,6 +11083,7 @@ def main():
     torch.cuda.empty_cache()
     t9 = time.perf_counter()
     log(f"  data phase took {t9 - t8:.1f} s")
+    report_children("the data phase")
 
     log("== the runtime planes: mx.profiler over torch.profiler, FLOPs and "
         "the MFU gauge, the guard, the watchdog, the tiles as tuning knobs, "
@@ -10438,6 +11091,7 @@ def main():
     launches["gluon_bert_planes"], tiles = planes_phase(args.seed, gen,
                                                         tile_checks=False)
     row.update(tiles)
+    report_children("the planes phase")
     torch.cuda.empty_cache()
     t10 = time.perf_counter()
 
@@ -10445,7 +11099,17 @@ def main():
         "kernel, ResNet-50 through mx.mod.Module, check_consistency")
     launches["symbol_block_bert"] = symbolic_phase(args.seed, resnet_img_s)
     torch.cuda.empty_cache()
-    log(f"  symbolic phase took {time.perf_counter() - t10:.1f} s")
+    t11 = time.perf_counter()
+    log(f"  symbolic phase took {t11 - t10:.1f} s")
+    report_children("the symbolic phase")
+
+    log("== data parallelism across processes: TrainStep(mesh=) and the "
+        "KVStore over a one-rank NCCL group, two processes through "
+        "tools/launch.py and dist_sync, the agreements")
+    launches.update(distributed_phase(args.seed, bert_samples_s))
+    torch.cuda.empty_cache()
+    log(f"  distributed phase took {time.perf_counter() - t11:.1f} s")
+    report_children("the distributed phase")
     for path, n in launches.items():
         check(n > 0, f"flash_attn_fwd never ran on the {path} path")
         row["by_path"][path]["launches"] = n
@@ -10455,6 +11119,8 @@ def main():
         "launches": n_op_table}
     row["launches"] = launches["serve_fleet"]
 
+    left = stop_children()
+    check(not left, f"processes that outlived SIGKILL: {left}")
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(gpu_line())
     print(json.dumps({"kernels": [row]}))
@@ -10465,4 +11131,9 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    become_subreaper()
+    try:
+        rc = main()
+    finally:
+        stop_children(say=lambda m: print(m, file=sys.stderr, flush=True))
+    sys.exit(rc)

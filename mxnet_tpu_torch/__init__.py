@@ -34,7 +34,11 @@ flash-attention kernel's tiles are knobs).  The symbolic half:
 reference's JSON), the ``Executor``, ``HybridBlock.export`` and
 ``gluon.SymbolBlock.imports`` (deploy files that cross between the two
 packages), ``mx.mod`` (``Module``, ``BucketingModule``), ``mx.model``,
-``mx.mon``, ``mx.viz`` and ``mx.test_utils``.  The package imports ``torch``
+``mx.mon``, ``mx.viz`` and ``mx.test_utils``.  Data parallelism across
+processes: ``mx.kv`` (every KVStore type), ``parallel.distributed.init``
+over ``torch.distributed``, ``parallel.collectives``, ``Trainer`` over a
+KVStore with bucketed all-reduce and ZeRO-1, and ``TrainStep(mesh=)``.
+The package imports ``torch``
 and numpy, never ``jax`` and nothing of ``mxnet_tpu``.
 """
 from __future__ import annotations
@@ -48,6 +52,9 @@ from .context import (Context, cpu, cpu_pinned, current_context, gpu,
                       num_gpus, num_tpus, resolve_device, tpu)
 from . import contrib, gluon, lr_scheduler, metric, optimizer  # noqa: E402
 from . import parallel  # noqa: E402
+from . import kvstore  # noqa: E402
+from . import kvstore as kv  # noqa: E402
+from .ndarray import NDArray  # noqa: E402
 from . import env, fault, flight_recorder, lifecycle, telemetry  # noqa: E402
 from . import callback, checkpoint  # noqa: E402
 from . import image, io, native, recordio  # noqa: E402
@@ -68,7 +75,7 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "current_context", "num_gpus", "num_tpus", "context",
            "resolve_device", "nd", "ndarray", "autograd", "init",
            "initializer", "random", "gluon", "optimizer", "lr_scheduler",
-           "metric", "parallel",
+           "metric", "parallel", "kv", "kvstore", "NDArray",
            "contrib", "env", "fault", "telemetry", "flight_recorder",
            "lifecycle", "checkpoint", "callback", "io", "recordio",
            "image", "native", "profiler", "introspection", "guard",

@@ -25,15 +25,18 @@ Fault seams ``checkpoint.write``, ``checkpoint.fsync`` and
 restore histograms, the save, restore and restart counters, and the
 in-flight gauge.
 
-One process only.  A job of several processes (one writer, a barrier at
-publish) waits for the port's collectives: the manager raises when
-``torch.distributed`` runs more than one process, and ``_launcher_rank``
-only decides which process sweeps staging directories.  A failure from
+A job of several processes has one writer: every process calls ``save``
+at the same point of its loop, the trainer's states are taken on every
+process (a ZeRO payload is gathered from all of them), process 0 alone
+writes and publishes, and every process meets in a barrier at publish, so
+no process runs past a checkpoint that does not exist yet.  Each file is
+hashed as it is written (no read-back); ``last_save_timing`` holds the
+write and fsync seconds of the newest publish apart.  A failure from
 the numerical-integrity guard (``guard.GuardRewind``,
 ``guard.NumericalDivergence``) is a rewind: its downtime goes to the
 ``rewind`` goodput bucket, every other failure's to ``restart``.  Not
-ported yet: ``resharder=`` (live resharding, with the multi-GPU slice;
-anything but None raises) and the ``compile_cache`` beside the
+ported yet: ``resharder=`` (live resharding, with the second multi-GPU
+slice; anything but None raises) and the ``compile_cache`` beside the
 checkpoints.
 """
 from __future__ import annotations
@@ -116,11 +119,37 @@ def _stat_sig(path):
     return (st.st_size, st.st_mtime_ns)
 
 
-def _single_process(what):
-    if world_size() > 1:
-        raise MXNetError(f"CheckpointManager.{what}: checkpoints of a job of "
-                         f"several processes wait for the port's "
-                         f"collectives (one writer, a barrier at publish)")
+class _HashingWriter:
+    """A binary file that hashes (sha256) and counts what is written to
+    it, so a checkpoint's sums need no read-back."""
+
+    def __init__(self, path):
+        self._f = open(path, "wb")
+        self._h = hashlib.sha256()
+        self.size = 0
+
+    def write(self, data):
+        self._h.update(data)
+        self.size += len(data)
+        return self._f.write(data)
+
+    def close(self):
+        self._f.close()
+
+    def hexdigest(self):
+        return self._h.hexdigest()
+
+
+def _rank():
+    from .parallel.collectives import rank
+
+    return rank()
+
+
+def _barrier():
+    from .parallel.collectives import barrier
+
+    barrier()
 
 
 class CheckpointManager:
@@ -246,29 +275,37 @@ class CheckpointManager:
         return None
 
     # -- save / restore ----------------------------------------------------
-    def _write_step(self, step, write_payloads, extra):
+    def _write_step(self, step, writers, extra):
         """Stage, checksum, fsync and publish checkpoint ``step`` (the same
-        for the sync and async paths): ``write_payloads(tmp_dir)`` writes
-        the payload files."""
+        for the sync and async paths): ``writers`` maps each payload file
+        name to a function that writes it to a file object, which hashes
+        the bytes as they pass."""
         final = self._step_dir(step)
         telemetry.heartbeat()
         tmp = tempfile.mkdtemp(prefix=f"{_TMP_PREFIX}{step}_",
                                dir=self.directory)
         try:
             fault.check("checkpoint.write")
-            write_payloads(tmp)
+            t0 = time.perf_counter()
+            sums = {}
+            for name, write in writers.items():
+                f = _HashingWriter(os.path.join(tmp, name))
+                try:
+                    write(f)
+                finally:
+                    f.close()
+                sums[name] = {"sha256": f.hexdigest(), "size": f.size}
+            t_write = time.perf_counter() - t0
             telemetry.heartbeat()
             meta = {"step": int(step), "time": time.time()}
             if extra:
                 meta["extra"] = extra
-            meta["files"] = {
-                name: {"sha256": _sha256(os.path.join(tmp, name)),
-                       "size": os.path.getsize(os.path.join(tmp, name))}
-                for name in os.listdir(tmp) if name not in _UNSUMMED}
+            meta["files"] = sums
             with open(os.path.join(tmp, "meta.json"), "w") as f:
                 json.dump(meta, f)
             # every file reaches the disk before the commit marker exists,
             # and the marker and the entries before the publish rename
+            t0 = time.perf_counter()
             for name in os.listdir(tmp):
                 _fsync_file(os.path.join(tmp, name))
             with open(os.path.join(tmp, "COMMITTED"), "w") as f:
@@ -276,6 +313,7 @@ class CheckpointManager:
                 f.flush()
                 os.fsync(f.fileno())
             _fsync_dir(tmp)
+            t_fsync = time.perf_counter() - t0
             fault.check("checkpoint.publish")
             if os.path.exists(final):
                 shutil.rmtree(final)
@@ -286,6 +324,9 @@ class CheckpointManager:
         except Exception:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
+        self.last_save_timing = {
+            "write_s": t_write, "fsync_s": t_fsync,
+            "bytes": sum(v["size"] for v in sums.values())}
         self._gc()
         return final
 
@@ -304,28 +345,32 @@ class CheckpointManager:
         The next ``save``, ``close()`` or ``restore()`` joins it, and a
         failed background write surfaces there (its step was never
         published).  Credit progress from ``latest_valid_step()``."""
-        _single_process("save")
         if async_ is None:
             async_ = _env.checkpoint_async_default()
-        self._join_pending()
+        # a failed background write surfaces here in one process; with
+        # several only the writer has one, and raising there alone would
+        # strand the others in the barrier below: log it instead
+        self._join_pending(raise_=world_size() == 1)
+        primary = _rank() == 0
+        final = self._step_dir(step)
         t0 = time.perf_counter()
         # serialised now in both paths: the caller may change its dicts
         # (the RNG state, a loader's position) right after
         ts_blob = None if train_state is None else \
             json.dumps(train_state).encode()
         if not async_:
-            def write_payloads(tmp):
-                if net is not None:
-                    net.save_parameters(os.path.join(tmp, "model.params"))
-                if trainer is not None:
-                    trainer.save_states(os.path.join(tmp, "trainer.states"))
-                if ts_blob is not None:
-                    with open(os.path.join(tmp, "train_state.json"),
-                              "wb") as f:
-                        f.write(ts_blob)
-
             with telemetry.phase("checkpoint"):
-                final = self._write_step(step, write_payloads, extra)
+                try:
+                    # every process takes the states (a ZeRO payload is
+                    # gathered from all of them); process 0 writes
+                    writers = self._payload_writers(net, trainer, ts_blob,
+                                                    primary, snapshot=False)
+                    if primary:
+                        self._write_step(step, writers, extra)
+                finally:
+                    # every process reaches the barrier, even when the
+                    # writer failed, or the others wait in it forever
+                    _barrier()
             dt = time.perf_counter() - t0
             _SAVE_HIST.observe(dt)
             # a synchronous save blocks training for all of its time
@@ -333,22 +378,22 @@ class CheckpointManager:
             _SAVES_TOTAL.inc()
             return final
         with telemetry.phase("checkpoint"):
-            writers = self._snapshot_payloads(net, trainer)
-            if ts_blob is not None:
-                def write_ts(path, _blob=ts_blob):
-                    with open(path, "wb") as f:
-                        f.write(_blob)
-
-                writers["train_state.json"] = write_ts
+            try:
+                writers = self._payload_writers(net, trainer, ts_blob,
+                                                primary, snapshot=True)
+            finally:
+                # the barrier runs on the caller's thread, in program
+                # order with the training collectives: the agreed event
+                # is "snapshot taken everywhere"; the publish is the
+                # writer's alone
+                _barrier()
         dt_snap = time.perf_counter() - t0
         _SNAPSHOT_HIST.observe(dt_snap)
         # an async save blocks only for the snapshot; the write overlaps
         # training and is not charged
         telemetry.goodput_note("checkpoint", dt_snap)
-
-        def write_payloads(tmp):
-            for name, write in writers.items():
-                write(os.path.join(tmp, name))
+        if not primary:
+            return final
 
         self._pending_step = step
         self._pending_error = None
@@ -358,7 +403,7 @@ class CheckpointManager:
             try:
                 # no telemetry.phase: the step timeline is the main
                 # thread's
-                self._write_step(step, write_payloads, extra)
+                self._write_step(step, writers, extra)
                 _SAVE_HIST.observe(time.perf_counter() - t0)
                 _SAVES_TOTAL.inc()
             except BaseException as e:
@@ -369,34 +414,32 @@ class CheckpointManager:
         self._pending = threading.Thread(
             target=task, name=f"mxnet-ckpt-save-{step}", daemon=True)
         self._pending.start()
-        return self._step_dir(step)
+        return final
 
-    def _snapshot_payloads(self, net, trainer):
-        """Host copies of everything save() writes, as {file name: writer
-        of a path}: the blocking half of an async save.  The parameters
-        are copied to pinned host memory in one pass, with one
-        synchronisation (``host_copies``); so are the optimizer states
-        inside ``trainer._states_blob()``."""
+    def _payload_writers(self, net, trainer, ts_blob, primary, snapshot):
+        """{file name: writer of a file object} of what ``save`` writes.
+        The trainer's states blob is taken on every process; the rest
+        only on the writer.  ``snapshot`` copies the parameters to pinned
+        host memory now (one pass, one synchronisation), the blocking
+        half of an async save; otherwise they are read when written."""
         from .ndarray.serialization import host_copies, save as _save
 
+        blob = trainer._states_blob() if trainer is not None else None
+        if not primary:
+            return {}
         writers = {}
         if net is not None:
             params = net._collect_params_with_prefix()
-            snap = dict(zip(params, host_copies(
-                [p.data()._data for p in params.values()])))
-
-            def write_params(path, _snap=snap):
-                _save(path, _snap)
-
-            writers["model.params"] = write_params
-        if trainer is not None:
-            blob = trainer._states_blob()
-
-            def write_states(path, _blob=blob):
-                with open(path, "wb") as f:
-                    f.write(_blob)
-
-            writers["trainer.states"] = write_states
+            if snapshot:
+                data = dict(zip(params, host_copies(
+                    [p.data()._data for p in params.values()])))
+            else:
+                data = {k: v.data() for k, v in params.items()}
+            writers["model.params"] = lambda f, _d=data: _save(f, _d)
+        if blob is not None:
+            writers["trainer.states"] = lambda f, _b=blob: f.write(_b)
+        if ts_blob is not None:
+            writers["train_state.json"] = lambda f, _b=ts_blob: f.write(_b)
         return writers
 
     def _join_pending(self, raise_=True):
@@ -436,7 +479,6 @@ class CheckpointManager:
         load raises is skipped with a warning and the next older one is
         tried.  An explicit ``step`` is strict: missing or invalid
         raises."""
-        _single_process("restore")
         self._join_pending(raise_=False)
         t0 = time.perf_counter()
         if step is not None:
@@ -534,7 +576,8 @@ def run_with_recovery(train_fn, manager, max_restarts=3,
 
     if resharder is not None:
         raise MXNetError("run_with_recovery(resharder=): live resharding "
-                         "waits for the port of the multi-GPU slice")
+                         "comes with the second multi-GPU slice (ROADMAP "
+                         "A6)")
     log = logger or _LOGGER
     if backoff_ms is None:
         backoff_ms = fault.backoff_ms()

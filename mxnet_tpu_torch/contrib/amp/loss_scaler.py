@@ -7,8 +7,9 @@ divided by it before the update; on overflow (inf/nan gradients) the step
 is skipped and the scale divided by ``scale_factor``, and after
 ``scale_window`` clean steps it is multiplied by it.  bfloat16 shares
 fp32's exponent range: its scaler is static at 1 and still reports
-overflow.  The agreement of the verdict across processes waits for the
-port's collectives.
+overflow.  With more than one process the overflow verdict is OR-reduced
+across them (one scalar all-reduce), so every process skips the same
+step: a local skip would let the replicas' weights and scales drift.
 """
 from __future__ import annotations
 
@@ -50,14 +51,22 @@ class LossScaler:
         """True if any gradient of ``params`` is non-finite: one
         multi-tensor check on the device (torch's AMP check, at an unscale
         of 1, which leaves every value as it is) and one read of its
-        flag."""
+        flag; with more than one process, agreed across them (True if any
+        process overflowed)."""
         grads = _float_grads(params)
         if not grads:
             return False
         found = torch.zeros((), dtype=torch.float32, device=grads[0].device)
         torch._amp_foreach_non_finite_check_and_unscale_(
             grads, found, torch.ones_like(found))
-        return bool(found.item())
+        overflow = bool(found.item())
+        from ...base import world_size
+
+        if world_size() > 1:
+            from ...parallel.collectives import allreduce_any
+
+            overflow = allreduce_any(overflow)
+        return overflow
 
     def state_dict(self):
         """The scale and the clean-step counter, for an exact resume."""

@@ -80,8 +80,18 @@ Wired vars:
 - ``MXNET_MP_START_METHOD``: the DataLoader's process-worker start method
   (default spawn; forkserver or fork on request).
 
-The knobs of planes not ported yet (planner, graph, ZeRO, compile cache)
-and of the cross-process stop agreement (``MXNET_STOP_SYNC_EVERY``) wait
+- ``MXNET_ZERO``: ZeRO-1 optimizer-state sharding on the bucketed
+  gradient path (default 0; ``parallel.zero``).
+- ``MXNET_ALLREDUCE_BUCKET_MB``: the fused-allreduce bucket cap in MiB
+  (default 32; 0 = per-key collectives; a ``tuning`` knob).
+- ``MXNET_KVSTORE_BIGARRAY_BOUND``: elements above which a kvstore value
+  gets its own collective (default 1000000).
+- ``MXNET_STOP_SYNC_EVERY``: the cross-process stop agreement of
+  ``lifecycle.check_stop`` every N-th call (default 1).
+- ``MXNET_LIFECYCLE_SIGNALS``: ``parallel.distributed.init`` installs the
+  graceful-stop signal handlers (default 1).
+
+The knobs of planes not ported yet (planner, graph, compile cache) wait
 for their code.
 """
 from __future__ import annotations
@@ -108,7 +118,8 @@ __all__ = ["get_str", "get_int", "get_bool", "get_float",
            "guard_grad_spike", "guard_skip", "guard_rewind_after",
            "guard_sync_every", "guard_checksum", "guard_canary_every",
            "device_peak_flops_override", "watchdog_timeout_s",
-           "describe", "apply_env"]
+           "zero_enabled", "allreduce_bucket_mb", "kvstore_bigarray_bound",
+           "stop_sync_every", "describe", "apply_env"]
 
 
 def get_str(name, default=None):
@@ -429,6 +440,30 @@ def fleet_eject_threshold():
     return max(1, get_int("MXNET_FLEET_EJECT_THRESHOLD", 3))
 
 
+def zero_enabled():
+    """ZeRO-1 optimizer-state sharding on the bucketed gradient path
+    (MXNET_ZERO, default off; parallel/zero.py)."""
+    return get_bool("MXNET_ZERO", False)
+
+
+def allreduce_bucket_mb():
+    """Fused-allreduce gradient-bucket cap in MiB
+    (MXNET_ALLREDUCE_BUCKET_MB, default 32; 0 disables fusion)."""
+    return max(0, get_int("MXNET_ALLREDUCE_BUCKET_MB", 32))
+
+
+def kvstore_bigarray_bound():
+    """Elements above which a kvstore value gets its own collective
+    (MXNET_KVSTORE_BIGARRAY_BOUND, default 1e6)."""
+    return get_int("MXNET_KVSTORE_BIGARRAY_BOUND", 1000000)
+
+
+def stop_sync_every():
+    """The cross-process stop agreement runs every N-th check_stop() call
+    (MXNET_STOP_SYNC_EVERY, default 1)."""
+    return max(1, get_int("MXNET_STOP_SYNC_EVERY", 1))
+
+
 _WIRED = (
     ("MXNET_SEED", "global RNG seed at import (random.seed)"),
     ("MXNET_FAULT_SPEC", "deterministic fault injection spec "
@@ -521,6 +556,17 @@ _WIRED = (
      "(default 250)"),
     ("MXNET_FLEET_EJECT_THRESHOLD", "consecutive failures before the "
      "circuit breaker ejects a replica (default 3)"),
+    ("MXNET_ZERO", "ZeRO-1 sharded optimizer state (default 0)"),
+    ("MXNET_ALLREDUCE_BUCKET_MB", "fused-allreduce bucket cap in MiB "
+     "(default 32; 0 = per-key)"),
+    ("MXNET_KVSTORE_BIGARRAY_BOUND", "elements above which a kvstore "
+     "value gets its own collective (default 1000000)"),
+    ("MXNET_STOP_SYNC_EVERY", "stop-agreement stride of check_stop "
+     "(default 1)"),
+    ("MXNET_LIFECYCLE_SIGNALS", "distributed.init installs the stop "
+     "signal handlers (default 1)"),
+    ("MXNET_COORDINATOR_ADDRESS", "host:port of process 0 (alias "
+     "DMLC_PS_ROOT_URI + DMLC_PS_ROOT_PORT)"),
     ("MXNET_NUM_WORKERS", "launcher world size (alias DMLC_NUM_WORKER; "
      "default 1)"),
     ("MXNET_WORKER_ID", "launcher rank (alias DMLC_WORKER_ID)"),

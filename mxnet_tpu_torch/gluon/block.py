@@ -23,7 +23,10 @@ any parameter tensor or storage replaced by another (``cast``,
 differentiates) and a reseed of the port's generators
 (``random.seed``/``set_state``), since a graph draws from the generator
 it was captured with.  ``set_data`` and ``load_parameters`` write in place
-and need no new entry.  ``export`` and ``SymbolBlock`` are not ported.
+and need no new entry.  ``HybridBlock.export`` writes the deploy files
+(``-symbol.json`` and ``.params``) that ``gluon.SymbolBlock.imports``
+reads back.  Forward hooks fire with the reference's arguments, eager and
+hybridized, and their handles have the reference's ``detach()``.
 """
 from __future__ import annotations
 
@@ -73,6 +76,26 @@ _NAME_SCOPE = _BlockScope()
 # shapes): the hybridized blocks it calls run eagerly too, instead of each
 # building a cache of its own
 _EAGER = threading.local()
+
+
+class _HookHandle:
+    """The handle of a forward hook (reference: ``gluon.block._HookHandle``):
+    ``detach()`` removes the hook; torch's ``remove()`` works too."""
+
+    def __init__(self, handle):
+        self._handle = handle
+
+    def detach(self):
+        self._handle.remove()
+
+    remove = detach
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.detach()
+        return False
 
 
 class Block(torch.nn.Module):
@@ -133,6 +156,23 @@ class Block(torch.nn.Module):
     def register_child(self, block, name=None):
         self.add_module(name or str(len(self._modules)), block)
         return block
+
+    def register_forward_hook(self, hook):
+        """``hook(block, inputs, output)`` after every forward; its return
+        is ignored, as in the reference.  Returns a handle whose
+        ``detach()`` (or torch's ``remove()``) removes it."""
+        def call(block, args, out):
+            hook(block, args, out)
+
+        return _HookHandle(super().register_forward_hook(call))
+
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, inputs)`` before every forward; see
+        :meth:`register_forward_hook`."""
+        def call(block, args):
+            hook(block, args)
+
+        return _HookHandle(super().register_forward_pre_hook(call))
 
     def collect_params(self, select=None):
         """All Parameters of self and its descendants, in creation order

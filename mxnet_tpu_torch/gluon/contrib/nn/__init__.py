@@ -4,16 +4,21 @@
 ``Identity`` and ``SyncBatchNorm``.
 
 ``SyncBatchNorm`` in one process is ``BatchNorm`` over the channel axis,
-as the reference's is on one device.  Its cross-process form (statistics
-reduced over every process's batch) is not ported: with more than one
-process of ``torch.distributed`` it raises.
+as the reference's is on one device.  Across processes, as in the
+reference's two regimes: inside ``TrainStep(mesh=)`` every BatchNorm
+already normalises by the global batch (``ops.nn.BATCH_STATS``, forward
+and backward exact); eagerly with more than one process the forward
+statistics are all-reduced (sum, sum of squares, count), so the
+normalisation and the running stats use the global batch, and the
+backward treats the synced statistics as constants, as the reference's
+docstring says.
 """
 from __future__ import annotations
 
-import torch
+import numpy as np
 
 from .... import autograd
-from ....base import MXNetError
+from ....base import world_size
 from ...block import HybridBlock
 from ...nn.basic_layers import BatchNorm, HybridSequential, Sequential
 
@@ -55,9 +60,9 @@ class Identity(HybridBlock):
 
 
 class SyncBatchNorm(BatchNorm):
-    """BatchNorm over axis 1 whose statistics would span every device
-    (reference: gluon.contrib.nn.SyncBatchNorm).  ``num_devices`` is the
-    reference's argument; one process computes ``BatchNorm`` exactly."""
+    """BatchNorm over axis 1 whose statistics span every process
+    (reference: gluon.contrib.nn.SyncBatchNorm; see the module
+    docstring).  ``num_devices`` is the reference's argument."""
 
     def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
                  epsilon=1e-5, center=True, scale=True,
@@ -76,13 +81,42 @@ class SyncBatchNorm(BatchNorm):
         self._num_devices = num_devices
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
-        if autograd.is_training() and not self._use_global_stats and \
-                torch.distributed.is_available() and \
-                torch.distributed.is_initialized() and \
-                torch.distributed.get_world_size() > 1:
-            raise MXNetError(
-                "SyncBatchNorm across processes is not ported: its "
-                "statistics would need a reduction over every process's "
-                "batch (ROADMAP A6)")
-        return BatchNorm.hybrid_forward(self, F, x, gamma, beta,
-                                        running_mean, running_var)
+        from ....ops import nn as _nn
+        from ...block import _TRACE
+
+        training = autograd.is_training() and not self._use_global_stats
+        eager = _TRACE.ctx is None and \
+            getattr(_nn.BATCH_STATS, "reduce", None) is None
+        if not (training and eager and world_size() > 1):
+            return BatchNorm.hybrid_forward(self, F, x, gamma, beta,
+                                            running_mean, running_var)
+        from ....parallel.collectives import allreduce_hosts
+
+        axis = self._axis % len(x.shape)
+        axes = tuple(i for i in range(len(x.shape)) if i != axis)
+        c = x.shape[axis]
+        xs = x.asnumpy().astype("float64")
+        stats = np.concatenate([xs.sum(axis=axes).ravel(),
+                                (xs * xs).sum(axis=axes).ravel(),
+                                [float(xs.size // c)]])
+        g = allreduce_hosts(stats.astype("float32"))
+        n = g[-1]
+        mean = g[:c] / n
+        var = g[c:2 * c] / n - mean * mean
+        bshape = [1] * len(x.shape)
+        bshape[axis] = c
+        ctx = x.context
+        mean_nd = F.array(mean.reshape(bshape).astype("float32"), ctx=ctx)
+        std_nd = F.array((1.0 / np.sqrt(var + self._epsilon))
+                         .reshape(bshape).astype("float32"), ctx=ctx)
+        gam = gamma if self._scale else F.ones_like(gamma)
+        out = (x - mean_nd) * std_nd * gam.reshape(bshape) \
+            + beta.reshape(bshape)
+        m = self._momentum
+        new_mean = running_mean * m + \
+            F.array(mean.astype("float32"), ctx=ctx) * (1 - m)
+        new_var = running_var * m + \
+            F.array(var.astype("float32"), ctx=ctx) * (1 - m)
+        self._update_running_state(self.running_mean, new_mean)
+        self._update_running_state(self.running_var, new_var)
+        return out

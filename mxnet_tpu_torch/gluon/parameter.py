@@ -300,6 +300,12 @@ class Parameter:
                 or self._nd._grad._data.dtype != var.dtype):
             self._init_grad()
 
+    def var(self):
+        """A ``sym.var`` of this parameter's name, shape and dtype."""
+        from ..symbol.symbol import var
+
+        return var(self.name, shape=self.shape, dtype=self.dtype)
+
     def __repr__(self):
         return f"Parameter {self.name} (shape={self._shape}, " \
             f"dtype={self.dtype})"

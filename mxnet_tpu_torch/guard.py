@@ -31,11 +31,11 @@ gradient bucket into the flight recorder (``MXNET_GUARD_CHECKSUM=1``;
 digests a deterministic recompute: ``telemetry_agg.merge_blackboxes``
 names the rank whose digest differs.
 
-One process.  The reference sums the sentinel vector across processes and
-votes the canary digests in one collective each; those wait for the
-port's collectives (the multi-GPU slice): with more than one process
-``check`` and ``canary`` raise, as ``lifecycle.check_stop``'s agreement
-does.
+Across processes, as in the reference: ``check`` sums the sentinel
+vector over every process in one all-reduce, so every rank classifies the
+same values and reaches the same verdict, and ``canary`` votes the
+digests in one all-reduce of a one-hot digest table, raising
+:class:`NumericalDivergence` on every rank, naming the minority.
 
 Wiring: :func:`attach` wraps ``Trainer.step`` with the verdict gate
 (attach after ``amp.init_trainer``: the guard's non-finite channel then
@@ -208,8 +208,8 @@ class Guard:
     One instance per training loop (``attach`` hangs it off the Trainer
     as ``trainer._guard``).  All thresholds default from the
     ``MXNET_GUARD_*`` knobs; constructor arguments override for tests.
-    ``_testing_force`` asks for the agreement collective on one process,
-    which raises as more than one process does (no collectives yet)."""
+    ``_testing_force`` runs the agreement collective's path on one
+    process."""
 
     def __init__(self, window=None, loss_spike=None, grad_spike=None,
                  skip=None, rewind_after=None, sync_every=None,
@@ -271,13 +271,14 @@ class Guard:
         self._calls += 1
         if self._calls % self._sync_every != 0:
             return self._agreed
+        stats = integrity_stats(params, loss)
         if world_size() > 1 or self._testing_force:
-            raise MXNetError(
-                "Guard.check: the verdict's agreement across processes "
-                "waits for the port's collectives (the multi-GPU slice); "
-                "the guard runs in one process")
+            from .parallel.collectives import allreduce_hosts
+
+            stats = allreduce_hosts(stats,
+                                    _testing_force=self._testing_force)
         # THE one host read of a guarded step
-        vec = integrity_stats(params, loss).cpu().numpy()
+        vec = stats.cpu().numpy()
         verdict = self._classify(float(vec[0]), float(vec[1]),
                                  float(vec[2]), float(vec[3]))
         self._agreed = verdict
@@ -402,10 +403,25 @@ class Guard:
         out = fn()
         digest = _crc32(out) & 0xFFFFFF
         self._flight_note("guard_canary", step=step, digest=int(digest))
-        if world_size() > 1 or self._testing_force:
-            raise MXNetError(
-                "Guard.canary: the digest vote across ranks waits for the "
-                "port's collectives (the multi-GPU slice)")
+        if world_size() <= 1 and not self._testing_force:
+            return int(digest)
+        from .parallel.collectives import allreduce_hosts, rank
+
+        slots = torch.zeros(max(world_size(), 1), dtype=torch.float64)
+        slots[rank()] = float(digest)
+        table = [int(d) for d in allreduce_hosts(
+            slots, _testing_force=self._testing_force).tolist()]
+        counts = collections.Counter(table)
+        majority = max(sorted(counts), key=lambda d: counts[d])
+        minority = sorted(r for r, d in enumerate(table) if d != majority)
+        if minority and len(set(counts.values())) > 1:
+            self._flight_note("guard_canary_divergence", step=step,
+                              ranks=minority, digests=table)
+            raise NumericalDivergence(
+                f"canary recompute diverged: rank(s) {minority} disagree "
+                f"with the {counts[majority]}-rank majority digest "
+                f"{majority:#08x} at step {step}: silent data corruption "
+                f"on the minority rank(s)", ranks=minority)
         return int(digest)
 
     # -- exact-resume state -------------------------------------------------

@@ -34,11 +34,10 @@ writer): a deadline without one dumps the black box and a diagnosis file
 and exits with :data:`EXIT_STALLED`.  ``check_stop`` also ticks the
 cross-rank telemetry aggregation (``telemetry_agg``).
 
-Not ported yet: ``check_stop``'s cross-process agreement (a one-scalar
-all-reduce, paced by ``MXNET_STOP_SYNC_EVERY`` in the reference) waits for
-the port's collectives (the multi-GPU slice), and the knob with it: with
-more than one process and agreement on, ``check_stop`` raises.
-``elastic_resharder`` waits for the multi-GPU slice.
+With more than one process and agreement on (``coordinate_stops``,
+turned on by ``parallel.distributed.init``), ``check_stop`` agrees on the
+stop through a one-scalar all-reduce every ``MXNET_STOP_SYNC_EVERY``-th
+call.  ``elastic_resharder`` waits for the second multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -54,7 +53,7 @@ from . import env as _env
 from . import fault
 from . import flight_recorder as _flight
 from . import telemetry
-from .base import MXNetError, world_size
+from .base import world_size
 
 __all__ = ["GracefulExit", "EXIT_PREEMPTED", "EXIT_FORCED", "EXIT_STALLED",
            "request_stop", "stop_requested", "stop_reason",
@@ -82,7 +81,7 @@ EXIT_STALLED = 45     # watchdog abort: no heartbeat within the deadline
 _STOP = {"requested": False, "reason": None, "time": None}
 _HANDLERS = {"installed": False, "prev": {}, "deliveries": 0}
 # cross-process stop agreement: on/off
-_SYNC = {"enabled": False}
+_SYNC = {"enabled": False, "calls": 0, "agreed": False}
 
 _STOPS_TOTAL = telemetry.counter(
     "mxnet_lifecycle_stops_total", "stop requests (signals + programmatic)")
@@ -143,8 +142,9 @@ def stop_reason():
 
 def coordinate_stops(enabled=True):
     """Turn on per-step agreement across processes: every ``check_stop()``
-    of a multi-process job would agree on the stop through a one-scalar
-    all-reduce.  One process never needs it."""
+    of a multi-process job agrees on the stop through a one-scalar
+    all-reduce.  Turned on by ``parallel.distributed.init``; one process
+    never pays a collective either way."""
     _SYNC["enabled"] = bool(enabled)
 
 
@@ -154,9 +154,15 @@ def check_stop(sync=None):
     Beats the telemetry heartbeat (a loop that polls is not stalled).  The
     fault seam ``lifecycle.sigterm``: an armed fault here counts as a
     delivered preemption signal, so the stop path is testable without a
-    real SIGTERM.  ``sync`` overrides :func:`coordinate_stops`; agreement
-    across processes is not ported yet, so it raises with more than one
-    process."""
+    real SIGTERM.  ``sync`` overrides :func:`coordinate_stops`.
+
+    The agreement: with more than one process and coordination on, every
+    ``MXNET_STOP_SYNC_EVERY``-th call is one scalar all-reduce
+    (``parallel.collectives.allreduce_any``), so every process sees the
+    stop at the same step.  The stride counts calls, never the local
+    flag, so every process must call ``check_stop`` once per step
+    boundary; an off-stride call returns the last agreed verdict (never
+    the local flag, which would let one rank leave alone)."""
     telemetry.heartbeat()
     # the cross-rank aggregation rides this step boundary too (host-side
     # file IO only, never a collective)
@@ -165,13 +171,23 @@ def check_stop(sync=None):
         fault.check("lifecycle.sigterm")
     except Exception as e:
         request_stop(f"fault-injected preemption ({e})")
+    local = _STOP["requested"]
     if sync is None:
         sync = _SYNC["enabled"]
     if sync and world_size() > 1:
-        raise MXNetError("check_stop: the stop agreement across processes "
-                         "waits for the port's collectives; pass "
-                         "sync=False for a local poll")
-    return _STOP["requested"]
+        with _LOCK:
+            _SYNC["calls"] += 1
+            due = _SYNC["calls"] % _env.stop_sync_every() == 0
+        if not due:
+            return _SYNC["agreed"]
+        from .parallel.collectives import allreduce_any
+
+        agreed = allreduce_any(local)
+        _SYNC["agreed"] = agreed
+        if agreed and not local:
+            request_stop("stop agreed from a peer process")
+        return agreed
+    return local
 
 
 # --------------------------------------------------------------------------
@@ -280,7 +296,7 @@ def reset():
     with _LOCK:
         _STOP.update(requested=False, reason=None, time=None)
         _HANDLERS["deliveries"] = 0
-        _SYNC["enabled"] = False
+        _SYNC.update(enabled=False, calls=0, agreed=False)
     _STOP_GAUGE.set(0)
 
 

@@ -1,11 +1,15 @@
 """Module: symbolic training over one bound Executor (counterpart of
 ``mxnet_tpu/module/module.py``).
 
-The reference binds one executor too.  Here it runs on one device: a
-``context`` list of more than one device, or a ``kvstore`` other than
-"local"/None, raises (data parallelism over several cards comes with the
-port of ``kvstore`` and ``parallel/``, ROADMAP.md A6), instead of quietly
-running on the first device.
+The reference binds one executor too.  Here it runs on one device a
+process: a ``context`` list of more than one device raises (several
+contexts in one process come with the second multi-GPU slice, ROADMAP.md
+A6) instead of quietly running on the first device.  ``kvstore`` takes
+every store of ``mx.kv``: a distributed one (with a process group)
+updates the weights on the store, as MXNet 1.x's ``update_on_kvstore``
+does (gradients pushed and summed over the processes, weights pulled
+back); a local one, with one context, leaves the update to the Module's
+updater.
 """
 from __future__ import annotations
 
@@ -24,18 +28,24 @@ def _one_device(context):
     if isinstance(context, (list, tuple)):
         if len(context) != 1:
             raise MXNetError(
-                f"Module over {len(context)} devices: several devices need "
-                f"the port's kvstore and data parallelism (ROADMAP.md A6); "
-                f"bind one context")
+                f"Module over {len(context)} devices: several contexts in "
+                f"one process come with the second multi-GPU slice "
+                f"(ROADMAP.md A6); bind one context a process and train "
+                f"across processes with a distributed kvstore")
         context = context[0]
     return context
 
 
-def _local_kvstore(kvstore):
-    if kvstore not in (None, "local"):
-        raise MXNetError(
-            f"kvstore {kvstore!r}: only 'local' (or None) is ported; the "
-            f"device and distributed stores come with ROADMAP.md A6")
+def _create_kvstore(kvstore):
+    """(store, update_on_kvstore): a store of ``mx.kv`` (None for
+    None), updating the weights itself when it is distributed and a
+    process group exists."""
+    from .. import kvstore as kvs
+
+    if kvstore is None:
+        return None, False
+    kv = kvstore if isinstance(kvstore, kvs.KVStore) else kvs.create(kvstore)
+    return kv, isinstance(kv, kvs.DistTPUSyncKVStore) and kv._distributed()
 
 
 class Module(BaseModule):
@@ -59,6 +69,8 @@ class Module(BaseModule):
         self._exec = None
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = False
         self._preloaded_params = None
         self._pending_opt_states = None
         self._monitor = None
@@ -188,13 +200,17 @@ class Module(BaseModule):
                        force_init=False):
         if self.optimizer_initialized and not force_init:
             return
-        _local_kvstore(kvstore)
         from .. import optimizer as _opt
 
         if isinstance(optimizer, str):
             optimizer = _opt.create(optimizer, **dict(optimizer_params))
         self._optimizer = optimizer
         self._updater = _opt.get_updater(optimizer)
+        self._kvstore, self._update_on_kvstore = _create_kvstore(kvstore)
+        if self._update_on_kvstore:
+            for i, name in enumerate(self._param_names):
+                self._kvstore.init(i, self._exec.arg_dict[name])
+            self._kvstore.set_optimizer(optimizer)
         self.optimizer_initialized = True
         if self._pending_opt_states is not None:
             self.load_optimizer_states(self._pending_opt_states)
@@ -222,7 +238,11 @@ class Module(BaseModule):
             grad = self._exec.grad_dict.get(name)
             if grad is None:
                 continue
-            self._updater(i, grad, self._exec.arg_dict[name])
+            if self._update_on_kvstore:
+                self._kvstore.push(i, grad)
+                self._kvstore.pull(i, self._exec.arg_dict[name])
+            else:
+                self._updater(i, grad, self._exec.arg_dict[name])
 
     def get_outputs(self, merge_multi_context=True):
         return self._exec.outputs

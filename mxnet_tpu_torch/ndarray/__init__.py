@@ -19,9 +19,10 @@ from .. import ops as _ops  # noqa: F401  (populates the table)
 from ..base import MXNetError
 from ..ops.registry import OP_TABLE, list_ops
 from . import dispatch_cache as _dispatch_cache
+from ..context import current_context
 from .ndarray import NDArray, array, invoke, waitall
 
-__all__ = ["NDArray", "array", "invoke", "waitall", "zeros", "ones", "full",
+__all__ = ["NDArray", "current_context", "array", "invoke", "waitall", "zeros", "ones", "full",
            "empty", "arange", "eye", "concat", "concatenate", "stack", "add_n",
            "zeros_like", "ones_like", "maximum", "minimum", "power", "dot",
            "list_ops", "save", "load", "linalg", "contrib", "image",

@@ -197,6 +197,11 @@ class NDArray:
 
     as_in_ctx = as_in_context
 
+    def as_nd_ndarray(self):
+        """This array (the reference's ``mx.np`` bridge; the port has one
+        array type)."""
+        return self
+
     def astype(self, dtype, copy=True):
         return invoke("cast", [self], {"dtype": dtype})
 

@@ -90,8 +90,9 @@ def _record(t):
 
 def save(fname, data):
     """Save NDArrays (also torch tensors or numpy arrays): a dict
-    {name: array}, a list, or one array.  Arrays on the card are copied
-    to the host in one pass first (:func:`host_copies`)."""
+    {name: array}, a list, or one array, to a path or a binary file
+    object.  Arrays on the card are copied to the host in one pass first
+    (:func:`host_copies`)."""
     if isinstance(data, (NDArray, torch.Tensor, _np.ndarray)):
         names, arrays = [], [data]
     elif isinstance(data, (list, tuple)):
@@ -101,15 +102,22 @@ def save(fname, data):
     else:
         raise MXNetError(f"cannot save {type(data)}")
     tensors = host_copies([_tensor(a) for a in arrays], clone_host=False)
+    if hasattr(fname, "write"):
+        _write_list(fname, tensors, names)
+        return
     with open(fname, "wb") as f:
-        f.write(struct.pack("<QQQ", _LIST_MAGIC, 0, len(tensors)))
-        for t in tensors:
-            f.write(_record(t))
-        f.write(struct.pack("<Q", len(names)))
-        for n in names:
-            b = n.encode("utf-8")
-            f.write(struct.pack("<Q", len(b)))
-            f.write(b)
+        _write_list(f, tensors, names)
+
+
+def _write_list(f, tensors, names):
+    f.write(struct.pack("<QQQ", _LIST_MAGIC, 0, len(tensors)))
+    for t in tensors:
+        f.write(_record(t))
+    f.write(struct.pack("<Q", len(names)))
+    for n in names:
+        b = n.encode("utf-8")
+        f.write(struct.pack("<Q", len(b)))
+        f.write(b)
 
 
 def _read(f, n):

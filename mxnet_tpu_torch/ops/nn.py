@@ -20,6 +20,8 @@ kernels on them.
 """
 from __future__ import annotations
 
+import threading
+
 import math
 
 import torch
@@ -189,6 +191,11 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
     axis = axis % x.ndim
     xc = x.movedim(axis, 1)
     g = torch.ones_like(gamma) if fix_gamma else gamma
+    reduce_stats = getattr(BATCH_STATS, "reduce", None)
+    if training and not use_global_stats and reduce_stats is not None:
+        return _batch_norm_global(x, g, beta, moving_mean, moving_var, eps,
+                                  momentum, axis, reduce_stats,
+                                  BATCH_STATS.world)
     if training and not use_global_stats:
         n = x.numel() // x.shape[axis]
         acc = torch.promote_types(x.dtype, torch.float32)
@@ -206,6 +213,36 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
                            training=False, eps=eps)
         new_mean, new_var = moving_mean, moving_var
     return out.movedim(1, axis), new_mean.detach(), new_var.detach()
+
+
+# Set by ``TrainStep(mesh=)`` around its forward and backward: ``reduce``
+# sums a tensor over the data-parallel processes (differentiably) and
+# ``world`` counts them, so training-mode BatchNorm normalises by the
+# moments of the GLOBAL batch, as the reference's sharded jit does.
+BATCH_STATS = threading.local()
+
+
+def _batch_norm_global(x, g, beta, moving_mean, moving_var, eps, momentum,
+                       axis, reduce_stats, world):
+    """Training-mode BatchNorm over the global batch: the mean, then the
+    biased variance about it, each one sum over the processes (the sums'
+    gradients flow back to every process, as GSPMD's collectives do)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    axes = tuple(i for i in range(x.ndim) if i != axis)
+    shape = [1] * x.ndim
+    shape[axis] = x.shape[axis]
+    count = (x.numel() // x.shape[axis]) * world
+    xf = x.to(acc)
+    mean = reduce_stats(xf.sum(dim=axes)) / count
+    d = xf - mean.reshape(shape)
+    var = reduce_stats((d * d).sum(dim=axes)) / count
+    scale = g.to(acc) * torch.rsqrt(var + eps)
+    out = (d * scale.reshape(shape) + beta.to(acc).reshape(shape)).to(x.dtype)
+    new_mean = moving_mean * momentum + \
+        mean.detach().to(moving_mean.dtype) * (1 - momentum)
+    new_var = moving_var * momentum + \
+        var.detach().to(moving_var.dtype) * (1 - momentum)
+    return out, new_mean.detach(), new_var.detach()
 
 
 @register("LayerNorm", aliases=("layer_norm",))

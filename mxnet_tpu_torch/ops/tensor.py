@@ -513,7 +513,8 @@ def _slice_dim(x, axis, b, e, s):
 
 
 # the reference's "crop" alias of slice is overwritten in its table by the
-# image family's crop (image_crop), which is not ported yet
+# image family's crop (image_crop, ops/image_ops.py, which registers the
+# "crop" alias)
 @register("slice")
 def slice_op(x, begin=None, end=None, step=None):
     step = step or (None,) * len(begin)

@@ -11,8 +11,21 @@ backward instead of storing its activations.  ``run()`` drives the step
 over an iterator of batches through the device prefetcher, polling
 ``lifecycle.check_stop()`` at every step boundary and, with a guard, the
 loss sentinel.  The first call of each batch signature counts the step's
-FLOPs (``introspection``); every call accounts them.  Sharding (``mesh``,
-``plan``), pipelining and the compile cache are not ported.
+FLOPs (``introspection``); every call accounts them.
+
+``mesh=`` (``parallel.make_mesh()``) makes the step data-parallel over
+the processes of the mesh's batch axes (``dp``, ``fsdp``), one process a
+device: each process passes its own shard of the global batch, as the
+reference's multi-process workers do.  The parameters start from process
+0's values; after the backward the gradients are summed in flat buckets
+(``parallel.bucketing``, capped by ``MXNET_ALLREDUCE_BUCKET_MB``) and
+divided by the process count, and the loss is averaged, so loss and
+gradients are those of the global batch.  Training-mode BatchNorm
+normalises by the moments of the global batch in forward and backward
+(``ops.nn.BATCH_STATS``), as GSPMD makes the reference's sharded jit do.
+Parameters stay replicated (``param_sharding="replicated"``); ``fsdp``
+sharding, ``plan=``, ``pipeline=`` and the compile cache come with the
+second multi-GPU slice (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -130,15 +143,29 @@ class TrainStep:
 
     def __init__(self, net, loss_fn, optimizer="sgd", optimizer_params=None,
                  train_mode=True, dtype=None, device=None, pipeline=None,
-                 remat=False):
+                 remat=False, mesh=None, param_sharding="replicated",
+                 extra_param_specs=None, batch_axes=("dp", "fsdp"),
+                 plan=None):
         if pipeline is not None:
             if remat:
                 raise MXNetError(
                     "TrainStep(remat=True) does not compose with pipeline=; "
                     "use pipeline={'remat_stage': True} for per-stage "
                     "rematerialization inside the pipe")
-            raise MXNetError("TrainStep(pipeline=...) is not ported yet")
+            raise MXNetError("TrainStep(pipeline=...): pipelining comes with "
+                             "the second multi-GPU slice (ROADMAP A6)")
+        if plan is not None or extra_param_specs or \
+                param_sharding != "replicated":
+            raise MXNetError(
+                "TrainStep(plan= / extra_param_specs= / param_sharding="
+                f"{param_sharding!r}): sharded parameters come with the "
+                "planner of the second multi-GPU slice (ROADMAP A6); this "
+                "slice replicates them")
         self._device = resolve_device(device)
+        self._mesh = mesh
+        self._batch_axes = tuple(a for a in batch_axes
+                                 if mesh is not None and a in mesh.shape)
+        self._bucketer = None
         self._net = net
         self._loss_fn = loss_fn
         self._apply_fn, params = functionalize(net, train_mode=train_mode,
@@ -156,6 +183,9 @@ class TrainStep:
         self._with_state = train_mode
         grad_req = {name: p.grad_req
                     for name, p in net.collect_params().items()}
+        # the net's own order, for naming parameters in messages (the
+        # names' counters do not sort as the blocks were made)
+        self._net_order = {name: i for i, name in enumerate(grad_req)}
         self.train_params = OrderedDict(
             (k, v.detach().to(self._device, copy=True).requires_grad_())
             for k, v in params.items() if grad_req[k] != "null")
@@ -176,6 +206,8 @@ class TrainStep:
             raise MXNetError(f"TrainStep optimizer {optimizer!r} not "
                              f"supported (use 'sgd' or 'adam', or the "
                              f"imperative Trainer)")
+        if mesh is not None:
+            self._replicate_from_rank0()
         self.opt_state = init(list(self.train_params.values()))
         self._dtype = dtype
         if dtype is None:
@@ -234,7 +266,73 @@ class TrainStep:
         _introspection.account_flops(flops, kind="train_step")
         return loss
 
+    # -- data parallelism over the mesh --------------------------------
+    def _dp_size(self):
+        return self._mesh.axis_size(self._batch_axes) \
+            if self._batch_axes else 1
+
+    def _sum_dp(self, t):
+        from . import collectives
+
+        return collectives.psum(t, self._batch_axes, self._mesh)
+
+    def _replicate_from_rank0(self):
+        """Every process starts from process 0's parameter values (one
+        sum a dtype bucket, the other processes contributing zeros)."""
+        from . import collectives
+
+        if collectives._dist() is None:
+            return
+        first = self._mesh.axis_ranks(self._batch_axes)[0] \
+            if self._batch_axes else collectives.rank()
+        mine = collectives.rank() == first
+        tensors = list(self.params.values())
+        with torch.no_grad():
+            summed = self._sum_buckets(
+                [t if mine else torch.zeros_like(t) for t in tensors],
+                scale=None)
+            for t, v in zip(tensors, summed):
+                t.copy_(v)
+
+    def _sum_buckets(self, grads, scale):
+        """The sums over the batch axes of ``grads`` (times ``scale``),
+        in dtype-segregated flat buckets, each reduced in place (a lone
+        member's bucket is a view of the tensor itself)."""
+        from . import bucketing
+
+        entries = [(i, tuple(g.shape), str(g.dtype).replace("torch.", ""))
+                   for i, g in enumerate(grads)]
+        if self._bucketer is None:
+            self._bucketer = bucketing.Bucketer()
+        from . import collectives
+
+        plan = self._bucketer.plan_for(entries)
+        out = list(grads)
+        for b in plan.buckets:
+            flat = collectives.psum_(
+                bucketing.pack([grads[i] for i in b.keys]),
+                self._batch_axes, self._mesh)
+            if scale is not None and scale != 1.0:
+                flat.mul_(scale)
+            if b.fused:
+                bucketing.record_fused(b.nbytes)
+            for i, part in zip(b.keys, bucketing.unpack(b, flat)):
+                out[i] = part
+        return out
+
     def _step(self, x, y):
+        if self._batch_axes:
+            from ..ops import nn as _nn
+
+            _nn.BATCH_STATS.reduce = self._sum_dp
+            _nn.BATCH_STATS.world = self._dp_size()
+            try:
+                return self._step_local(x, y, True)
+            finally:
+                _nn.BATCH_STATS.reduce = None
+        return self._step_local(x, y, False)
+
+    def _step_local(self, x, y, data_parallel):
         train = list(self.train_params.values())
         read = set()
         with torch.enable_grad():
@@ -247,8 +345,9 @@ class TrainStep:
                 out = _float_outputs(out)
             loss = self._loss(out, y).mean()
         grads = torch.autograd.grad(loss, train, allow_unused=True)
-        cut = [name for name, g in zip(self.train_params, grads)
-               if g is None and name in read]
+        cut = sorted((name for name, g in zip(self.train_params, grads)
+                      if g is None and name in read),
+                     key=self._net_order.__getitem__)
         if cut:
             raise MXNetError(
                 f"TrainStep: the forward read {len(cut)} trainable "
@@ -256,6 +355,13 @@ class TrainStep:
                 f"path, or an unused output): {', '.join(cut[:8])}")
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(train, grads)]
+        if data_parallel:
+            # the global batch's mean loss and gradients: sums over the
+            # processes, divided by their count
+            n = self._dp_size()
+            with torch.no_grad():
+                grads = self._sum_buckets(grads, scale=1.0 / n)
+                loss = self._sum_dp(loss.detach()) / n
         self._update(train, grads, self.opt_state)
         for k, v in state.items():
             self.rest_params[k] = v

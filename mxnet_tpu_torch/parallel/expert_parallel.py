@@ -6,7 +6,7 @@ writes it: dense one-hot dispatch and combine tensors and plain products
 (``torch.einsum`` / ``matmul``), so the shapes are static.  Tokens beyond
 an expert's capacity get combine weight 0 (they pass through the
 residual).  Sharding the expert axis over a mesh (``mesh=``) waits for the
-multi-GPU slice and raises here.
+second multi-GPU slice (ROADMAP A6) and raises here.
 """
 from __future__ import annotations
 
@@ -48,8 +48,9 @@ def moe_apply(expert_fn, expert_params, router_weight, x, mesh=None,
     int32.  Each expert's capacity is ``C = max(1, int(capacity_factor * T
     / E))``."""
     if mesh is not None:
-        raise MXNetError("moe_apply over a mesh (expert parallelism) is not "
-                         "ported yet; call it with mesh=None on one device")
+        raise MXNetError("moe_apply over a mesh (expert parallelism) comes "
+                         "with the second multi-GPU slice (ROADMAP A6); "
+                         "call it with mesh=None on one device")
     T = x.shape[0]
     E = router_weight.shape[1]
     C = max(1, int(capacity_factor * T / E))

@@ -495,3 +495,29 @@ def test_checkpoint_directory_crosses_packages(tmp_path, direction):
                 err_msg=k)
     finally:
         rmx.nd.set_eager_jit(prev)
+
+
+@pytest.mark.parametrize("async_", [False, True], ids=["sync", "async"])
+def test_sums_hashed_as_written_equal_a_read_back(tmp_path, async_):
+    """The sums in meta.json are taken from the bytes as they are written
+    (no read-back); each equals the sha256 of the file read back, and the
+    write and fsync seconds are recorded apart."""
+    from mxnet_tpu_torch import checkpoint as ckpt_mod
+
+    net = _net()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 0.01})
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, net, trainer, async_=async_, train_state={"step": 1})
+    mgr.close()
+    meta = mgr.read_meta(1)
+    assert sorted(meta["files"]) == ["model.params", "train_state.json",
+                                     "trainer.states"]
+    for name, want in meta["files"].items():
+        path = os.path.join(str(tmp_path), "step_00000001", name)
+        assert ckpt_mod._sha256(path) == want["sha256"]
+        assert os.path.getsize(path) == want["size"]
+    timing = mgr.last_save_timing
+    assert timing["bytes"] == sum(v["size"] for v in meta["files"].values())
+    assert timing["write_s"] >= 0 and timing["fsync_s"] >= 0
+    assert CheckpointManager(str(tmp_path)).verify(1) is None

@@ -331,9 +331,15 @@ def test_checksum_stamps_and_more_than_one_process(monkeypatch):
     stamps = [e for e in flight_recorder.snapshot_doc()["events"]
               if e.get("kind") == "guard_checksum"]
     assert len(stamps) == 1 and stamps[0]["key"] == "__grad_bucket0"
-    with pytest.raises(mx.MXNetError, match="collectives"):
-        guard.Guard(_testing_force=True).check(
-            list(port.collect_params().values()))
+    # the agreement's path on one process: the sentinel vector goes
+    # through the collectives' issue site (the real two-process vote is
+    # in tests/test_torch_collectives.py)
+    from mxnet_tpu_torch.parallel import collectives
+
+    collectives.reset_issued()
+    assert guard.Guard(_testing_force=True).check(
+        list(port.collect_params().values())) == "ok"
+    assert collectives.issued() == {"allreduce": 1}
 
 
 def test_amp_init_trainer_refuses_a_guarded_trainer():

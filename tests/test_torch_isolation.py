@@ -1,6 +1,8 @@
 """The port stands alone: no module of mxnet_tpu_torch/, and neither
-chip_smoke.py nor the port's FM example (which chip_smoke.py runs), imports
-JAX or the reference package ``mxnet_tpu``.
+chip_smoke.py nor the port's FM example (which chip_smoke.py runs) nor
+the data-parallel tests' worker module (``tests/torch_dist_pool.py``),
+imports JAX, the reference package ``mxnet_tpu`` or the repo's
+``tools``.
 
 Checked twice: statically, over every import statement and every string
 handed to ``__import__``/``importlib.import_module``; and at run time, by
@@ -21,13 +23,15 @@ PORT = os.path.join(REPO, "mxnet_tpu_torch")
 
 def _forbidden(name):
     top = name.split(".")[0]
-    return top == "jax" or top.startswith("jax") or top == "mxnet_tpu"
+    return top == "jax" or top.startswith("jax") or top in ("mxnet_tpu",
+                                                             "tools")
 
 
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py"),
            os.path.join(REPO, "example", "sparse",
-                        "factorization_machine_torch.py")]
+                        "factorization_machine_torch.py"),
+           os.path.join(REPO, "tests", "torch_dist_pool.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -63,6 +67,7 @@ def test_no_jax_or_reference_imports(path):
 def test_forbidden_rule_allows_the_port_itself():
     assert _forbidden("jax.numpy") and _forbidden("jaxlib")
     assert _forbidden("mxnet_tpu") and _forbidden("mxnet_tpu.serving")
+    assert _forbidden("tools.launch")
     assert not _forbidden("mxnet_tpu_torch")
     assert not _forbidden("mxnet_tpu_torch.serving.engine")
 

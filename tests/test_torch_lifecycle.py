@@ -81,12 +81,31 @@ def test_check_stop_polls_the_flag_the_seam_and_the_heartbeat():
 
 
 def test_check_stop_agreement_across_processes_raises(monkeypatch):
+    """With more than one process and agreement on, every
+    MXNET_STOP_SYNC_EVERY-th call is one allreduce_any; the calls between
+    return the last agreed verdict, and a stop agreed from a peer stops
+    this process too.  (The real two-process agreement is in
+    tests/test_torch_collectives.py.)"""
+    from mxnet_tpu_torch.parallel import collectives
+
+    votes = []
+
+    def peer_stops(flag):
+        votes.append(flag)
+        return True
+
     monkeypatch.setattr(lifecycle, "world_size", lambda: 2)
+    monkeypatch.setattr(collectives, "allreduce_any", peer_stops)
     assert lifecycle.check_stop() is False       # agreement off: local
+    assert votes == []
+    monkeypatch.setenv("MXNET_STOP_SYNC_EVERY", "2")
     lifecycle.coordinate_stops(True)
-    with pytest.raises(MXNetError, match="collectives"):
-        lifecycle.check_stop()
-    assert lifecycle.check_stop(sync=False) is False
+    assert lifecycle.check_stop() is False       # off-stride: last agreed
+    assert votes == []
+    assert lifecycle.check_stop() is True        # the vote: a peer stops
+    assert votes == [False] and lifecycle.stop_requested()
+    assert lifecycle.check_stop() is True        # off-stride: agreed
+    assert lifecycle.check_stop(sync=False) is True
 
 
 # -- publish_final_checkpoint and the train state ------------------------

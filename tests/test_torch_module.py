@@ -266,10 +266,14 @@ def test_one_device_and_local_kvstore_only():
     mod.bind(data_shapes=[("data", (BATCH, DIM))],
              label_shapes=[("softmax_label", (BATCH,))])
     mod.init_params()
+    # every store of mx.kv binds; without a process group none updates
+    # the weights itself (the two-process Module is in
+    # tests/test_torch_dist_train.py)
     for kv in ("device", "dist_sync"):
-        with pytest.raises(mx.MXNetError, match="A6"):
-            mod.init_optimizer(kvstore=kv)
-    mod.init_optimizer(kvstore=None)
+        mod.init_optimizer(kvstore=kv, force_init=True)
+        assert mod._kvstore.type == kv and not mod._update_on_kvstore
+    mod.init_optimizer(kvstore=None, force_init=True)
+    assert mod._kvstore is None
 
 
 def test_image_record_iter_feeds_module(tmp_path):
