@@ -8,8 +8,9 @@ Run from the repository root, with no arguments:
 (``--bert-step-seeds 1 2 3`` runs only the build and the BERT-base step
 check of phase 6 (b), once for each seed, and ``--gluon-bert-seeds 1 2
 3`` the same for phase 9 (b); ``--op-table``, ``--gluon-train``,
-``--persistence``, ``--frontend``, ``--data``, ``--planes`` and
-``--symbolic`` run only the build and phase 8, 9, 10, 11, 12, 13 or 14.)
+``--persistence``, ``--frontend``, ``--data``, ``--planes``,
+``--symbolic``, ``--distributed`` and ``--model-parallel`` run only the
+build and phase 8, 9, 10, 11, 12, 13, 14, 15 or 16.)
 
 Phases (any failed check exits nonzero; nothing runs on the CPU):
 
@@ -291,7 +292,29 @@ Phases (any failed check exits nonzero; nothing runs on the CPU):
    symbol at BERT's shape and a conv + BatchNorm symbol, an offset planted
    on the card's weight raising.  ``--symbolic`` runs only the build and
    this phase;
-15. the kernels line (its times and launches at the main path's shape,
+15. data parallelism across processes: (a) world size 1 over a NCCL
+   communicator: TrainStep(mesh=) and the KVStore's sharded and ZeRO
+   paths equal to the plain steps bit for bit; (b) two processes on the
+   card through tools/launch.py and dist_sync (gloo), held to the
+   one-process step, planted data faults failing; (c) the agreements;
+16. the sharded training step at Llama-3-8B widths, fp32, TF32 off: (b)-
+   (d) in one pair of ranks started as children of this script
+   (``--mp-rank``), both on the card over gloo with host copies: (b) tp =
+   2 under the megatron plan (1 layer, 2 SGD steps, 1 x 256) against the
+   one-rank step as |diff| / |update| within MP_TP_BOUND, flash_attn_fwd
+   launched layers x steps on each rank at the local-head shape (16/4
+   heads), the row-parallel all-reduce left out and the kv heads moved off
+   their query group each planted and failing, the planner's HBM estimate
+   beside the measured peak; (c) pp = 2, M = 4 (2 layers, batch 4), GPipe
+   and 1F1B within MP_PP_BOUND, the microbatches reversed in 1F1B's
+   backward planted and failing; (d) sp = 2: ring and Ulysses attention
+   at (1, 32, 8192, 128) causal against the plain attention over the
+   whole sequence within MP_SP_BOUND, an off-by-one in the ring's source
+   shard planted and failing; (e) the planner's mesh for Llama-3-8B at
+   full depth on 8 cards of this card's memory (while the pair runs); (a)
+   after the pair, over a one-rank NCCL group: TrainStep(plan=) under
+   each named rule set equal to the plain step bit for bit;
+17. the kernels line (its times and launches at the main path's shape,
    the serving fleet, 4c;
    each path's shape, times and launches under ``by_path``, the op table
    with none, the tile pairs' times and the tuned winners), then the
@@ -519,10 +542,17 @@ PATH_SHAPES = {"serving": SERVING_SHAPE, "serve_http": SERVING_SHAPE,
                "gluon_bert_planes": BERT_SHAPE,
                "symbol_block_bert": BERT_SHAPE,
                "dp_bert_nccl": BERT_SHAPE,
-               "dp_bert_dist_sync": (32, 12, 12, 128, 128, 64, False, True)}
+               "dp_bert_dist_sync": (32, 12, 12, 128, 128, 64, False, True),
+               # phase 16: a tp rank's local heads (32/8 over tp = 2), and
+               # a pipeline stage's microbatch (4 rows in M = 4)
+               "mp_tp_llama": (1, 16, 4, 256, 256, 128, True, False),
+               "mp_pp_gpipe": (1, 32, 8, 256, 256, 128, True, False),
+               "mp_pp_1f1b": (1, 32, 8, 256, 256, 128, True, False)}
 # each path's attention dtype where it is not bf16
 PATH_DTYPES = {"gluon_bert_resume": RESUME_DTYPE,
-               "dp_bert_dist_sync": torch.float32}
+               "dp_bert_dist_sync": torch.float32,
+               "mp_tp_llama": torch.float32, "mp_pp_gpipe": torch.float32,
+               "mp_pp_1f1b": torch.float32}
 KERNEL_CASES = BUCKET_SHAPES + [PROXY_SHAPE] + [
     (1, 32, 8, 512, 512, 128, False, False),
     (1, 32, 8, 1000, 1000, 128, True, False),     # ragged length
@@ -537,6 +567,8 @@ KERNEL_CASES = BUCKET_SHAPES + [PROXY_SHAPE] + [
     BERT_SHAPE,                                   # BertSelfAttention,
     RESUME_SHAPE,
     PATH_SHAPES["dp_bert_dist_sync"],             # a dist_sync rank's
+    PATH_SHAPES["mp_tp_llama"],                   # a tp rank's heads
+    PATH_SHAPES["mp_pp_gpipe"],                   # a pipeline stage's
     (2, 12, 12, 384, 384, 64, False, False),      # BERT-base heads
     (2, 12, 12, 384, 384, 64, True, True),
     (1, 4, 2, 256, 256, 32, True, False),         # llama_tiny heads
@@ -640,7 +672,9 @@ def kernel_phase(gen):
     timed = [(shape, torch.bfloat16) for shape in
              BUCKET_SHAPES + [BERT_SHAPE, PROXY_SHAPE]] + \
         [(BERT_SHAPE, torch.float16), (RESUME_SHAPE, torch.float16),
-         (PATH_SHAPES["dp_bert_dist_sync"], torch.float32)]
+         (PATH_SHAPES["dp_bert_dist_sync"], torch.float32),
+         (PATH_SHAPES["mp_tp_llama"], torch.float32),
+         (PATH_SHAPES["mp_pp_gpipe"], torch.float32)]
     for shape, dtype in timed:
         b, hq, hkv, lq, lk, d, causal, _ = shape
         q, k, v = make_qkv(shape, dtype, gen)
@@ -1098,9 +1132,9 @@ def in_thread(fn, *args):
     return t, box
 
 
-def joined(t, box):
-    t.join(HTTP_TIMEOUT)
-    check(not t.is_alive(), "a phase 4b thread did not end in time")
+def joined(t, box, timeout=None):
+    t.join(HTTP_TIMEOUT if timeout is None else timeout)
+    check(not t.is_alive(), "a thread of the script did not end in time")
     if "error" in box:
         raise box["error"]
     return box["out"]
@@ -7128,13 +7162,14 @@ ZOO_BATCH, ZOO_CPU_BATCH = 8, 1
 # the nondeterminism of the backward's atomics.  An eager step against
 # another eager step reads that nondeterminism (up to 5.478e-03 at
 # VGG-16-bn's biases before BatchNorm, whose gradient is rounding noise,
-# on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md, the frontend): the
-# bound is the larger of HYBRID_STEP_BOUND and HYBRID_NOISE_FACTOR x that
-# reading
+# on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md, the frontend; the steps
+# compared run cuDNN's deterministic algorithms): the bound is the larger
+# of HYBRID_STEP_BOUND and HYBRID_NOISE_FACTOR x that reading
 HYBRID_STEP_BOUND, HYBRID_NOISE_FACTOR = 1e-3, 3.0
-# (c): GluonCV's NAG at lr 0.01 (no warm-up in 12 steps: VGG-16-bn at
-# GluonCV's 0.1 diverges to a non-finite loss on the card)
-ZOO_TIMED_BATCH, ZOO_WARMUP, ZOO_STEPS = 128, 2, 10
+# (c): GluonCV's NAG at lr 0.01 (no warm-up in 7 steps: VGG-16-bn at
+# GluonCV's 0.1 diverges to a non-finite loss on the card); 5 timed steps
+# a run (the phase's time against its 90 s aim)
+ZOO_TIMED_BATCH, ZOO_WARMUP, ZOO_STEPS = 128, 2, 5
 ZOO_TIMED_OPT = dict(GLUON_CV_OPT, learning_rate=0.01)
 # (d): phase 8 (b)'s medium PTB LM through gluon.rnn; the cell unroll
 # against the layer, fp32
@@ -7325,8 +7360,9 @@ def zoo_shape(name, size, kw, batch):
 def zoo_step(net, x, y, train, rng_seed, hybrid):
     """One record / backward / Trainer.step (GluonCV's SGD) of ``net``,
     hybridized or not, the generator seeded with ``rng_seed`` first (the
-    same dropout masks for both): (loss, before, after), the weights put
-    back after."""
+    same dropout masks for both; None: not seeded, for a predict-mode step
+    that draws nothing): (loss, before, after), the weights put back
+    after."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd, gluon
 
@@ -7339,7 +7375,8 @@ def zoo_step(net, x, y, train, rng_seed, hybrid):
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
 
     def run():
-        mx.random.seed(rng_seed)
+        if rng_seed is not None:
+            mx.random.seed(rng_seed)
         with autograd.record(train_mode=train):
             loss = loss_fn(net(X), Y).mean()
         loss.backward()
@@ -7371,6 +7408,18 @@ def zoo_checks(seed, device="cuda", families=ZOO, batch=ZOO_BATCH,
         x = r.uniform(-1, 1, zoo_shape(name, size, kw, batch)) \
             .astype("float32")
         y = r.randint(0, classes, (batch,)).astype("int32")
+        # the CPU's fp64 step (predict mode: no generator draws, no AMP)
+        # runs on a thread beside the card's steps, from the weights the
+        # card's steps start from (each puts them back after itself); the
+        # autograd, trace and generator states are per thread
+        xc, yc = x[:cpu_batch], y[:cpu_batch]
+        cpu_net = zoo_net(name, size, kw, seed, mx.cpu(), classes)
+        for p, q in zip(cpu_net.collect_params().values(),
+                        net.collect_params().values()):
+            p.set_data(q.data()._data.cpu())
+        cpu_net.cast("float64")
+        cpu_thread = in_thread(zoo_step, cpu_net, xc.astype("float64"), yc,
+                               False, None, False)
         X = mx.nd.array(x, ctx=ctx)
         with autograd.predict_mode():
             eager = net(X).asnumpy()
@@ -7378,26 +7427,24 @@ def zoo_checks(seed, device="cuda", families=ZOO, batch=ZOO_BATCH,
             net(X)
             hybrid = net(X).asnumpy()
         fwd = float(np.abs(hybrid - eager).max())
-        e1 = zoo_step(net, x, y, True, seed + 1, False)
-        e2 = zoo_step(net, x, y, True, seed + 1, False)
-        zoo_step(net, x, y, True, seed + 1, True)          # builds the entry
-        h = zoo_step(net, x, y, True, seed + 1, True)
+        # the steps compared run cuDNN's deterministic algorithms: with its
+        # defaults two eager steps read 7.007e-04 to 5.478e-03 apart at
+        # VGG-16-bn's biases before BatchNorm, so one such reading is no
+        # measure of the next one's
+        with patched(torch.backends.cudnn, "deterministic", True):
+            e1 = zoo_step(net, x, y, True, seed + 1, False)
+            e2 = zoo_step(net, x, y, True, seed + 1, False)
+            zoo_step(net, x, y, True, seed + 1, True)      # builds the entry
+            h = zoo_step(net, x, y, True, seed + 1, True)
         noise, _ = compare_steps(e2, e1, names)
         step, where = compare_steps(h, e1, names)
         # the card against the CPU: predict mode (no dropout draws, whose
         # streams differ by device), fp32 and fp64, hybridized on the card
-        xc, yc = x[:cpu_batch], y[:cpu_batch]
-        cpu_net = zoo_net(name, size, kw, seed, mx.cpu(), classes)
-        for p, q in zip(cpu_net.collect_params().values(),
-                        net.collect_params().values()):
-            p.set_data(q.data()._data.cpu())
-        cpu_net.cast("float64")
-        cpu64 = zoo_step(cpu_net, xc.astype("float64"), yc, False, seed,
-                         False)
-        del cpu_net
         card32 = zoo_step(net, xc, yc, False, seed, True)
         net.cast("float64")
         card64 = zoo_step(net, xc.astype("float64"), yc, False, seed, True)
+        cpu64 = joined(*cpu_thread, timeout=600)
+        del cpu_net
         # predict mode leaves the running statistics as they were: their
         # deviation is read absolutely (scale 1), the rest by the update
         scales = [sc if sc > 0 else 1.0
@@ -8754,6 +8801,14 @@ def data_phase(seed, synthetic_phase5=None):
     log(f"== data 3: BERT-base samples ({DL_BATCH} x {BERT_SEQ} a batch) "
         f"through DataLoader({DL_WORKERS} spawned process workers, "
         f"prefetch_to_device) into phase 9 (d)'s recipe, {DL_STEPS} steps")
+
+    def touching():
+        t = time.perf_counter()
+        return touching_worker_fails(seed), time.perf_counter() - t
+
+    # the loader whose worker reaches for the card starts its own pool
+    # (~12 s of spawn and import) beside the recipe's
+    touch = in_thread(touching)
     out = dataloader_recipe(seed, cfg=cfg)
     t3 = time.perf_counter()
     planted, same_tail = resume_checks(out, seed)
@@ -8783,10 +8838,10 @@ def data_phase(seed, synthetic_phase5=None):
     check(same_tail, "the restored loader's batches differ")
     check(not planted, "the resume check passes a loader that was not "
                        "restored")
-    t5 = time.perf_counter()
-    err = touching_worker_fails(seed)
+    err, secs = joined(*touch)
     log(f"  a dataset that reaches for the card in a worker: "
-        f"{err or 'no error'} ({time.perf_counter() - t5:.1f} s)")
+        f"{err or 'no error'} ({secs:.1f} s, on a thread beside the "
+        f"recipe)")
     check(err is not None, "a worker reached the card without an error")
     log(f"  (c) {time.perf_counter() - t2:.1f} s; phase 12 "
         f"{time.perf_counter() - t0:.1f} s")
@@ -10254,6 +10309,9 @@ def bert_step_flops(cfg, batch, seq, attention=True):
 # tools/launch.py, over the host-reduced dist_sync store (gloo): NCCL puts
 # no two ranks of one communicator on one device.
 DP_STEPS, DP_TIMED, DP_WARMUP = 3, 10, 2
+# (b) and (c): BERT-base widths at this depth (the phase's time: the two
+# ranks' steps move every gradient and parameter through host copies)
+DP_RANK_LAYERS = 4
 DP_ADAM = {"learning_rate": 1e-4, "epsilon": 1e-6}
 DP_SGD = {"learning_rate": 0.1, "momentum": 0.9}
 # the CPU check of (b) and (c) (tests/test_torch_chip_smoke_dist.py):
@@ -10450,15 +10508,21 @@ def dp_nccl_phase(seed, cfg, ids, labels, bert_samples_s):
     check(sharded["issued"].get("reduce_scatter", 0) > 0 and
           zero["issued"].get("reduce_scatter", 0) > 0,
           "a store's run issued no reduce-scatter")
+    n_values = sum(t.numel() for t in zero["params"])
     log(f"  ZeRO optimizer state at world size 1: "
-        f"{zero['zero_bytes'] / 2**20:.1f} MiB")
+        f"{zero['zero_bytes'] / 2**20:.1f} MiB, "
+        f"{zero['zero_bytes'] / n_values:g} bytes a value (Adam's two fp32 "
+        f"moments)")
+    check(zero["zero_bytes"] == 8 * n_values,
+          "the one-rank ZeRO state is not two fp32 moments a value")
     return mesh["launches"], zero["zero_bytes"]
 
 
 def dp_worker_main(args):
     """A rank of phase 15 (b) and (c), started by tools/launch.py: joins
     the group from the launcher's environment (both ranks on cuda:0,
-    reducing through gloo), trains BERT-base fp32 on its half of the
+    reducing through gloo), trains BERT-base widths (DP_RANK_LAYERS
+    layers) in fp32 on its half of the
     batch through Trainer(kvstore="dist_sync"): SGD updated on the store
     (per key) and in the Trainer's flat buckets, Adam under MXNET_ZERO=1,
     and the per-key and ZeRO runs again with a planted fault (rank 1
@@ -10481,7 +10545,8 @@ def dp_worker_main(args):
           "distributed.init did not join a group")
     rank, world = collectives.rank(), collectives.world_size()
     out_dir = args.dp_dir
-    cfg = bert.BertConfig(**DP_TINY) if tiny else bert.BertConfig(dropout=0.0)
+    cfg = bert.BertConfig(**DP_TINY) if tiny else \
+        bert.BertConfig(dropout=0.0, num_layers=DP_RANK_LAYERS)
     batch, seq = (DP_TINY_BATCH, DP_TINY_SEQ) if tiny else \
         (BERT_BATCH, BERT_SEQ)
     ids, labels = bert_batch(args.seed, batch, seq, cfg.vocab_size)
@@ -10614,7 +10679,8 @@ def dp_two_process_phase(seed, cfg, ids, labels, zero_bytes_1, tiny=False):
     ctx = mx.cpu() if tiny else mx.gpu(0)
     log("== distributed (b): two processes on cuda:0 through "
         "tools/launch.py -n 2, Trainer(kvstore='dist_sync'), BERT-base "
-        f"fp32, {batch // 2} x {seq} a rank")
+        f"widths at {cfg.num_layers} layers, fp32, {batch // 2} x {seq} a "
+        f"rank")
     here = os.path.dirname(os.path.abspath(__file__))
     work = tempfile.mkdtemp(prefix="mxnet_dp_")
     try:
@@ -10728,6 +10794,7 @@ def distributed_phase(seed, bert_samples_s):
     """Phase 15; returns flash_attn_fwd's launches by path."""
     import torch.distributed as dist
 
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.gluon.model_zoo.language import bert
 
     cfg = bert.BertConfig(dropout=0.0)
@@ -10737,14 +10804,608 @@ def distributed_phase(seed, bert_samples_s):
     dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(),
                             rank=0, world_size=1)
     try:
-        launches_nccl, zero_bytes = dp_nccl_phase(seed, cfg, ids, labels,
-                                                  bert_samples_s)
-        launches_sync = dp_two_process_phase(seed, cfg, ids, labels,
+        launches_nccl, _ = dp_nccl_phase(seed, cfg, ids, labels,
+                                         bert_samples_s)
+        # (b) at DP_RANK_LAYERS: its one-rank ZeRO state is (a)'s measure,
+        # two fp32 moments a value, of that net
+        cfg_b = bert.BertConfig(dropout=0.0, num_layers=DP_RANK_LAYERS)
+        net = init_bert(cfg_b, seed, mx.cpu(), BERT_SEQ)
+        zero_bytes = 8 * sum(p.data().size
+                             for p in net.collect_params().values())
+        del net
+        launches_sync = dp_two_process_phase(seed, cfg_b, ids, labels,
                                              zero_bytes)
     finally:
         dist.destroy_process_group()
     return {"dp_bert_nccl": launches_nccl,
             "dp_bert_dist_sync": launches_sync}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the sharded training step
+# ---------------------------------------------------------------------------
+# (b)-(d) run in one pair of ranks started as children of this script
+# (``--mp-rank``), both on cuda:0 over gloo (NCCL puts no two ranks of one
+# communicator on one device), the collectives through host copies; each
+# check in turn, start-up paid once.  (a) runs after them in this process
+# over a one-rank NCCL group, (e) while they run.  Llama-3-8B widths
+# (hidden 4096, 32/8 heads of 128, FFN 14336, vocab 128256) in fp32, TF32
+# off; the depth cut to 1 layer for (a) and (b) and 2 for (c) (one a
+# stage), so that each rank holds the net, the one-rank step it is held
+# to and its own sharded step on the one card.
+MP_STEPS = 2
+MP_SEQ = 256
+MP_SGD = {"learning_rate": 0.1}
+MP_PP_M, MP_PP_BATCH = 4, 4
+MP_RULES = ("replicated", "fsdp", "megatron", "megatron+fsdp")
+# (d): B, H, L, D of the long causal sequence, and the bound of ring and
+# Ulysses attention against the plain attention over the whole sequence
+MP_SP_SHAPE = (1, 32, 8192, 128)
+MP_SP_BOUND = 1e-5
+# (b), (c): max |sharded - one-rank| / max |one-rank update| of the fp32
+# SGD steps (phase 15 (b)'s measure).  On the CPU (the tiny check,
+# tests/test_torch_chip_smoke_sharded.py) tp = 2 reads 1.7e-6 and GPipe
+# and 1F1B 3.9e-7, the planted faults 0.75 (row-parallel all-reduce left
+# out), 3.7 (kv heads) and 0.95 (reversed backward); (d)'s ring 4.2e-7,
+# Ulysses 0.0, the source-shard fault 2.9
+MP_TP_BOUND = 1e-3
+MP_PP_BOUND = 1e-3
+# the CPU check: Llama at llama_tiny-like widths, and a short sequence
+MP_TINY = dict(vocab_size=96, hidden_size=64, num_heads=4, num_kv_heads=2,
+               intermediate_size=128, max_seq_len=64)
+MP_TINY_SEQ, MP_TINY_SP = 16, (1, 4, 64, 16)
+MP_WORKER_TIMEOUT = 420
+# the planner's check of (e): Llama-3-8B at full depth over 8 cards
+MP_PLAN_DEVICES = 8
+MP_PLAN_ROWS = 8 * 2048
+
+
+def _mp_cfg(tiny, layers):
+    from mxnet_tpu_torch.gluon.model_zoo.language import llama
+
+    return llama.LlamaConfig(num_layers=layers, **(MP_TINY if tiny else {}))
+
+
+def _mp_ratio(step, want, init):
+    """(max |this rank's tiles - the one-rank step's|, max |the one-rank
+    step's update|) over every parameter this rank holds, the one-rank
+    values cut to the same tiles."""
+    num = den = 0.0
+    for k, t in step.params.items():
+        if k not in step.train_params:
+            continue
+        pl = step._place.get(k)
+        w = pl.shard(want[k]) if pl is not None else want[k]
+        i = pl.shard(init[k]) if pl is not None else init[k]
+        num = max(num, (t.detach() - w).abs().max().item())
+        den = max(den, (w - i).abs().max().item())
+    return num, den
+
+
+def _mp_combine(pairs, device):
+    """Each rank's (num, den) pairs maxed over the ranks: the ratios."""
+    from mxnet_tpu_torch.parallel import collectives
+
+    t = torch.tensor([v for p in pairs for v in p], dtype=torch.float64,
+                     device=device)
+    t = collectives.pmax(t, "world", host=collectives.needs_host(t))
+    return [t[2 * i].item() / t[2 * i + 1].item() for i in range(len(pairs))]
+
+
+@contextlib.contextmanager
+def _mp_fault(fault):
+    """Plant one fault of phase 16: the row-parallel all-reduce left out,
+    or the last pipeline stage seeding each microbatch's backward with the
+    reversed microbatch's cotangent, or the ring taking its neighbour's
+    source shard (the kv-head fault is planted on the step's tiles)."""
+    from mxnet_tpu_torch.parallel import context_parallel as cp
+    from mxnet_tpu_torch.parallel import pipeline_parallel as pp
+    from mxnet_tpu_torch.parallel import tensor_parallel as tp
+
+    saved = tp.reduce_from_tp, pp._cotangent, cp._source
+    if fault == "no_row_reduce":
+        tp.reduce_from_tp = lambda x: x
+    elif fault == "reversed_backward":
+        pp._cotangent = lambda d, m: d[d.shape[0] - 1 - m]
+    elif fault == "ring_source":
+        cp._source = lambda my, i, n: (my - i + 1) % n
+    try:
+        yield
+    finally:
+        tp.reduce_from_tp, pp._cotangent, cp._source = saved
+
+
+def _mp_split_kv(step):
+    """The kv-head fault: each rank's k/v tiles replaced by the next
+    rank's, so that its query heads meet another group's keys."""
+    for name, pl in step._place.items():
+        if "k_proj" in name or "v_proj" in name:
+            t = step.train_params[name]
+            n, i = pl.mesh.axis_size("tp"), pl.mesh.axis_index("tp")
+            tiles = pl.gather(t.detach(), host=step._host).chunk(n, 0)
+            with torch.no_grad():
+                t.copy_(tiles[(i + 1) % n])
+
+
+@contextlib.contextmanager
+def _mp_launch_shapes():
+    """Record the (q, k) shapes the attention is called with (its shape
+    check, which the op and the kernel's launcher both run)."""
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+
+    orig, shapes = fa_mod._check_shapes, []
+
+    def check_shapes(q, k, *a, **kw):
+        shapes.append((list(q.shape), list(k.shape)))
+        return orig(q, k, *a, **kw)
+
+    fa_mod._check_shapes = check_shapes
+    try:
+        yield shapes
+    finally:
+        fa_mod._check_shapes = orig
+
+
+def _mp_sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def mp_tp_checks(seed, tiny, device, out):
+    """(b) tp = 2: the megatron plan's step against the one-rank step,
+    clean and with the two planted faults; flash_attn_fwd's launches and
+    their shapes on this rank; the plan's HBM estimate beside the
+    measured peak."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+    from mxnet_tpu_torch.parallel import TrainStep, collectives, planner
+
+    ctx = mx.cpu() if tiny else mx.gpu(0)
+    kern = fa_mod._flash_fwd_cuda
+    cfg = _mp_cfg(tiny, 1)
+    seq = MP_TINY_SEQ if tiny else MP_SEQ
+    t0 = time.perf_counter()
+    net = init_llama(cfg, seed, ctx)
+    ids, labels = llama_batch(seed, 1, seq, cfg.vocab_size)
+    x, y = torch.from_numpy(ids).to(device), torch.from_numpy(labels).to(device)
+    init = {k: p.data()._data for k, p in net.collect_params().items()}
+    plain = TrainStep(net, llama_loss, "sgd", MP_SGD, device=device)
+    for _ in range(MP_STEPS):
+        plain(x, y)
+    want = dict(plain.params)
+    del plain
+    sig = planner.signature_of(net)
+    plan = planner.plan_sharding(planner.PlannerConfig(
+        mesh={"tp": 2}, rules="megatron", batch_rows=seq), sig, 2)
+    pairs = []
+    for fault in (None, "no_row_reduce", "kv_split"):
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        with _mp_fault(fault), _mp_launch_shapes() as shapes:
+            step = TrainStep(net, llama_loss, "sgd", MP_SGD, device=device,
+                             plan=plan)
+            if fault == "kv_split":
+                _mp_split_kv(step)
+            kern.launches = 0
+            collectives.reset_issued()
+            t1 = time.perf_counter()
+            losses = [step(x, y).item() for _ in range(MP_STEPS)]
+            _mp_sync(device)
+            secs = time.perf_counter() - t1
+        pairs.append(_mp_ratio(step, want, init))
+        if fault is None:
+            out["tp"] = {"losses": losses, "seconds": secs,
+                         "launches": kern.launches,
+                         "shapes": shapes, "issued": collectives.issued(),
+                         "execution": sorted(set(step.execution.values())),
+                         "estimate": plan.hbm["total"],
+                         "peak": (torch.cuda.max_memory_allocated() - base)
+                         if device == "cuda" else 0}
+        del step
+    ratios = _mp_combine(pairs, device)
+    out["tp"]["ratio"] = ratios[0]
+    out["tp"]["faults"] = {"no_row_reduce": ratios[1], "kv_split": ratios[2]}
+    out["tp"]["build_s"] = time.perf_counter() - t0
+    del net, init, want
+
+
+def mp_pp_checks(seed, tiny, device, out):
+    """(c) pp = 2, M = 4: GPipe and 1F1B against the one-rank step, and
+    1F1B with the microbatches reversed in the backward."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import flash_attention as fa_mod
+    from mxnet_tpu_torch.parallel import TrainStep, collectives, make_mesh
+
+    ctx = mx.cpu() if tiny else mx.gpu(0)
+    kern = fa_mod._flash_fwd_cuda
+    cfg = _mp_cfg(tiny, 2)
+    seq = MP_TINY_SEQ if tiny else MP_SEQ
+    net = init_llama(cfg, seed + 1, ctx)
+    ids, labels = llama_batch(seed + 1, MP_PP_BATCH, seq, cfg.vocab_size)
+    x, y = torch.from_numpy(ids).to(device), torch.from_numpy(labels).to(device)
+    init = {k: p.data()._data for k, p in net.collect_params().items()}
+    plain = TrainStep(net, llama_loss, "sgd", MP_SGD, device=device)
+    for _ in range(MP_STEPS):
+        plain(x, y)
+    want = dict(plain.params)
+    del plain
+    mesh = make_mesh(pp=2)
+    pairs, runs = [], {}
+    for schedule, fault in (("gpipe", None), ("1f1b", None),
+                            ("1f1b", "reversed_backward")):
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        with _mp_fault(fault), _mp_launch_shapes() as shapes:
+            step = TrainStep(net, llama_loss, "sgd", MP_SGD, device=device,
+                             mesh=mesh, pipeline={
+                                 "num_microbatches": MP_PP_M,
+                                 "schedule": schedule})
+            kern.launches = 0
+            collectives.reset_issued()
+            t1 = time.perf_counter()
+            losses = [step(x, y).item() for _ in range(MP_STEPS)]
+            _mp_sync(device)
+            secs = time.perf_counter() - t1
+        pairs.append(_mp_ratio(step, want, init))
+        if fault is None:
+            runs[schedule] = {"losses": losses, "seconds": secs,
+                              "launches": kern.launches,
+                              "shapes": shapes[:1],
+                              "issued": collectives.issued()}
+        del step
+    ratios = _mp_combine(pairs, device)
+    runs["gpipe"]["ratio"], runs["1f1b"]["ratio"] = ratios[:2]
+    runs["fault"] = ratios[2]
+    out["pp"] = runs
+    del net, init, want
+
+
+def _plain_attention(q, k, v, heads=4):
+    """The plain attention (``_mha_with_lse``) over the whole sequence, a
+    few heads at a time (one (L, L) fp32 score matrix a head)."""
+    from mxnet_tpu_torch.ops.flash_attention import _mha_with_lse
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    return torch.cat([_mha_with_lse(q[:, h:h + heads], k[:, h:h + heads],
+                                    v[:, h:h + heads], True, scale)[0]
+                      for h in range(0, q.shape[1], heads)], dim=1)
+
+
+def mp_sp_checks(seed, tiny, device, out):
+    """(d) sp = 2: ring and Ulysses attention at a long causal sequence
+    against the plain attention over the whole sequence, and the ring with
+    an off-by-one in its source shard."""
+    from mxnet_tpu_torch.parallel import collectives, make_mesh
+    from mxnet_tpu_torch.parallel import context_parallel as cp
+
+    shape = MP_TINY_SP if tiny else MP_SP_SHAPE
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=device)
+               for _ in range(3))
+    with torch.no_grad():
+        ref = _plain_attention(q, k, v)
+        mesh = make_mesh(sp=2)
+        res = {}
+        for which, fault in (("ring", None), ("ulysses", None),
+                             ("ring", "ring_source")):
+            fn = cp.context_parallel_attention if which == "ring" else \
+                cp.ulysses_context_parallel_attention
+            collectives.reset_issued()
+            with _mp_fault(fault):
+                t1 = time.perf_counter()
+                o = fn(q, k, v, mesh, causal=True)
+                _mp_sync(device)
+                secs = time.perf_counter() - t1
+            err = (o - ref).abs().max().item()
+            if fault:
+                res["fault"] = err
+            else:
+                res[which] = {"err": err, "seconds": secs,
+                              "issued": collectives.issued()}
+            del o
+    out["sp"] = res
+
+
+def mp_rank_checks(rank, seed, tiny):
+    """Phase 16 (b)-(d) on this rank of the pair; returns the readings."""
+    device = "cpu" if tiny else "cuda"
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    mp_tp_checks(seed, tiny, device, out)
+    t1 = time.perf_counter()
+    mp_pp_checks(seed, tiny, device, out)
+    t2 = time.perf_counter()
+    mp_sp_checks(seed, tiny, device, out)
+    out["phase_s"] = {"tp": t1 - t0, "pp": t2 - t1,
+                      "sp": time.perf_counter() - t2}
+    return out
+
+
+def mp_worker_main(args):
+    """A rank of phase 16's pair: joins the two-rank gloo group through a
+    FileStore in --mp-dir, runs the checks and writes rank<N>.json
+    there."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.mp_tiny:
+        torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(args.mp_dir, "store"), 2)
+    dist.init_process_group("gloo", store=store, rank=args.mp_rank,
+                            world_size=2)
+    try:
+        res = mp_rank_checks(args.mp_rank, args.seed, args.mp_tiny)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(args.mp_dir, f"rank{args.mp_rank}.json"),
+              "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def mp_start_ranks(seed, work, tiny=False):
+    """Start the pair (this script, ``--mp-rank 0`` and ``1``)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    procs = []
+    for r in range(2):
+        cmd = [sys.executable, os.path.join(here, "chip_smoke.py"),
+               "--mp-rank", str(r), "--mp-dir", work, "--seed", str(seed)]
+        if tiny:
+            cmd.append("--mp-tiny")
+        log_f = open(os.path.join(work, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(cmd, cwd=here, env=env,
+                                       stdout=log_f, stderr=subprocess.STDOUT),
+                      log_f))
+    return procs
+
+
+def mp_finish_ranks(procs, work, t0):
+    """Wait for the pair; returns both ranks' readings."""
+    deadline = t0 + MP_WORKER_TIMEOUT
+    rcs = []
+    for p, log_f in procs:
+        try:
+            rcs.append(p.wait(timeout=max(1.0, deadline - time.time())))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rcs.append(p.wait())
+        log_f.close()
+    if any(rcs):
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                log(f"  rank {r}'s log:\n" + f.read()[-6000:])
+    check(not any(rcs), f"the pair of phase 16 exited {rcs}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def mp_check_ranks(ranks, cfg, tiny):
+    """Phase 16 (b)-(d)'s checks on the pair's readings; returns
+    flash_attn_fwd's launches on rank 0 by path."""
+    tp = ranks[0]["tp"]
+    seq = MP_TINY_SEQ if tiny else MP_SEQ
+    where = "the CPU" if tiny else gpu_line()
+    hq, hkv = cfg.num_heads // 2, cfg.num_kv_heads // 2
+    local = ([1, hq, seq, cfg.head_dim], [1, hkv, seq, cfg.head_dim])
+    log(f"== model parallel (b): tp = 2, megatron plan, 1 layer, "
+        f"{MP_STEPS} SGD steps, 1 x {seq}")
+    for r in ranks:
+        t = r["tp"]
+        log(f"  rank {r['rank']}: losses {t['losses']}; execution "
+            f"{t['execution']}; {t['seconds']:.2f} s for {MP_STEPS} steps "
+            f"({t['build_s']:.1f} s with the one-rank step and the faults); "
+            f"flash_attn_fwd {t['launches']} launches at {t['shapes'][:1]}; "
+            f"collectives {t['issued']}")
+    log(f"  [{where}] |diff| / |update| against the one-rank step: "
+        f"{tp['ratio']:.3e} (bound {MP_TP_BOUND:g}); planted: row-parallel "
+        f"all-reduce left out {tp['faults']['no_row_reduce']:.3e}, kv heads "
+        f"off their query group {tp['faults']['kv_split']:.3e}")
+    check(tp["ratio"] <= MP_TP_BOUND,
+          f"tp = 2 off the one-rank step: {tp['ratio']:.3e}")
+    for fault, v in tp["faults"].items():
+        check(v > MP_TP_BOUND, f"the tp check misses the planted {fault}: "
+                               f"{v:.3e}")
+    check(ranks[0]["tp"]["losses"] == ranks[1]["tp"]["losses"],
+          "the two tp ranks' losses differ")
+    check("tp" in tp["execution"], f"no parameter ran as tp: "
+                                   f"{tp['execution']}")
+    check(tp["issued"].get("psum", 0) > 0,
+          f"the tp step issued no all-reduce: {tp['issued']}")
+    if not tiny:
+        for r in ranks:
+            t = r["tp"]
+            check(t["launches"] == cfg.num_layers * MP_STEPS,
+                  f"rank {r['rank']}: flash_attn_fwd launched "
+                  f"{t['launches']} times, expected layers x steps = "
+                  f"{cfg.num_layers * MP_STEPS}")
+            check(all(tuple(map(tuple, s)) == tuple(map(tuple, local))
+                      for s in t["shapes"]),
+                  f"rank {r['rank']}: launches at {t['shapes']}, not the "
+                  f"local-head shape {local}")
+        log(f"  rank 0's step: the planner's HBM estimate "
+            f"{tp['estimate'] / 2**30:.2f} GiB, measured peak over the "
+            f"net and the one-rank step "
+            f"{tp['peak'] / 2**30:.2f} GiB (max_memory_allocated)")
+
+    pp = ranks[0]["pp"]
+    log(f"== model parallel (c): pp = 2, M = {MP_PP_M}, 2 layers, "
+        f"{MP_STEPS} SGD steps, {MP_PP_BATCH} x {seq}")
+    for r in ranks:
+        for sched in ("gpipe", "1f1b"):
+            t = r["pp"][sched]
+            log(f"  rank {r['rank']} {sched}: losses {t['losses']}; "
+                f"{t['seconds']:.2f} s; flash_attn_fwd {t['launches']} "
+                f"launches; collectives {t['issued']}")
+    log(f"  [{where}] |diff| / |update| against the one-rank step: "
+        f"GPipe {pp['gpipe']['ratio']:.3e}, 1F1B {pp['1f1b']['ratio']:.3e} "
+        f"(bound {MP_PP_BOUND:g}); planted (1F1B, microbatches reversed in "
+        f"the backward) {pp['fault']:.3e}")
+    for sched in ("gpipe", "1f1b"):
+        check(pp[sched]["ratio"] <= MP_PP_BOUND,
+              f"pp = 2 {sched} off the one-rank step: "
+              f"{pp[sched]['ratio']:.3e}")
+        check(pp[sched]["issued"].get("send", 0) > 0,
+              f"{sched}: no activation sent between the stages")
+    check(pp["fault"] > MP_PP_BOUND,
+          f"the pp check misses the reversed backward: {pp['fault']:.3e}")
+    if not tiny:
+        for r in ranks:
+            for sched, per in (("gpipe", 1), ("1f1b", 2)):
+                n = r["pp"][sched]["launches"]
+                check(n == per * MP_PP_M * MP_STEPS,
+                      f"rank {r['rank']} {sched}: flash_attn_fwd launched "
+                      f"{n} times, expected {per * MP_PP_M * MP_STEPS}")
+
+    sp = ranks[0]["sp"]
+    shape = MP_TINY_SP if tiny else MP_SP_SHAPE
+    log(f"== model parallel (d): sp = 2, (B, H, L, D) = {shape}, causal, "
+        f"fp32 [{where}]")
+    for r in ranks:
+        s = r["sp"]
+        log(f"  rank {r['rank']}: ring max|err| {s['ring']['err']:.3e} "
+            f"({s['ring']['seconds']:.2f} s, {s['ring']['issued']}), "
+            f"Ulysses {s['ulysses']['err']:.3e} "
+            f"({s['ulysses']['seconds']:.2f} s, {s['ulysses']['issued']}); "
+            f"planted source shard {s['fault']:.3e}")
+        for which in ("ring", "ulysses"):
+            check(s[which]["err"] <= MP_SP_BOUND,
+                  f"rank {r['rank']}: {which} attention off the plain one: "
+                  f"{s[which]['err']:.3e} > {MP_SP_BOUND:g}")
+        check(s["fault"] > MP_SP_BOUND,
+              f"the ring check misses the source-shard fault: "
+              f"{s['fault']:.3e}")
+    log(f"  the pair's phases (rank 0): "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in
+                    ranks[0]["phase_s"].items()))
+    return {"mp_tp_llama": tp["launches"],
+            "mp_pp_gpipe": pp["gpipe"]["launches"],
+            "mp_pp_1f1b": pp["1f1b"]["launches"]}
+
+
+def mp_two_rank_phase(seed, tiny=False, during=None):
+    """Phase 16 (b)-(d): the pair started, ``during()`` run while it works,
+    its readings checked.  Returns (flash_attn_fwd's launches by path,
+    rank 0's readings)."""
+    work = tempfile.mkdtemp(prefix="mxnet_mp_")
+    try:
+        t0 = time.time()
+        procs = mp_start_ranks(seed, work, tiny)
+        if during is not None:
+            during()
+        ranks = mp_finish_ranks(procs, work, t0)
+        log(f"  the pair ran in {time.time() - t0:.1f} s (start-up "
+            f"included)")
+        cfg = _mp_cfg(tiny, 1)
+        return mp_check_ranks(ranks, cfg, tiny), ranks[0]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def mp_nccl_checks(seed):
+    """(a) world size 1 over a NCCL communicator: TrainStep(plan=) under
+    each named rule set equal to the plain step bit for bit (the plain
+    step run twice to show it repeats itself)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import TrainStep, planner
+
+    cfg = _mp_cfg(False, 1)
+    net = init_llama(cfg, seed, mx.gpu(0))
+    ids, labels = llama_batch(seed, 1, MP_SEQ, cfg.vocab_size)
+    x, y = torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda()
+    sig = planner.signature_of(net)
+
+    def run(plan=None):
+        step = TrainStep(net, llama_loss, "sgd", MP_SGD, device="cuda",
+                         plan=plan)
+        losses = [step(x, y).item() for _ in range(MP_STEPS)]
+        return losses, {k: v.detach().clone() for k, v in
+                        step.params.items()}, step
+
+    log(f"== model parallel (a): world size 1 over NCCL, TrainStep(plan=) "
+        f"under {', '.join(MP_RULES)}, Llama-3-8B widths, 1 layer "
+        f"[{gpu_line()}]")
+    base = [run()[:2] for _ in range(2)]
+    same = all(torch.equal(base[0][1][k], base[1][1][k]) for k in base[0][1])
+    log(f"  the plain step repeats itself bit for bit: {same}")
+    check(same and base[0][0] == base[1][0], "the plain step does not repeat")
+    for rules in MP_RULES:
+        plan = planner.plan_sharding(planner.PlannerConfig(
+            mesh="auto", rules=rules), sig, 1)
+        losses, params, step = run(plan)
+        equal = losses == base[0][0] and all(
+            torch.equal(params[k], base[0][1][k]) for k in params)
+        log(f"  {rules}: mesh {dict(plan.axes)}, execution "
+            f"{sorted(set(step.execution.values()))}, losses {losses}; "
+            f"equal to the plain step bit for bit: {equal}")
+        check(equal, f"TrainStep(plan={rules}) at world size 1 is not the "
+                     f"plain step")
+        del step, params
+    del net, base
+    torch.cuda.empty_cache()
+
+
+def llama_signature(cfg):
+    """The (name, shape, dtype) signature of LlamaForCausalLM(cfg), from
+    the blocks' declared shapes (nothing allocated), in
+    ``planner.signature_of``'s order."""
+    from mxnet_tpu_torch.gluon.model_zoo.language import llama
+
+    net = llama.LlamaForCausalLM(cfg)
+    return tuple((name, tuple(p.shape), "float32")
+                 for name, p in sorted(net.collect_params().items()))
+
+
+def mp_planner_reading():
+    """(e) the mesh the planner chooses for Llama-3-8B at full depth on
+    MP_PLAN_DEVICES cards of this card's memory (Adam, ZeRO off,
+    MP_PLAN_ROWS tokens a step), with its estimate."""
+    from mxnet_tpu_torch.gluon.model_zoo.language import llama
+    from mxnet_tpu_torch.parallel import planner
+
+    sig = llama_signature(llama.LlamaConfig())
+    cfg = planner.PlannerConfig(mesh="auto", rules="megatron+fsdp",
+                                optimizer="adam", zero=False,
+                                batch_rows=MP_PLAN_ROWS)
+    plan = planner.plan_sharding(cfg, sig, MP_PLAN_DEVICES)
+    log(f"== model parallel (e): the planner for Llama-3-8B (32 layers, "
+        f"{sum(math.prod(s) for _, s, _ in sig) / 1e9:.3f} G parameters), "
+        f"Adam, {MP_PLAN_ROWS} tokens a step, on {MP_PLAN_DEVICES} cards of "
+        f"{cfg.hbm_gb:.1f} GiB [{gpu_line()}]: mesh {dict(plan.axes)} "
+        f"({plan.chosen_by}); estimate {plan.hbm['total'] / 2**30:.2f} GiB "
+        f"a card (params {plan.hbm['params'] / 2**30:.2f}, grads "
+        f"{plan.hbm['grads'] / 2**30:.2f}, optimizer "
+        f"{plan.hbm['optimizer'] / 2**30:.2f}, activations "
+        f"{plan.hbm['activations'] / 2**30:.2f}); candidates "
+        + ", ".join(f"{c['axes']}: {c['total'] / 2**30:.1f} GiB"
+                    for c in plan.candidates[:4]))
+    check(plan.hbm["feasible"], "the planner's mesh does not fit the card")
+    return plan
+
+
+def model_parallel_phase(seed):
+    """Phase 16; returns flash_attn_fwd's launches by path."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    launches, _ = mp_two_rank_phase(seed, during=mp_planner_reading)
+    t1 = time.perf_counter()
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(),
+                            rank=0, world_size=1)
+    try:
+        mp_nccl_checks(seed)
+    finally:
+        dist.destroy_process_group()
+    log(f"  phase 16: the pair {t1 - t0:.1f} s, (a) "
+        f"{time.perf_counter() - t1:.1f} s")
+    return launches
 
 
 def parse_args(argv=None):
@@ -10795,6 +11456,17 @@ def parse_args(argv=None):
     parser.add_argument("--distributed", action="store_true",
                         help="run only the build and phase 15, data "
                              "parallelism across processes")
+    parser.add_argument("--model-parallel", action="store_true",
+                        help="run only the build and phase 16, the sharded "
+                             "training step (tensor, pipeline, context and "
+                             "expert parallelism, the planner)")
+    parser.add_argument("--mp-rank", type=int, default=None,
+                        help="a rank of phase 16's pair (0 or 1)")
+    parser.add_argument("--mp-dir", metavar="PATH",
+                        help="with --mp-rank: the shared work directory")
+    parser.add_argument("--mp-tiny", action="store_true",
+                        help="with --mp-rank: a tiny Llama on the CPU (the "
+                             "CPU test of phase 16)")
     parser.add_argument("--dp-worker", action="store_true",
                         help="a rank of phase 15 (b): started by "
                              "tools/launch.py")
@@ -10832,6 +11504,8 @@ def main():
     args = parse_args()
     if args.dp_worker and args.dp_tiny:
         return dp_worker_main(args)
+    if args.mp_rank is not None and args.mp_tiny:
+        return mp_worker_main(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the "
               "card", file=sys.stderr)
@@ -10847,6 +11521,8 @@ def main():
         return tune_replay_main(args)
     if args.dp_worker:
         return dp_worker_main(args)
+    if args.mp_rank is not None:
+        return mp_worker_main(args)
     from mxnet_tpu_torch import _kernels
 
     if args.nvcc_seconds:
@@ -10983,6 +11659,14 @@ def main():
         log(f"== done in {time.perf_counter() - t_all:.1f} s")
         return 0
 
+    if args.model_parallel:
+        log("== the sharded training step (phase 16 alone)")
+        launches = model_parallel_phase(args.seed)
+        for path, n in launches.items():
+            check(n > 0, f"flash_attn_fwd never ran on the {path} path")
+        log(f"== done in {time.perf_counter() - t_all:.1f} s")
+        return 0
+
     if args.frontend:
         log("== the Gluon frontend (phase 11 alone)")
         n = frontend_phase(args.seed)
@@ -11108,8 +11792,17 @@ def main():
         "tools/launch.py and dist_sync, the agreements")
     launches.update(distributed_phase(args.seed, bert_samples_s))
     torch.cuda.empty_cache()
-    log(f"  distributed phase took {time.perf_counter() - t11:.1f} s")
+    t12 = time.perf_counter()
+    log(f"  distributed phase took {t12 - t11:.1f} s")
     report_children("the distributed phase")
+
+    log("== the sharded training step: tensor, pipeline and context "
+        "parallelism over a pair of ranks on the card, TrainStep(plan=) over "
+        "a one-rank NCCL group, the planner")
+    launches.update(model_parallel_phase(args.seed))
+    torch.cuda.empty_cache()
+    log(f"  model parallel phase took {time.perf_counter() - t12:.1f} s")
+    report_children("the model parallel phase")
     for path, n in launches.items():
         check(n > 0, f"flash_attn_fwd never ran on the {path} path")
         row["by_path"][path]["launches"] = n

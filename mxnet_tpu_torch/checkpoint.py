@@ -576,8 +576,8 @@ def run_with_recovery(train_fn, manager, max_restarts=3,
 
     if resharder is not None:
         raise MXNetError("run_with_recovery(resharder=): live resharding "
-                         "comes with the second multi-GPU slice (ROADMAP "
-                         "A6)")
+                         "comes with the next multi-GPU slice (ROADMAP A6: "
+                         "resharding.py with the elastic restore)")
     log = logger or _LOGGER
     if backoff_ms is None:
         backoff_ms = fault.backoff_ms()

@@ -90,9 +90,18 @@ Wired vars:
   ``lifecycle.check_stop`` every N-th call (default 1).
 - ``MXNET_LIFECYCLE_SIGNALS``: ``parallel.distributed.init`` installs the
   graceful-stop signal handlers (default 1).
+- ``MXNET_PLANNER_MESH``: default mesh of the sharding planner (``auto``
+  or an explicit ``dp=4,tp=2`` spec; ``parallel.planner``).
+- ``MXNET_PLANNER_HBM_GB``: per-device memory budget in GiB of the
+  planner's auto mesh selection (default: the first CUDA card's memory,
+  16.0 without a card).
+- ``MXNET_PLANNER_PIPELINE_IN_JIT``: the reference's pipeline-layout flag,
+  carried by the plan; both values run the same pipeline here (default 0).
+- ``MXNET_PLANNER_REPORT``: print the planner's ``visualize_sharding``
+  report whenever a plan is computed (default 0).
 
-The knobs of planes not ported yet (planner, graph, compile cache) wait
-for their code.
+The knobs of planes not ported yet (graph, compile cache) wait for their
+code.
 """
 from __future__ import annotations
 
@@ -119,7 +128,9 @@ __all__ = ["get_str", "get_int", "get_bool", "get_float",
            "guard_sync_every", "guard_checksum", "guard_canary_every",
            "device_peak_flops_override", "watchdog_timeout_s",
            "zero_enabled", "allreduce_bucket_mb", "kvstore_bigarray_bound",
-           "stop_sync_every", "describe", "apply_env"]
+           "stop_sync_every", "planner_mesh", "planner_hbm_gb",
+           "planner_pipeline_in_jit", "planner_report", "describe",
+           "apply_env"]
 
 
 def get_str(name, default=None):
@@ -464,6 +475,42 @@ def stop_sync_every():
     return max(1, get_int("MXNET_STOP_SYNC_EVERY", 1))
 
 
+def planner_mesh():
+    """Default mesh of PlannerConfig(mesh=None): "auto" or an explicit
+    "dp=4,tp=2"-style spec (MXNET_PLANNER_MESH, default auto)."""
+    return get_str("MXNET_PLANNER_MESH", "auto")
+
+
+def planner_hbm_gb():
+    """Per-device memory budget in GiB of the planner's auto mesh
+    selection (MXNET_PLANNER_HBM_GB).  Unset (or not positive): the first
+    CUDA card's memory (``total_memory``), so every rank of one machine
+    type plans against the same number; 16.0, the reference's default,
+    where there is no card."""
+    v = get_float("MXNET_PLANNER_HBM_GB", 0.0)
+    if v > 0:
+        return v
+    import torch
+
+    if torch.cuda.is_available():
+        props = torch.cuda.get_device_properties(0)
+        return props.total_memory / float(1 << 30)
+    return 16.0
+
+
+def planner_pipeline_in_jit():
+    """The reference's stage-layout flag of the pipeline
+    (MXNET_PLANNER_PIPELINE_IN_JIT, default 0).  The plan carries it; the
+    port's pipeline holds each stage on its own rank either way."""
+    return get_bool("MXNET_PLANNER_PIPELINE_IN_JIT", False)
+
+
+def planner_report():
+    """Print the visualize_sharding report whenever a plan is computed
+    (MXNET_PLANNER_REPORT, default 0)."""
+    return get_bool("MXNET_PLANNER_REPORT", False)
+
+
 _WIRED = (
     ("MXNET_SEED", "global RNG seed at import (random.seed)"),
     ("MXNET_FAULT_SPEC", "deterministic fault injection spec "
@@ -570,6 +617,14 @@ _WIRED = (
     ("MXNET_NUM_WORKERS", "launcher world size (alias DMLC_NUM_WORKER; "
      "default 1)"),
     ("MXNET_WORKER_ID", "launcher rank (alias DMLC_WORKER_ID)"),
+    ("MXNET_PLANNER_MESH", "default planner mesh: auto or "
+     "\"dp=4,tp=2\"-style spec (parallel/planner)"),
+    ("MXNET_PLANNER_HBM_GB", "per-device memory budget in GiB of the "
+     "planner's auto mesh (default: the card's memory)"),
+    ("MXNET_PLANNER_PIPELINE_IN_JIT", "the plan's pipeline-layout flag "
+     "(default 0)"),
+    ("MXNET_PLANNER_REPORT", "print the plan report when a plan is "
+     "computed (default 0)"),
 )
 
 

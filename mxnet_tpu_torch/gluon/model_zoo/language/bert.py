@@ -6,13 +6,17 @@ Blocks, parameter names and their order are the reference's, so weights
 carry over with ``gluon.load_reference_params``.  Self-attention goes
 through ``F.flash_attention`` (the op table's ``_contrib_flash_attention``):
 the Hopper kernel forward and the blockwise backward on the card, the plain
-version on the CPU.  ``pipeline_decompose`` (pipeline parallelism) is not
-ported.
+version on the CPU.  ``BertForPretraining.pipeline_decompose`` splits the
+net into embeddings, uniform encoder stages and heads for
+``TrainStep(pipeline=)``.
 """
 from __future__ import annotations
 
 import math
 
+from ....base import MXNetError
+from .... import ndarray as _nd
+from ....parallel.functional import functionalize, functionalize_part
 from ... import nn
 from ...block import HybridBlock
 
@@ -99,8 +103,8 @@ class BertModel(HybridBlock):
         self.pooler = nn.Dense(cfg.hidden_size, activation="tanh",
                                flatten=False, in_units=cfg.hidden_size)
 
-    def hybrid_forward(self, F, input_ids, token_types=None):
-        b, l = input_ids.shape[0], input_ids.shape[1]
+    def _embed(self, F, input_ids, token_types=None):
+        l = input_ids.shape[1]
         # the positions live where the ids do (the reference's arange has
         # no context; here the default context is the first card)
         pos = F.arange(0, l, dtype="int32", ctx=input_ids.context)
@@ -109,11 +113,15 @@ class BertModel(HybridBlock):
         h = h + positions.reshape((1, l, -1))
         if token_types is not None:
             h = h + self.token_type_embed(token_types)
-        h = self.embed_dropout(self.embed_norm(h))
-        h = self.encoder(h)
-        pooled = self.pooler(h.slice_axis(axis=1, begin=0, end=1)
-                             .reshape((b, -1)))
-        return h, pooled
+        return self.embed_dropout(self.embed_norm(h))
+
+    def _pool(self, h):
+        return self.pooler(h.slice_axis(axis=1, begin=0, end=1)
+                           .reshape((h.shape[0], -1)))
+
+    def hybrid_forward(self, F, input_ids, token_types=None):
+        h = self.encoder(self._embed(F, input_ids, token_types))
+        return h, self._pool(h)
 
 
 class BertForPretraining(HybridBlock):
@@ -135,6 +143,46 @@ class BertForPretraining(HybridBlock):
         seq, pooled = self.bert(input_ids, token_types)
         mlm = self.mlm_decoder(self.mlm_norm(F.gelu(self.mlm_dense(seq))))
         return mlm, self.nsp(pooled)
+
+    def pipeline_decompose(self, n_stages, train_mode=True):
+        """Split the net for ``TrainStep(pipeline=)``: embeddings (pre) ->
+        ``n_stages`` uniform encoder stages -> pooler + MLM/NSP heads
+        (post); the contract of ``LlamaForCausalLM.pipeline_decompose``.
+        Token types are not threaded (the pretraining step passes ids
+        only)."""
+        cfg = self._cfg
+        L = cfg.num_layers
+        if L % n_stages:
+            raise MXNetError(
+                f"num_layers {L} not divisible by pipeline stages {n_stages}")
+        bert = self.bert
+        lay0 = bert.encoder[0]
+        lay_apply, lay0_p = functionalize(lay0, train_mode=train_mode)
+        pre_blocks = (bert.word_embed, bert.position_embed, bert.embed_norm,
+                      bert.embed_dropout)
+        post_blocks = (bert.pooler, self.mlm_dense, self.mlm_norm,
+                       self.mlm_decoder, self.nsp)
+        pre_names = [n for b in pre_blocks for n in b.collect_params()]
+        post_names = [n for b in post_blocks for n in b.collect_params()]
+        # identical blocks declare their parameters in the same order
+        lay0_order = list(lay0.collect_params())
+        layer_names = [dict(zip(lay0_order, bert.encoder[i].collect_params(),
+                                strict=True)) for i in range(L)]
+
+        def heads(h):
+            mlm = self.mlm_decoder(self.mlm_norm(_nd.gelu(self.mlm_dense(h))))
+            return mlm, self.nsp(bert._pool(h))
+
+        return {
+            "pre_names": pre_names, "post_names": post_names,
+            "layer_names": layer_names, "layer0_names": list(lay0_p),
+            "pre_fn": functionalize_part(
+                self, lambda ids: bert._embed(_nd, ids), pre_names,
+                train_mode),
+            "layer_fn": lay_apply,
+            "post_fn": functionalize_part(self, heads, post_names,
+                                          train_mode),
+        }
 
 
 def bert_base(**overrides):

@@ -16,8 +16,14 @@ The serving path is the pure functions at the bottom (``prefill_apply`` /
 ``decode_apply`` over the structural-name dict ``serving_params(net)``
 returns, ``model.layers.0.self_attn.q_proj.weight`` ...), written op for op
 like the blocks' forward so that incremental decode reproduces the
-full-context forward.  ``pipeline_decompose`` (pipeline parallelism) is not
-ported.
+full-context forward.
+
+Sharded training: ``tensor_parallel_specs`` names the Megatron layout the
+blocks can run as tensor parallelism (under ``parallel.tensor_parallel.
+tp_scope`` each rank computes its own heads and its slice of the FFN, the
+attention on the local heads through the same kernel), and
+``pipeline_decompose`` splits the net into embedding, uniform decoder
+stages and head for ``TrainStep(pipeline=)``.
 """
 from __future__ import annotations
 
@@ -35,7 +41,9 @@ from ....context import Context, resolve_device
 from ....ndarray.ndarray import NDArray
 from ....ops.attention_ops import rms_norm, rope, swiglu
 from ....ops.flash_attention import NEG_INF, flash_attention
-from ....parallel.functional import rematerialize
+from ....parallel import tensor_parallel as _tp
+from ....parallel.functional import functionalize, functionalize_part, \
+    rematerialize
 from ... import nn
 from ...block import HybridBlock
 from ...parameter import _TRACE
@@ -93,6 +101,14 @@ def _dense(cfg, units, in_units, prefix):
                     dtype=cfg.dtype, prefix=prefix)
 
 
+def _tp_hook(fn, x, *args):
+    """A tensor-parallel hook of ``parallel.tensor_parallel`` on an
+    NDArray (the identity outside ``tp_scope``)."""
+    if _tp.tp_size() == 1:
+        return x
+    return NDArray._wrap(fn(x._data, *args))
+
+
 class RMSNorm(HybridBlock):
     def __init__(self, dim, eps=1e-5, dtype="float32", **kwargs):
         super().__init__(**kwargs)
@@ -119,18 +135,19 @@ class LlamaAttention(HybridBlock):
         cfg = self._cfg
         b, l = x.shape[0], x.shape[1]
         hd = cfg.head_dim
-        q = self.q_proj(x).reshape((b, l, cfg.num_heads, hd)).transpose(
-            (0, 2, 1, 3))
-        k = self.k_proj(x).reshape((b, l, cfg.num_kv_heads, hd)).transpose(
-            (0, 2, 1, 3))
-        v = self.v_proj(x).reshape((b, l, cfg.num_kv_heads, hd)).transpose(
-            (0, 2, 1, 3))
+        # under tensor parallelism the products give this rank's heads
+        # (num_heads / tp query and num_kv_heads / tp kv heads, whole GQA
+        # groups), hence the -1 head counts
+        x = _tp_hook(_tp.copy_to_tp, x)
+        q = self.q_proj(x).reshape((b, l, -1, hd)).transpose((0, 2, 1, 3))
+        k = self.k_proj(x).reshape((b, l, -1, hd)).transpose((0, 2, 1, 3))
+        v = self.v_proj(x).reshape((b, l, -1, hd)).transpose((0, 2, 1, 3))
         q = F.rope(q, base=cfg.rope_base)
         k = F.rope(k, base=cfg.rope_base)
         o = F.flash_attention(q, k, v, causal=True,
                               sm_scale=1.0 / math.sqrt(hd))
-        o = o.transpose((0, 2, 1, 3)).reshape((b, l, cfg.num_heads * hd))
-        return self.o_proj(o)
+        o = o.transpose((0, 2, 1, 3)).reshape((b, l, -1))
+        return _tp_hook(_tp.reduce_from_tp, self.o_proj(o))
 
 
 class LlamaMLP(HybridBlock):
@@ -143,7 +160,9 @@ class LlamaMLP(HybridBlock):
             self.down_proj = _dense(cfg, h, i, "down_proj_")
 
     def hybrid_forward(self, F, x):
-        return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
+        x = _tp_hook(_tp.copy_to_tp, x)
+        return _tp_hook(_tp.reduce_from_tp, self.down_proj(
+            F.swiglu(self.gate_proj(x), self.up_proj(x))))
 
 
 class LlamaMoEMLP(HybridBlock):
@@ -224,7 +243,7 @@ class LlamaModel(HybridBlock):
                                 prefix="norm_")
 
     def hybrid_forward(self, F, input_ids):
-        h = self.embed_tokens(input_ids)
+        h = _tp_hook(_tp.gather_from_tp, self.embed_tokens(input_ids), -1)
         h = self.layers(h)
         return self.norm(h)
 
@@ -250,11 +269,78 @@ class LlamaForCausalLM(HybridBlock):
         return super().forward(input_ids)
 
     def hybrid_forward(self, F, input_ids):
-        return self.lm_head(self.model(input_ids))
+        h = _tp_hook(_tp.copy_to_tp, self.model(input_ids))
+        return _tp_hook(_tp.gather_from_tp, self.lm_head(h), -1)
 
     @property
     def config(self):
         return self._cfg
+
+    def tensor_parallel_specs(self, size, axis="tp"):
+        """The parameters this net runs as Megatron tensor parallelism
+        over ``size`` ranks of ``axis``, each with the spec it needs
+        (``parallel.planner``'s Megatron rules): q/k/v, gate/up and
+        lm_head split on the out dim, o/down on the in dim, the embedding
+        on the hidden dim.  None when the widths do not split evenly (the
+        query and kv heads, the FFN, the vocabulary, the hidden size):
+        then the step gathers each split weight before use instead."""
+        from ....parallel.mesh import PartitionSpec as P
+
+        cfg = self._cfg
+        if any(n % size for n in (cfg.num_heads, cfg.num_kv_heads,
+                                  cfg.vocab_size, cfg.hidden_size)) or \
+                (cfg.num_experts == 0 and cfg.intermediate_size % size):
+            return None
+        col, row = P(axis, None), P(None, axis)
+        out = OrderedDict()
+        out[self.model.embed_tokens.weight.name] = row
+        for layer in self.model.layers:
+            a = layer.self_attn
+            for blk in (a.q_proj, a.k_proj, a.v_proj):
+                out[blk.weight.name] = col
+            out[a.o_proj.weight.name] = row
+            if cfg.num_experts == 0:
+                out[layer.mlp.gate_proj.weight.name] = col
+                out[layer.mlp.up_proj.weight.name] = col
+                out[layer.mlp.down_proj.weight.name] = row
+        out[self.lm_head.weight.name] = col
+        return out
+
+    def pipeline_decompose(self, n_stages, train_mode=True):
+        """Split the net for pipeline parallelism: embed (pre) ->
+        ``n_stages`` uniform trunk stages of ``num_layers / n_stages``
+        decoder layers each -> final norm + lm_head (post), for
+        ``TrainStep(pipeline=)``.
+
+        Returns a dict: ``pre_names`` / ``post_names`` (parameter-name
+        groups), ``layer_names`` (per layer, {layer-0 name: this layer's
+        name}), ``layer0_names`` and the functions ``pre_fn(params, ids)``,
+        ``layer_fn(layer_params_keyed_like_layer0, h)``,
+        ``post_fn(params, h)``."""
+        cfg = self._cfg
+        L = cfg.num_layers
+        if L % n_stages:
+            raise MXNetError(
+                f"num_layers {L} not divisible by pipeline stages "
+                f"{n_stages}")
+        model = self.model
+        lay0 = model.layers[0]
+        lay_apply, lay0_p = functionalize(lay0, train_mode=train_mode)
+        pre_names = list(model.embed_tokens.collect_params())
+        post_names = list(model.norm.collect_params()) + \
+            list(self.lm_head.collect_params())
+        # identical blocks declare their parameters in the same order
+        lay0_order = list(lay0.collect_params())
+        layer_names = [dict(zip(lay0_order, model.layers[i].collect_params(),
+                                strict=True)) for i in range(L)]
+        pre = functionalize_part(self, model.embed_tokens, pre_names,
+                                 train_mode)
+        post = functionalize_part(
+            self, lambda h: self.lm_head(model.norm(h)), post_names,
+            train_mode)
+        return {"pre_names": pre_names, "post_names": post_names,
+                "layer_names": layer_names, "layer0_names": list(lay0_p),
+                "pre_fn": pre, "layer_fn": lay_apply, "post_fn": post}
 
     @property
     def device(self):

@@ -37,7 +37,8 @@ cross-rank telemetry aggregation (``telemetry_agg``).
 With more than one process and agreement on (``coordinate_stops``,
 turned on by ``parallel.distributed.init``), ``check_stop`` agrees on the
 stop through a one-scalar all-reduce every ``MXNET_STOP_SYNC_EVERY``-th
-call.  ``elastic_resharder`` waits for the second multi-GPU slice.
+call.  ``elastic_resharder`` waits for the next multi-GPU slice (ROADMAP A6:
+resharding with the elastic restore).
 """
 from __future__ import annotations
 

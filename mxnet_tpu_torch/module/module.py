@@ -3,7 +3,7 @@
 
 The reference binds one executor too.  Here it runs on one device a
 process: a ``context`` list of more than one device raises (several
-contexts in one process come with the second multi-GPU slice, ROADMAP.md
+contexts in one process come with the next multi-GPU slice, ROADMAP.md
 A6) instead of quietly running on the first device.  ``kvstore`` takes
 every store of ``mx.kv``: a distributed one (with a process group)
 updates the weights on the store, as MXNet 1.x's ``update_on_kvstore``
@@ -29,7 +29,7 @@ def _one_device(context):
         if len(context) != 1:
             raise MXNetError(
                 f"Module over {len(context)} devices: several contexts in "
-                f"one process come with the second multi-GPU slice "
+                f"one process come with the next multi-GPU slice "
                 f"(ROADMAP.md A6); bind one context a process and train "
                 f"across processes with a distributed kvstore")
         context = context[0]

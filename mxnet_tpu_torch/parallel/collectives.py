@@ -6,11 +6,11 @@ mesh.  The port runs one process per device, so each wrapper here is a
 ``torch.distributed`` call over the process group of a mesh axis
 (:meth:`..mesh.Mesh.group`): NCCL for CUDA tensors, gloo for CPU
 tensors.  A CUDA tensor on a group without NCCL raises, unless the caller
-passes ``host=True`` (``reduce_scatter``, ``all_gather`` and the
-``allreduce_hosts`` family): then a host copy is reduced over gloo and
-the result comes back to the tensor's device.  The host-reduced stores
-(``dist_sync``, two processes sharing a card) pass their
-``_host_reduce``; this is the only place that makes that copy.
+passes ``host=True`` (every wrapper takes it): then a host copy is
+reduced over gloo and the result comes back to the tensor's device.
+The host-reduced stores (``dist_sync``, two processes sharing a card)
+pass their ``_host_reduce``, the sharded training step its own flag;
+this is the only place that makes that copy.
 
 One issue site.  Every collective goes through :func:`_issue`, the
 counterpart of the reference's ``_combine_with_seam``: it stamps the
@@ -45,8 +45,9 @@ from .. import flight_recorder as _flight
 from .. import telemetry as _telemetry
 from ..base import MXNetError
 
-__all__ = ["psum", "pmean", "all_gather", "reduce_scatter", "ppermute",
-           "all_to_all", "allreduce_hosts", "allreduce_hosts_quantized",
+__all__ = ["psum", "pmean", "pmax", "all_gather", "reduce_scatter",
+           "ppermute", "all_to_all", "send", "recv", "needs_host",
+           "allreduce_hosts", "allreduce_hosts_quantized",
            "allreduce_hosts_quantized_multi", "allreduce_any", "barrier",
            "issued", "reset_issued", "world_size", "rank"]
 
@@ -102,6 +103,15 @@ def _issue(op, lead, fn, axis=None, generation=None):
         _ISSUED[op] = _ISSUED.get(op, 0) + 1
     _ISSUED_TOTAL.labels(op=op).inc()
     return out
+
+
+def needs_host(t):
+    """True when ``t`` is a CUDA tensor and the default group has no NCCL
+    (two ranks sharing a card reduce over gloo): the ``host=`` value the
+    sharded training paths pass."""
+    d = _dist()
+    return bool(d is not None and t.is_cuda and
+                "nccl" not in str(d.get_backend(None)))
 
 
 def _resolve(axis_name, mesh):
@@ -167,44 +177,57 @@ class _PSum(torch.autograd.Function):
     """psum whose gradient is psum of the gradient."""
 
     @staticmethod
-    def forward(ctx, x, group, label):
-        ctx.group, ctx.label = group, label
-        return _issue("psum", x, lambda: _allreduce_raw(x, group),
+    def forward(ctx, x, group, label, host):
+        ctx.group, ctx.label, ctx.host = group, label, host
+        return _issue("psum", x, lambda: _allreduce_raw(x, group, host=host),
                       axis=label)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous()
         return _issue("psum_grad", g,
-                      lambda: _allreduce_raw(g, ctx.group),
-                      axis=ctx.label), None, None
+                      lambda: _allreduce_raw(g, ctx.group, host=ctx.host),
+                      axis=ctx.label), None, None, None
 
 
-def psum(x, axis_name="dp", mesh=None):
+def psum(x, axis_name="dp", mesh=None, host=False):
     """Sum of ``x`` over the ranks of ``axis_name``."""
     if _dist() is None:
         return x
     group, _, label = _resolve(axis_name, mesh)
     if x.requires_grad and torch.is_grad_enabled():
-        return _PSum.apply(x, group, label)
-    return _issue("psum", x, lambda: _allreduce_raw(x, group), axis=label)
+        return _PSum.apply(x, group, label, host)
+    return _issue("psum", x, lambda: _allreduce_raw(x, group, host=host),
+                  axis=label)
 
 
-def psum_(x, axis_name="dp", mesh=None):
+def psum_(x, axis_name="dp", mesh=None, host=False):
     """:func:`psum` into ``x`` itself (no gradient): the data-parallel
     step's flat gradient buckets, which it owns."""
     if _dist() is None:
         return x
     group, _, label = _resolve(axis_name, mesh)
-    return _issue("psum", x, lambda: _allreduce_raw(x, group, inplace=True),
+    return _issue("psum", x, lambda: _allreduce_raw(x, group, inplace=True,
+                                                    host=host),
                   axis=label)
 
 
-def pmean(x, axis_name="dp", mesh=None):
+def pmax(x, axis_name="dp", mesh=None, host=False):
+    """Elementwise maximum of ``x`` over the ranks of ``axis_name`` (no
+    gradient)."""
+    if _dist() is None:
+        return x
+    group, _, label = _resolve(axis_name, mesh)
+    return _issue("pmax", x, lambda: _allreduce_raw(x, group, op="max",
+                                                    host=host),
+                  axis=label)
+
+
+def pmean(x, axis_name="dp", mesh=None, host=False):
     if _dist() is None:
         return x
     _, n, _ = _resolve(axis_name, mesh)
-    return psum(x, axis_name, mesh) / n
+    return psum(x, axis_name, mesh, host) / n
 
 
 def all_gather(x, axis_name="dp", axis=0, tiled=True, mesh=None,
@@ -232,7 +255,7 @@ def reduce_scatter(x, axis_name="dp", scatter_dimension=0, mesh=None,
                          f"{tuple(x.shape)} not divisible by {n}")
     from .mesh import get_default_mesh
 
-    idx = (mesh or get_default_mesh()).axis_index(label) \
+    idx = (mesh or get_default_mesh()).axis_index(axis_name) \
         if label != "world" else rank()
 
     def run():
@@ -251,7 +274,15 @@ def reduce_scatter(x, axis_name="dp", scatter_dimension=0, mesh=None,
     return _issue("reduce_scatter", x, run, axis=label)
 
 
-def ppermute(x, perm, axis_name="sp", mesh=None):
+def _axis_ranks(axis_name, mesh):
+    if axis_name in (None, "world"):
+        return list(range(world_size()))
+    from .mesh import get_default_mesh
+
+    return (mesh or get_default_mesh()).axis_ranks(axis_name)
+
+
+def ppermute(x, perm, axis_name="sp", mesh=None, host=False):
     """Send ``x`` along the ``(source, destination)`` pairs of ``perm``
     (indices along ``axis_name``); a rank no pair sends to gets zeros, as
     in the reference."""
@@ -259,16 +290,12 @@ def ppermute(x, perm, axis_name="sp", mesh=None):
         src = {d: s for s, d in perm}
         return x.clone() if src.get(0) == 0 else torch.zeros_like(x)
     group, _, label = _resolve(axis_name, mesh)
-    from .mesh import get_default_mesh
-
-    m = mesh or get_default_mesh()
-    ranks = m.axis_ranks(label) if label != "world" else \
-        list(range(world_size()))
+    ranks = _axis_ranks(axis_name, mesh)
     me = ranks.index(rank())
 
     def run():
         dist = _dist()
-        buf = _staged(x, group).contiguous()
+        buf = _staged(x, group, host).contiguous()
         out = torch.zeros_like(buf)
         ops = []
         for s, d in perm:
@@ -284,8 +311,40 @@ def ppermute(x, perm, axis_name="sp", mesh=None):
     return _issue("ppermute", x, run, axis=label)
 
 
+def send(x, dst, axis_name="pp", mesh=None, host=False):
+    """Send ``x`` to the rank at index ``dst`` along ``axis_name`` (a
+    point-to-point pair with that rank's :func:`recv`)."""
+    if _dist() is None:
+        raise MXNetError("send: no process group")
+    group, _, label = _resolve(axis_name, mesh)
+    peer = _axis_ranks(axis_name, mesh)[dst]
+
+    def run():
+        _dist().send(_staged(x, group, host).contiguous(), peer, group=group)
+
+    _issue("send", x, run, axis=label)
+
+
+def recv(like, src, axis_name="pp", mesh=None, host=False):
+    """The tensor the rank at index ``src`` along ``axis_name`` sends
+    with :func:`send`; ``like`` gives its shape, dtype and device."""
+    if _dist() is None:
+        raise MXNetError("recv: no process group")
+    group, _, label = _resolve(axis_name, mesh)
+    peer = _axis_ranks(axis_name, mesh)[src]
+
+    def run():
+        _check(like, group, host)
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if host else like.device)
+        _dist().recv(buf, peer, group=group)
+        return buf.to(like.device)
+
+    return _issue("recv", like, run, axis=label)
+
+
 def all_to_all(x, axis_name="sp", split_axis=0, concat_axis=0, tiled=True,
-               mesh=None):
+               mesh=None, host=False):
     """Split ``x`` into one tile per rank along ``split_axis``, send tile
     j to rank j, and concatenate the received tiles along
     ``concat_axis`` (stacked on a new axis when not ``tiled``)."""
@@ -295,7 +354,7 @@ def all_to_all(x, axis_name="sp", split_axis=0, concat_axis=0, tiled=True,
 
     def run():
         chunks = [c.contiguous() for c in x.chunk(n, split_axis)]
-        stacked = _staged(torch.stack(chunks), group).contiguous()
+        stacked = _staged(torch.stack(chunks), group, host).contiguous()
         out = torch.empty_like(stacked)
         _dist().all_to_all_single(out, stacked, group=group)
         out = out.to(x.device)

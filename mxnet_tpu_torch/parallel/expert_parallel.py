@@ -5,8 +5,15 @@ Top-1 (switch) routing with capacity dropping, written as the reference
 writes it: dense one-hot dispatch and combine tensors and plain products
 (``torch.einsum`` / ``matmul``), so the shapes are static.  Tokens beyond
 an expert's capacity get combine weight 0 (they pass through the
-residual).  Sharding the expert axis over a mesh (``mesh=``) waits for the
-second multi-GPU slice (ROADMAP A6) and raises here.
+residual).
+
+Expert parallelism (``mesh=``): every rank of the ``ep`` axis routes the
+same tokens, computes only its own ``E / ep`` experts on their dispatched
+slots, and the experts' outputs come back to every rank by an all-gather
+over ``ep`` (what the reference's two sharding constraints make GSPMD
+do).  The expert weights stay the whole stacked tree, as the reference
+takes them; each rank reads its rows, and their gradient comes back whole
+on every rank.
 """
 from __future__ import annotations
 
@@ -36,8 +43,29 @@ def stack_expert_params(per_expert):
     return _tree_map(lambda *xs: torch.stack(xs), *per_expert)
 
 
+class _ExpertRows(torch.autograd.Function):
+    """Rows ``[lo, hi)`` of a stacked expert leaf; the gradient comes back
+    to the whole leaf on every ``ep`` rank (each rank's rows summed over
+    ``ep``)."""
+
+    @staticmethod
+    def forward(ctx, leaf, lo, hi, mesh, axis, host):
+        ctx.meta = (leaf.shape, lo, hi, mesh, axis, host)
+        return leaf[lo:hi]
+
+    @staticmethod
+    def backward(ctx, g):
+        from . import collectives
+
+        shape, lo, hi, mesh, axis, host = ctx.meta
+        full = torch.zeros(shape, dtype=g.dtype, device=g.device)
+        full[lo:hi] = g
+        return (collectives.psum(full, axis, mesh, host), None, None, None,
+                None, None)
+
+
 def moe_apply(expert_fn, expert_params, router_weight, x, mesh=None,
-              capacity_factor=1.25):
+              axis="ep", capacity_factor=1.25):
     """Top-1 MoE layer.
 
     ``expert_fn(params_one_expert, tokens (C, d)) -> (C, d)``;
@@ -46,13 +74,13 @@ def moe_apply(expert_fn, expert_params, router_weight, x, mesh=None,
     load-balancing loss ``E * sum_e f_e * p_e`` (Switch Transformer eq. 4)
     in fp32, each expert's load and the number of dropped tokens, both
     int32.  Each expert's capacity is ``C = max(1, int(capacity_factor * T
-    / E))``."""
-    if mesh is not None:
-        raise MXNetError("moe_apply over a mesh (expert parallelism) comes "
-                         "with the second multi-GPU slice (ROADMAP A6); "
-                         "call it with mesh=None on one device")
+    / E))``.  ``mesh``: the experts split over its ``axis`` (every rank
+    passes the same tokens)."""
     T = x.shape[0]
     E = router_weight.shape[1]
+    n = 1 if mesh is None else mesh.axis_size(axis)
+    if E % n:
+        raise MXNetError(f"num experts {E} not divisible by ep axis {n}")
     C = max(1, int(capacity_factor * T / E))
 
     gates = torch.softmax(x @ router_weight, dim=-1)          # (T, E)
@@ -69,11 +97,27 @@ def moe_apply(expert_fn, expert_params, router_weight, x, mesh=None,
     combine = dispatch * gate[:, None, None]
 
     expert_in = torch.einsum("tec,td->ecd", dispatch, x)      # (E, C, d)
+    lo, hi = 0, E
+    if n > 1:
+        from . import collectives
+
+        host = collectives.needs_host(x)
+        per = E // n
+        lo = mesh.axis_index(axis) * per
+        hi = lo + per
+        expert_params = _tree_map(
+            lambda leaf: _ExpertRows.apply(leaf, lo, hi, mesh, axis, host),
+            expert_params)
     # one expert at a time: torch.func.vmap refuses the saved-tensor hooks
     # of a rematerialized (checkpointed) caller
     expert_out = torch.stack([
         expert_fn(_tree_map(lambda leaf, e=e: leaf[e], expert_params),
-                  expert_in[e]) for e in range(E)])
+                  expert_in[lo + e]) for e in range(hi - lo)])
+    if n > 1:
+        from .tensor_parallel import _GatherFromTP
+
+        # every rank's experts, back on every rank
+        expert_out = _GatherFromTP.apply(expert_out, (mesh, axis, host), 0)
     out = torch.einsum("tec,ecd->td", combine, expert_out)
 
     # statistics in int32 / fp32: a bf16 one-hot summed over >256 tokens

@@ -19,7 +19,7 @@ from ..gluon.parameter import (_TRACE, DeferredInitializationError,
                                _TraceContext)
 from ..ndarray.ndarray import _AMP, NDArray
 
-__all__ = ["functionalize", "rematerialize"]
+__all__ = ["functionalize", "functionalize_part", "rematerialize"]
 
 
 def functionalize(net, train_mode=False, with_state=False):
@@ -70,6 +70,34 @@ def functionalize(net, train_mode=False, with_state=False):
                                 for p, v in tc.state_updates)
 
     return apply_fn, params
+
+
+def functionalize_part(net, fn, names, train_mode=False):
+    """``apply(params_dict, *inputs)`` running ``fn(*inputs)`` (NDArrays
+    in and out, calling ``net``'s blocks) with the parameters named in
+    ``names`` answered from ``params_dict``, as :func:`functionalize`
+    answers them all: a piece of a net's forward (a pipeline's embedding
+    or head) over a subset of its parameters."""
+    names = set(names)
+    plist = [(name, p) for name, p in sorted(net.collect_params().items())
+             if name in names]
+
+    def apply(params_dict, *inputs):
+        tc = _TraceContext({p: NDArray._wrap(params_dict[name])
+                            for name, p in plist})
+        prev = _TRACE.ctx
+        _TRACE.ctx = tc
+        try:
+            with _ag._scope(recording=torch.is_grad_enabled(),
+                            training=train_mode):
+                leaves, spec = flatten(inputs)
+                out = fn(*unflatten(spec, leaves, NDArray._wrap))
+        finally:
+            _TRACE.ctx = prev
+        leaves, spec = flatten(out)
+        return unflatten(spec, leaves)
+
+    return apply
 
 
 def _scopes():

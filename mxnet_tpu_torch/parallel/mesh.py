@@ -5,9 +5,16 @@ port runs one process per device under ``torch.distributed``, so its
 mesh is a named grid of process ranks: ``make_mesh`` keeps the reference's
 ``AXES`` and its rule that ``dp`` absorbs what the other axes leave.  An
 axis resolves to the process group of this rank's line along it
-(:meth:`Mesh.group`), which ``collectives`` reduce over.  Only ``dp`` and
-``fsdp`` may exceed 1 in this slice: tensor, sequence, expert and
-pipeline axes come with the second multi-GPU slice (ROADMAP A6).
+(:meth:`Mesh.group`), which ``collectives`` reduce over; every axis,
+``tp``, ``sp``, ``ep`` and ``pp`` as well as ``dp`` and ``fsdp``, resolves
+the same way.
+
+The reference's ``PartitionSpec`` / ``NamedSharding`` pair is the port's
+:class:`PartitionSpec` (a tuple of axis names, ``None`` or tuples of
+names, one entry a tensor dim) and :class:`Placement` (a spec on a mesh).
+A process holds only its own tile of a placed tensor: ``Placement.shard``
+cuts it from the whole tensor, ``Placement.gather`` puts the whole tensor
+back together from every rank's tile.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ import numpy as _np
 from ..base import MXNetError
 
 __all__ = ["make_mesh", "get_default_mesh", "set_default_mesh", "AXES",
-           "Mesh"]
+           "Mesh", "PartitionSpec", "Placement"]
 
 AXES = ("dp", "fsdp", "tp", "sp", "ep", "pp")
 
@@ -118,12 +125,6 @@ def make_mesh(dp=None, tp=1, sp=1, ep=1, pp=1, fsdp=1, devices=None):
     processes, fsdp=2 -> ('dp','fsdp','tp','sp','ep','pp') =
     (4,2,1,1,1,1).  Without a process group the mesh is this one
     process."""
-    for name, size in (("tp", tp), ("sp", sp), ("ep", ep), ("pp", pp)):
-        if size != 1:
-            raise MXNetError(
-                f"make_mesh({name}={size}): tensor, sequence, expert and "
-                f"pipeline axes come with the second multi-GPU slice "
-                f"(ROADMAP A6); this slice shards dp and fsdp only")
     world, _ = _world()
     devices = list(range(world)) if devices is None else \
         [int(d) for d in devices]
@@ -150,3 +151,65 @@ def get_default_mesh():
     if _DEFAULT is None or _DEFAULT.size != _world()[0]:
         _DEFAULT = make_mesh()
     return _DEFAULT
+
+
+class PartitionSpec(tuple):
+    """The placement of a tensor's dims on mesh axes: one entry a dim,
+    an axis name, ``None`` (not split) or a tuple of names (split over
+    their product, the first the major one).  Missing trailing entries
+    are ``None``.  ``PartitionSpec()`` is replicated."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (tuple(e) if isinstance(e, list) else e
+                                     for e in entries))
+
+    def __repr__(self):
+        return "PartitionSpec(" + ", ".join(repr(e) for e in self) + ")"
+
+
+def _entry_axes(entry):
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+class Placement:
+    """A :class:`PartitionSpec` on a :class:`Mesh` (the reference's
+    ``NamedSharding``)."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = PartitionSpec(*spec)
+
+    def __repr__(self):
+        return f"Placement({self.mesh!r}, {self.spec!r})"
+
+    def split_dims(self):
+        """``[(dim, axes), ...]`` of the dims that are split, axes a tuple
+        of names of size > 1."""
+        out = []
+        for d, e in enumerate(self.spec):
+            axes = tuple(a for a in _entry_axes(e)
+                         if self.mesh.shape.get(a, 1) > 1)
+            if axes:
+                out.append((d, axes))
+        return out
+
+    def shard(self, full):
+        """This rank's tile of the whole tensor ``full`` (a view)."""
+        out = full
+        for d, axes in self.split_dims():
+            out = out.chunk(self.mesh.axis_size(axes), d)[
+                self.mesh.axis_index(axes)]
+        return out
+
+    def gather(self, local, host=False):
+        """The whole tensor from every rank's tile (a collective over each
+        split dim's axes; ``local`` itself when nothing is split)."""
+        from . import collectives
+
+        out = local
+        for d, axes in reversed(self.split_dims()):
+            out = collectives.all_gather(out, axes, axis=d, mesh=self.mesh,
+                                         host=host)
+        return out

@@ -11,7 +11,11 @@ a process.
 - The bucket plan (``bucketing.Bucketer``) is deterministic on every
   process; the shard layout is ``bucketing.shard_layout`` (flat size
   padded to a multiple of dp, contiguous shards).  ``dp`` is the number
-  of processes.
+  of processes, or, when a sharding plan governs the engine
+  (``ZeroBucketEngine(opt, plan=)`` or the session default,
+  ``planner.set_default_plan``), the plan's data-parallel degree
+  (``ShardingPlan.zero_shards``): the shards then live on the plan's
+  ``dp`` x ``fsdp`` ranks.
 - State is keyed by **(plan generation, bucket index)**: a replan never
   aliases state across bucket compositions.  A retired generation's
   shards are harvested to per-parameter pieces (``_carry``) and
@@ -23,8 +27,10 @@ a process.
 - The shard update is the replicated kernels' math (``ops/optimizer_ops``
   ``sgd_update``, ``sgd_mom_update``, ``adam_update``) on the shard, so
   one process reproduces the replicated update bit for bit.
-- ``reshard(plan=)`` (live plan-to-plan resharding) waits for the
-  planner of the second multi-GPU slice (ROADMAP A6) and raises.
+- ``reshard(plan=)`` (live plan-to-plan resharding) and a plan over
+  another number of ranks than the process group's wait for the
+  resharding slice (ROADMAP A6: ``resharding.py`` with the elastic
+  restore) and raise.
 
 Gating: ``MXNET_ZERO`` (default off); SGD and Adam (``supports``).
 """
@@ -91,10 +97,22 @@ class ZeroBucketEngine:
                 f"ZeRO sharded update unsupported for "
                 f"{type(optimizer).__name__} (supported: "
                 f"{sorted(_SUPPORTED)})")
-        if plan is not None:
-            raise MXNetError("ZeroBucketEngine(plan=): sharding plans come "
-                             "with the planner of the second multi-GPU "
-                             "slice (ROADMAP A6)")
+        from .collectives import world_size
+
+        if plan is None:
+            from .planner import get_default_plan
+
+            plan = get_default_plan()
+        if plan is not None and world_size() > 1 and \
+                plan.device_count() != world_size():
+            raise MXNetError(
+                f"ZeroBucketEngine(plan=): the plan covers "
+                f"{plan.device_count()} ranks, the process group "
+                f"{world_size()}; moving optimizer state onto another mesh "
+                f"is resharding, which comes with the next multi-GPU slice "
+                f"(ROADMAP A6: resharding.py with the elastic restore)")
+        self._plan = plan
+        self._mesh = None
         self.optimizer = optimizer
         self._kind = kind
         self.host = host
@@ -104,10 +122,27 @@ class ZeroBucketEngine:
 
     @property
     def dp(self):
-        """Shard count: the number of processes."""
+        """Shard count: the plan's data-parallel degree
+        (``ShardingPlan.zero_shards``) when a plan governs this engine,
+        else the number of processes."""
         from .collectives import world_size
 
-        return world_size()
+        n = world_size()
+        if self._plan is not None:
+            return max(1, min(n, self._plan.zero_shards))
+        return n
+
+    def _shard_axis(self):
+        """(axis, mesh, this rank's shard index) of the reduce-scatter:
+        the plan's data axes, else every process."""
+        from .collectives import rank, world_size
+
+        if self._plan is None or world_size() == 1:
+            return "world", None, rank()
+        if self._mesh is None:
+            self._mesh = self._plan.build_mesh()
+        axes = ("dp", "fsdp")
+        return axes, self._mesh, self._mesh.axis_index(axes)
 
     def _n_state(self):
         if self._kind == "adam":
@@ -120,8 +155,6 @@ class ZeroBucketEngine:
         """This process's state shards for one bucket, re-flattened from
         carried per-parameter pieces (a restore at any dp, a replan, an
         adopted replicated updater), zeros elsewhere."""
-        from .collectives import rank
-
         flats = [torch.zeros(padded, dtype=dtype)
                  for _ in range(self._n_state())]
         for key, off, size in zip(opt_keys, bucket.offsets, bucket.sizes):
@@ -140,7 +173,7 @@ class ZeroBucketEngine:
                     flat[off:off + size] = torch.from_numpy(
                         _np.ascontiguousarray(piece, dtype=_np.float64)
                         .reshape(-1)).to(dtype)
-        me = rank()
+        me = self._shard_axis()[2]
         leaves = tuple(f[me * shard:(me + 1) * shard].clone().to(device)
                        for f in flats)
         self._state[state_key] = {
@@ -165,7 +198,8 @@ class ZeroBucketEngine:
         collective: reached at the same point on every process)."""
         from .collectives import all_gather
 
-        return [all_gather(lv.detach().cpu(), axis_name="world")
+        axis, mesh, _ = self._shard_axis()
+        return [all_gather(lv.detach().cpu(), axis_name=axis, mesh=mesh)
                 [:entry["size"]] for lv in entry["leaves"]]
 
     def _harvest_entry(self, entry):
@@ -184,9 +218,9 @@ class ZeroBucketEngine:
 
     def reshard(self, plan, budget_bytes=None):
         raise MXNetError("ZeroBucketEngine.reshard(plan=): live resharding "
-                         "comes with the planner of the second multi-GPU "
-                         "slice (ROADMAP A6); restore a checkpoint onto "
-                         "the new world size instead")
+                         "comes with the resharding slice (ROADMAP A6: "
+                         "resharding.py with the elastic restore); restore "
+                         "a checkpoint onto the new world size instead")
 
     # -- the per-bucket step -----------------------------------------------
     def step_bucket(self, generation, bucket, grad_flats, weight_flat,
@@ -222,7 +256,7 @@ class ZeroBucketEngine:
                                   opt._index_update_count[k])
                    / (1.0 - opt.beta1 ** opt._index_update_count[k])
                    for lr, k in zip(lrs, keys)]
-        me = coll.rank()
+        axis, mesh, me = self._shard_axis()
         lr = self._hyper(lrs, bucket, padded, shard, me, dev)
         wd = self._hyper(wds, bucket, padded, shard, me, dev)
         clip = opt.clip_gradient if (opt.clip_gradient or 0) > 0 else -1.0
@@ -230,14 +264,16 @@ class ZeroBucketEngine:
         for extra in grad_flats[1:]:
             g = g + extra.to(dev, dtype)
         g = torch.nn.functional.pad(g, (0, padded - g.numel()))
-        g_shard = coll.reduce_scatter(g, axis_name="world", host=self.host)
+        g_shard = coll.reduce_scatter(g, axis_name=axis, mesh=mesh,
+                                      host=self.host)
         w = torch.nn.functional.pad(weight_flat.to(dtype),
                                     (0, padded - weight_flat.numel()))
         w_shard = w[me * shard:(me + 1) * shard]
         new_shard, new_state = _shard_update(
             self._kind, opt, w_shard, g_shard, entry["leaves"], lr, wd, clip)
         entry["leaves"] = new_state
-        w_new = coll.all_gather(new_shard, axis_name="world", host=self.host)
+        w_new = coll.all_gather(new_shard, axis_name=axis, mesh=mesh,
+                                host=self.host)
         nbytes = padded * torch.empty((), dtype=dtype).element_size()
         _RS_BYTES.inc(nbytes)
         _AG_BYTES.inc(nbytes)

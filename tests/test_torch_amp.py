@@ -23,6 +23,7 @@ from mxnet_tpu_torch import autograd, gluon, nd
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.contrib import amp
 from mxnet_tpu_torch.contrib.amp import loss_scaler
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 TOL = 1e-5

@@ -15,6 +15,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd, nd
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ndarray.ndarray import apply_fn
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 

@@ -42,6 +42,7 @@ from mxnet_tpu_torch.gluon.model_zoo.language import bert as port_bert
 from mxnet_tpu_torch.ops import flash_attention as port_fa
 from mxnet_tpu_torch.ops.registry import get_op as port_get_op
 from mxnet_tpu_torch.parallel import TrainStep, functionalize
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 ATOL = 1e-5

@@ -29,6 +29,7 @@ from mxnet_tpu_torch import autograd, fault, gluon, nd, telemetry
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.checkpoint import CheckpointManager, run_with_recovery
 from mxnet_tpu_torch.gluon.model_zoo.language import bert as port_bert
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 TOL = 1e-5

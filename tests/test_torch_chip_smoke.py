@@ -89,6 +89,7 @@ from mxnet_tpu_torch.parallel import data_parallel
 from mxnet_tpu_torch.gluon.model_zoo.language import llama as port_llama
 from mxnet_tpu_torch.ops import flash_attention as port_fa
 from mxnet_tpu_torch.serving import ServingEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 _MAKE_SGD = data_parallel.make_sgd_update
 

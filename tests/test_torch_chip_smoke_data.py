@@ -17,6 +17,7 @@ import pytest
 
 import chip_smoke
 from mxnet_tpu_torch.contrib import amp
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -14,6 +14,7 @@ import numpy as np
 import chip_smoke
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.gluon.model_zoo.language import bert
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_two_rank_phase_on_the_cpu(monkeypatch):

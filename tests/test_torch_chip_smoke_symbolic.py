@@ -19,6 +19,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.contrib import amp
 from mxnet_tpu_torch.gluon.model_zoo import vision
 from mxnet_tpu_torch.gluon.model_zoo.language import bert
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -30,6 +30,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.parallel import collectives, mesh as pmesh
 
 from torch_dist_pool import DistPool
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-6
 
@@ -217,8 +218,10 @@ def test_mesh_keeps_the_reference_axes_and_rules():
     assert dict(m.shape) == dict(r.shape)
     assert pmesh.make_mesh().shape["dp"] == 1
     for axis in ("tp", "sp", "ep", "pp"):
-        with pytest.raises(MXNetError, match="second multi-GPU slice"):
-            pmesh.make_mesh(**{axis: 2})
+        # every axis resolves as dp and fsdp do; dp absorbs the rest
+        m = pmesh.make_mesh(devices=list(range(8)), **{axis: 2})
+        assert dict(m.shape) == dict(rmesh.make_mesh(**{axis: 2}).shape)
+        assert m.axis_ranks(axis, 0) == [0, 1]
     with pytest.raises(MXNetError, match="divisible"):
         pmesh.make_mesh(devices=[0, 1, 2], fsdp=2)
     pmesh.set_default_mesh(None)

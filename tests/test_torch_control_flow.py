@@ -9,6 +9,7 @@ import mxnet_tpu as rmx
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd, nd
 from mxnet_tpu_torch.base import MXNetError
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 

@@ -30,6 +30,7 @@ from mxnet_tpu.parallel import make_mesh as ref_make_mesh
 from mxnet_tpu.parallel.data_parallel import TrainStep as RefTrainStep
 
 from torch_dist_pool import DistPool
+from torch_threads import one_torch_thread  # noqa: F401
 
 BERT = dict(vocab_size=96, hidden_size=64, num_layers=1, num_heads=4,
             intermediate_size=128, max_position=32, dropout=0.0)

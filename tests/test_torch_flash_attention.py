@@ -33,6 +33,7 @@ from mxnet_tpu.ops import flash_attention as ref_fa
 from mxnet_tpu_torch import _kernels
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import flash_attention as port_fa
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

@@ -62,6 +62,7 @@ from mxnet_tpu_torch.serving import fleet as port_fleet
 from mxnet_tpu_torch.serving.fleet import health as port_health
 from mxnet_tpu_torch.serving.scheduler import QueueFullError as PortQueueFull
 from test_torch_serving import assert_greedy_match, full_logits
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 ENGINE_KW = dict(batch_buckets=[1, 2], prefill_buckets=[8, 16],

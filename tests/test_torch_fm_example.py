@@ -3,8 +3,9 @@
 (``factorization_machine_torch.py``): the reference's 20 losses within
 1e-5, with the hand update and with SGD's lazy row-sparse update.
 
-The reference's run takes ~30 s: its eager jit compiles the CSR product
-again at each new number of nonzeros, which every batch has.
+The reference runs with its eager jit cache off: with it on, it compiles
+the CSR product again at each new number of nonzeros, which every batch
+has (~30 s against ~4 s, the same losses bit for bit).
 """
 import importlib.util
 import os
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 
 import mxnet_tpu_torch as mx
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -26,9 +28,15 @@ def _load(path, name):
 
 @pytest.fixture(scope="module")
 def reference_fm_losses():
+    import mxnet_tpu as rmx
+
     ref = _load(os.path.join(REPO, "example", "sparse",
                              "factorization_machine.py"), "fm_reference")
-    return ref.run(num_features=1000, steps=20, log_every=0)
+    prev = rmx.nd.set_eager_jit(False)
+    try:
+        return ref.run(num_features=1000, steps=20, log_every=0)
+    finally:
+        rmx.nd.set_eager_jit(prev)
 
 
 @pytest.mark.parametrize("lazy", [False, True], ids=["hand", "lazy-sgd"])

@@ -22,6 +22,7 @@ from mxnet_tpu_torch import lifecycle
 from mxnet_tpu_torch.gluon import data as pdata
 from mxnet_tpu_torch.gluon.data.vision import transforms as ptf
 from mxnet_tpu.gluon.data.vision import transforms as rtf
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 

@@ -21,6 +21,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd, gluon, nd
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import load_reference_params, utils
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 TOL = 1e-5

@@ -16,6 +16,7 @@ import mxnet_tpu as rmx
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd, gluon, nd
 from mxnet_tpu_torch.gluon import load_reference_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 TOL = 1e-5

@@ -25,6 +25,7 @@ from mxnet_tpu_torch import nd
 from mxnet_tpu_torch.contrib import amp
 from mxnet_tpu_torch.gluon import load_reference_params
 from mxnet_tpu_torch.gluon.model_zoo.language import bert as port_bert
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 TOL = 1e-5

@@ -33,6 +33,7 @@ from mxnet_tpu_torch import telemetry
 from mxnet_tpu_torch.checkpoint import CheckpointManager, run_with_recovery
 from mxnet_tpu_torch.gluon import load_reference_params
 from mxnet_tpu_torch.parallel import TrainStep
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-6
 CPU = mx.cpu()

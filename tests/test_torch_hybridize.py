@@ -18,6 +18,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd, gluon, nd, telemetry
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import load_reference_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 

@@ -35,6 +35,7 @@ from mxnet_tpu_torch.gluon import load_reference_params
 from mxnet_tpu_torch.gluon.model_zoo.language import bert as port_bert
 from mxnet_tpu_torch.ops import flash_attention as port_fa
 from mxnet_tpu_torch.parallel import TrainStep
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(vocab_size=96, hidden_size=64, num_layers=2, num_heads=4,
            intermediate_size=128, max_position=32, dropout=0.0)

@@ -25,6 +25,7 @@ from mxnet_tpu import recordio as ref_rio
 from mxnet_tpu_torch import image as pimg
 from mxnet_tpu_torch import io as pio
 from mxnet_tpu_torch import recordio as rio
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 

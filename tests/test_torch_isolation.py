@@ -1,8 +1,8 @@
 """The port stands alone: no module of mxnet_tpu_torch/, and neither
 chip_smoke.py nor the port's FM example (which chip_smoke.py runs) nor
-the data-parallel tests' worker module (``tests/torch_dist_pool.py``),
-imports JAX, the reference package ``mxnet_tpu`` or the repo's
-``tools``.
+the parallel tests' worker modules (``tests/torch_dist_pool.py``,
+``tests/torch_sharded_tasks.py``), imports JAX, the reference package
+``mxnet_tpu`` or the repo's ``tools``.
 
 Checked twice: statically, over every import statement and every string
 handed to ``__import__``/``importlib.import_module``; and at run time, by
@@ -16,6 +16,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "mxnet_tpu_torch")
@@ -31,7 +32,8 @@ def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py"),
            os.path.join(REPO, "example", "sparse",
                         "factorization_machine_torch.py"),
-           os.path.join(REPO, "tests", "torch_dist_pool.py")]
+           os.path.join(REPO, "tests", "torch_dist_pool.py"),
+           os.path.join(REPO, "tests", "torch_sharded_tasks.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -81,6 +83,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import mxnet_tpu_torch.gluon.model_zoo.language.bert\n"
         "import mxnet_tpu_torch.gluon.model_zoo.vision\n"
         "import mxnet_tpu_torch.parallel, mxnet_tpu_torch.contrib.amp\n"
+        "import mxnet_tpu_torch.parallel.planner.plan\n"
+        "import mxnet_tpu_torch.parallel.tensor_parallel\n"
+        "import mxnet_tpu_torch.parallel.pipeline_parallel\n"
+        "import mxnet_tpu_torch.parallel.context_parallel\n"
         "import mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.callback\n"
         "import mxnet_tpu_torch.gluon.contrib, mxnet_tpu_torch.gluon.data\n"
         "import mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.gluon.contrib.nn\n"

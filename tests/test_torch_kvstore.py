@@ -35,6 +35,7 @@ from mxnet_tpu_torch import kvstore as pkv
 from mxnet_tpu_torch.ndarray.sparse import row_sparse_array as p_rsp
 
 from torch_dist_pool import DistPool
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 TYPES = ("local", "device", "nccl", "local_allreduce_cpu",

@@ -32,6 +32,7 @@ from mxnet_tpu_torch.gluon.data import PrefetchIterator, device_put_batch
 from mxnet_tpu_torch.gluon.model_zoo.language import bert
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
 from mxnet_tpu_torch.parallel import TrainStep
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 

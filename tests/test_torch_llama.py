@@ -21,6 +21,7 @@ from mxnet_tpu.ops import attention_ops as ref_ops
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon.model_zoo.language import llama as port_llama
 from mxnet_tpu_torch.ops import attention_ops as port_ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

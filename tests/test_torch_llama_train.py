@@ -43,6 +43,7 @@ from mxnet_tpu_torch.ops.registry import get_op
 from mxnet_tpu_torch.parallel import TrainStep
 from mxnet_tpu_torch.parallel import expert_parallel as port_ep
 from mxnet_tpu_torch.parallel import functional as port_functional
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 TOL = 1e-5
@@ -446,9 +447,21 @@ def test_moe_apply_matches_reference(capacity_factor):
                                       np.asarray(want_aux[key]))
     if capacity_factor < 1:
         assert int(aux["dropped"]) > 0
-    with pytest.raises(MXNetError, match="mesh"):
+    # over a mesh (tests/test_torch_context_parallel.py holds it at ep = 4
+    # across ranks): a one-rank mesh computes the same layer, and experts
+    # its ep axis does not divide raise
+    from mxnet_tpu_torch.parallel import make_mesh
+
+    same, _ = port_ep.moe_apply(
+        port_fn, port_ep.stack_expert_params(
+            [{k: torch.from_numpy(v) for k, v in e.items()} for e in per]),
+        torch.from_numpy(wr), torch.from_numpy(x), mesh=make_mesh(),
+        capacity_factor=capacity_factor)
+    assert torch.equal(same, got)
+    with pytest.raises(MXNetError, match="ep axis"):
         port_ep.moe_apply(port_fn, {}, torch.from_numpy(wr),
-                          torch.from_numpy(x), mesh=object())
+                          torch.from_numpy(x),
+                          mesh=make_mesh(devices=list(range(8)), ep=8))
 
 
 def test_moe_bf16_queue_positions_do_not_collide():

@@ -10,6 +10,7 @@ import mxnet_tpu as rmx
 from mxnet_tpu import metric as ref_metric
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import metric, nd
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 TOL = 1e-6

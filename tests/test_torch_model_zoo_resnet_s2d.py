@@ -12,6 +12,7 @@ from mxnet_tpu_torch import autograd, nd
 from mxnet_tpu_torch.gluon.model_zoo import vision
 
 from test_torch_model_zoo_vision import CPU, _close, _compare
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("layout", ["NCHW", "NHWC"])

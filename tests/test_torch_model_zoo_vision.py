@@ -25,6 +25,7 @@ from mxnet_tpu_torch import autograd, nd
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import load_reference_params
 from mxnet_tpu_torch.gluon.model_zoo import vision
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 TOL = 1e-4

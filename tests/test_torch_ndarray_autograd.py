@@ -27,6 +27,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.contrib import amp
 from mxnet_tpu_torch.contrib.amp import lists as port_lists
 from mxnet_tpu_torch.ops.registry import get_op as port_get_op
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 GRAD_ATOL = 1e-5

@@ -46,6 +46,7 @@ from mxnet_tpu_torch.ndarray.ndarray import invoke as port_invoke
 from mxnet_tpu_torch.ops.nn import rnn_param_size
 from mxnet_tpu_torch.ops.registry import OP_TABLE as PORT_TABLE
 from test_op_sweep import AWAY0, DISTINCT, P, POS, S, SPECS
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 SEED = 12345

@@ -32,6 +32,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd, gluon, lr_scheduler, nd
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.optimizer import optimizer as port_opt
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 TOL = 1e-6

@@ -39,6 +39,7 @@ from mxnet_tpu_torch import lifecycle as port_lifecycle
 from mxnet_tpu_torch import telemetry as port_telemetry
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.serving import tracing as port_tracing
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOTH = {"ref": (ref_env, ref_fault, ref_telemetry, ref_flight,

@@ -23,6 +23,7 @@ from mxnet_tpu import profiler as rprof
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import nd, profiler, telemetry
 from mxnet_tpu_torch.base import MXNetError
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 

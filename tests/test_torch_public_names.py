@@ -13,8 +13,9 @@ import pytest
 
 import mxnet_tpu as rmx
 import mxnet_tpu_torch as mx
+from torch_threads import one_torch_thread  # noqa: F401
 
-A6 = "the second multi-GPU slice (ROADMAP A6)"
+A6 = "the next multi-GPU slice (ROADMAP A6)"
 A8 = "the rest of A8 (ROADMAP)"
 NONE = "no counterpart in a process-per-device torch design"
 
@@ -23,12 +24,6 @@ KNOWN = {
          "numpy_extension": A8, "operator": A8, "rnn": A8, "runtime": A8},
     "contrib": {"onnx": A8, "quantization": A8, "svrg_optimization": A8,
                 "text": A8},
-    "parallel": {"context_parallel": A6, "context_parallel_attention": A6,
-                 "pipeline_apply": A6, "pipeline_parallel": A6,
-                 "planner": A6, "ring_attention": A6,
-                 "stack_stage_params": A6, "tensor_parallel": A6,
-                 "ulysses_attention": A6,
-                 "ulysses_context_parallel_attention": A6},
     "parallel.collectives": {"fetch_global": NONE, "place_global": NONE,
                              "shard_map": NONE},
     "lifecycle": {"elastic_resharder": A6},
@@ -43,7 +38,12 @@ KNOWN = {
 MODULES = ["", "nd", "ndarray", "gluon", "gluon.nn", "gluon.contrib.nn",
            "gluon.data", "gluon.loss", "kv", "kvstore", "parallel",
            "parallel.collectives", "parallel.distributed", "parallel.mesh",
-           "parallel.bucketing", "parallel.zero", "contrib", "contrib.amp",
+           "parallel.bucketing", "parallel.zero", "parallel.planner",
+           "parallel.planner.rules", "parallel.planner.hbm",
+           "parallel.planner.plan", "parallel.tensor_parallel",
+           "parallel.pipeline_parallel", "parallel.context_parallel",
+           "parallel.expert_parallel", "parallel.data_parallel",
+           "contrib", "contrib.amp",
            "optimizer", "lifecycle", "checkpoint", "guard", "autograd",
            "sym", "mod", "io", "random", "init", "lr_scheduler", "metric",
            "telemetry_agg", "profiler", "image", "recordio", "callback",

@@ -31,6 +31,7 @@ from mxnet_tpu_torch import autograd as port_ag
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ndarray.ndarray import array as _port_array
 from mxnet_tpu_torch.ndarray.ndarray import invoke as port_invoke
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 CPU = mx.cpu()

@@ -21,6 +21,7 @@ from mxnet_tpu.native import NativeRecordReader as RefReader
 from mxnet_tpu_torch import _kernels
 from mxnet_tpu_torch import recordio as rio
 from mxnet_tpu_torch.native import NativeRecordReader
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _write(pkg_rio, prefix, n=37, fmt=".npy"):

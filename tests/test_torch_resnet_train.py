@@ -52,6 +52,7 @@ from mxnet_tpu_torch.gluon import load_reference_params
 from mxnet_tpu_torch.gluon.model_zoo import vision as port_vision
 from mxnet_tpu_torch.ops import nn as port_nn
 from mxnet_tpu_torch.parallel import TrainStep, functionalize
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}

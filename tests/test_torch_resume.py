@@ -21,6 +21,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import fault, lifecycle
 from mxnet_tpu_torch.checkpoint import CheckpointManager
 from mxnet_tpu_torch.contrib import amp
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -31,6 +31,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon.model_zoo import vision as port_vision
 from mxnet_tpu_torch.gluon.model_zoo.language import bert as port_bert
 from mxnet_tpu_torch.gluon.model_zoo.language import llama as port_llama
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 DTYPES = ["float32", "float64", "float16", "bfloat16", "uint8", "int32",

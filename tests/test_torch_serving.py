@@ -26,6 +26,7 @@ from mxnet_tpu_torch.serving.scheduler import (AdmissionQueue,
                                                DeadlineExceededError,
                                                QueueFullError, Request,
                                                bucket_for, parse_buckets)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TIE = 1e-4
 ENGINE_KW = dict(batch_buckets=[1, 2], prefill_buckets=[8, 16],

@@ -38,6 +38,7 @@ from mxnet_tpu_torch import serving as port_serving
 from mxnet_tpu_torch import telemetry as port_telemetry
 from mxnet_tpu_torch.gluon.model_zoo.language import llama as port_llama
 from test_torch_serving import assert_greedy_match, full_logits
+from torch_threads import one_torch_thread  # noqa: F401
 
 ENGINE_KW = dict(batch_buckets=[1, 2], prefill_buckets=[8, 16],
                  kv_pages=32, page_size=8, max_batch=2)

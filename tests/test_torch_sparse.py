@@ -20,6 +20,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu.ndarray import sparse as rsp
 from mxnet_tpu_torch import autograd
 from mxnet_tpu_torch.ndarray import sparse as psp
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 

@@ -11,6 +11,7 @@ import pytest
 
 import mxnet_tpu as rmx
 import mxnet_tpu_torch as mx
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 TOL = 1e-5

@@ -27,6 +27,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu.gluon.model_zoo.language import bert as rbert
 from mxnet_tpu_torch.gluon import load_reference_params
 from mxnet_tpu_torch.gluon.model_zoo.language import bert as pbert
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 TOL = 1e-5

@@ -21,6 +21,7 @@ import pytest
 
 from mxnet_tpu import telemetry_agg as ragg
 from mxnet_tpu_torch import telemetry, telemetry_agg as pagg
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -10,6 +10,7 @@ import mxnet_tpu as rmx
 import mxnet_tpu_torch as mx
 from mxnet_tpu.util import test_utils as rtu
 from mxnet_tpu_torch import test_utils as tu
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = mx.cpu()
 

@@ -19,6 +19,7 @@ import pytest
 from mxnet_tpu import tuning as rtuning
 from mxnet_tpu_torch import tuning as ptuning
 from mxnet_tpu_torch.ops import flash_attention as pfa
+from torch_threads import one_torch_thread  # noqa: F401
 
 FLASH = ("flash_block_q", "flash_block_kv")
 PORT_FLASH_GRID = (64, 128)

@@ -14,7 +14,7 @@ cross both ways: the port's file written at world size 2 continues in
 the reference and in the port at world size 4, and the reference's in the
 port at 2; each resumed run equals the reference's uninterrupted run
 within 1e-5.  Payloads fold into a replicated updater with ZeRO off, and
-``reshard(plan=)`` names the second multi-GPU slice.
+``reshard(plan=)`` names the resharding slice.
 """
 import numpy as np
 import pytest
@@ -25,6 +25,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.parallel import zero as pzero
 
 from torch_dist_pool import DistPool
+from torch_threads import one_torch_thread  # noqa: F401
 
 OPTS = {"sgd": {"learning_rate": 0.1, "momentum": 0.9},
         "adam": {"learning_rate": 0.01}}
@@ -194,12 +195,19 @@ def test_payload_folds_into_a_replicated_updater():
 def test_engine_refuses_plans_and_unsupported_optimizers():
     from mxnet_tpu_torch import optimizer as opt
 
+    from mxnet_tpu_torch.parallel import planner
+
     eng = pzero.ZeroBucketEngine(opt.create("sgd", momentum=0.9))
     assert eng.dp == 1 and not eng.has_state
-    with pytest.raises(mx.MXNetError, match="second multi-GPU slice"):
+    with pytest.raises(mx.MXNetError, match="resharding slice"):
         eng.reshard(plan=object())
-    with pytest.raises(mx.MXNetError, match="second multi-GPU slice"):
-        pzero.ZeroBucketEngine(opt.create("sgd"), plan=object())
+    # a plan governs the shard count (tests/test_torch_planner.py holds
+    # it across ranks); live resharding is the next slice's
+    plan = planner.plan_sharding(planner.PlannerConfig(
+        mesh={"dp": 1}, rules="replicated", hbm_gb=16.0),
+        (("w", (4, 4), "float32"),), 1)
+    eng = pzero.ZeroBucketEngine(opt.create("sgd"), plan=plan)
+    assert eng.dp == 1 and eng._plan is plan
     with pytest.raises(mx.MXNetError, match="unsupported"):
         pzero.ZeroBucketEngine(opt.create("lamb"))
     with pytest.raises(mx.MXNetError, match="adam"):

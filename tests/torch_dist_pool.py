@@ -5,10 +5,12 @@ zero,dist_train}.py``), and the tasks they run there.
 Each worker sets ``torch.set_num_threads(1)``, joins the group through a
 ``FileStore`` under the test's temporary directory (no TCP port to
 collide with under xdist) and runs tasks until it is told to stop, then
-destroys the group.  A task is a function of this module called as
-``fn(rank, world, *args)``; its result (numpy, numbers, dicts) goes back
-to the parent, one per rank.  This module imports ``torch`` and the port,
-never ``jax`` or the reference, so the workers never do either.
+destroys the group.  A task is a function of this module (or, named
+``module.function``, of another test-side module such as
+``torch_sharded_tasks``) called as ``fn(rank, world, *args)``; its result
+(numpy, numbers, dicts) goes back to the parent, one per rank.  This
+module imports ``torch`` and the port, never ``jax`` or the reference, so
+the workers never do either.
 """
 from __future__ import annotations
 
@@ -19,6 +21,17 @@ import traceback
 import numpy as np
 
 TIMEOUT_S = 120
+
+
+def _task(name):
+    """A task of this module by name, or ``module.function`` of another
+    test-side module (``torch_sharded_tasks``)."""
+    if "." in name:
+        import importlib
+
+        mod, _, fn = name.rpartition(".")
+        return getattr(importlib.import_module(mod), fn)
+    return globals()[name]
 
 
 def _worker(rank, world, store_path, tasks, results):
@@ -37,7 +50,7 @@ def _worker(rank, world, store_path, tasks, results):
                 break
             name, args = item
             try:
-                out = ("ok", globals()[name](rank, world, *args))
+                out = ("ok", _task(name)(rank, world, *args))
             except BaseException:   # the parent re-raises it
                 out = ("err", traceback.format_exc())
             results.put((rank, out))
